@@ -27,9 +27,11 @@ import torch
 import torch.nn.functional as F
 
 from landiff_tpu_torch.config import DiTConfig
+from landiff_tpu_torch.ops.adaln import adaln_modulate
 from landiff_tpu_torch.ops.attention import attention
 from landiff_tpu_torch.ops.embeddings import timestep_embedding
 from landiff_tpu_torch.ops.norms import layer_norm
+from landiff_tpu_torch.utils import env_flag
 
 # ---------------------------------------------------------------------------
 # 3-D sincos position table (host, f64 -> f32; dit_video_concat.py:72-171)
@@ -103,11 +105,23 @@ def _layer(p, x, emb, cfg: DiTConfig):
     def sel(i):
         return torch.where(is_text, mods[6 + i][:, None], mods[i][:, None])
 
-    (shift_msa, scale_msa, gate_msa,
-     shift_mlp, scale_mlp, gate_mlp) = (sel(i) for i in range(6))
+    # LANDIFF_FUSED_ADALN=1: LayerNorm + modulate in one pass through the
+    # fused adaLN kernel (ops/adaln.py) where its shape rule holds; off by
+    # default, as in the JAX package (dit.py:261-277)
+    fused = env_flag("LANDIFF_FUSED_ADALN")
 
-    h = layer_norm(x, p["ln1_w"], p["ln1_b"], 1e-6)
-    h = h * (1.0 + scale_msa) + shift_msa
+    def modulate(y, ln, i_shift, i_scale):
+        if fused:
+            return adaln_modulate(
+                y, p[f"{ln}_w"].to(dt), p[f"{ln}_b"].to(dt),
+                mods[6 + i_shift], mods[6 + i_scale], mods[i_shift],
+                mods[i_scale], text_len=tl, impl="auto")
+        h = layer_norm(y, p[f"{ln}_w"], p[f"{ln}_b"], 1e-6)
+        return h * (1.0 + sel(i_scale)) + sel(i_shift)
+
+    gate_msa, gate_mlp = sel(2), sel(5)
+
+    h = modulate(x, "ln1", 0, 1)
     q, k, v = _linear(p, "qkv", h).chunk(3, dim=-1)
     q = q.reshape(B, S, H, Dk)
     k = k.reshape(B, S, H, Dk)
@@ -118,8 +132,7 @@ def _layer(p, x, emb, cfg: DiTConfig):
     attn = attention(q, k, v).reshape(B, S, D)
     x = x + gate_msa * _linear(p, "attn_out", attn)
 
-    h = layer_norm(x, p["ln2_w"], p["ln2_b"], 1e-6)
-    h = h * (1.0 + scale_mlp) + shift_mlp
+    h = modulate(x, "ln2", 3, 4)
     h = F.gelu(_linear(p, "mlp0", h), approximate="tanh")
     return x + gate_mlp * _linear(p, "mlp1", h)
 

@@ -100,6 +100,20 @@ def encode(params, input_ids, attn_mask, cfg: T5Config,
     return t5_layer_norm(x, params["final_ln"], cfg.layer_norm_eps)
 
 
+def cast_matmul_weights(params, dtype):
+    """The embedding and the attention / feed-forward matrices in `dtype`,
+    cast once: what `encode` casts at every use, so its result in that
+    compute dtype is unchanged. The norm weights and the relative-bias
+    table, which `encode` reads in f32, keep their dtype."""
+    blocks = []
+    for blk in params["blocks"]:
+        new = dict(blk)
+        new["attn"] = {k: v.to(dtype) for k, v in blk["attn"].items()}
+        new["ff"] = {k: v.to(dtype) for k, v in blk["ff"].items()}
+        blocks.append(new)
+    return {**params, "embed": params["embed"].to(dtype), "blocks": blocks}
+
+
 def init(gen: torch.Generator, cfg: T5Config, dtype=torch.float32):
     """Random init with T5 scaling (real use loads HF weights)."""
     D, Fd, H, Dk = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.d_kv

@@ -44,17 +44,18 @@ KERNEL_HEAD_DIM = 64
 _KV_CACHE_VMEM_BUDGET = 9 * 1024 * 1024
 
 
-def mha_reference(q, k, v, scale=None, mask_fn=None):
-    """Dense attention oracle. q, k, v: (B, S, H, D); mask_fn: a mask spec
-    (True = visible) or None. fp32 softmax, output cast to q.dtype."""
+def mha_reference(q, k, v, mask=None, scale=None, mask_fn=None):
+    """Dense attention oracle. q, k, v: (B, S, H, D); mask: bool, True =
+    visible, broadcastable to (B, H, S_q, S_kv); mask_fn: a mask spec that
+    builds it, or None. fp32 softmax, output cast to q.dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    mask = None
     if mask_fn is not None:
         qi = torch.arange(q.shape[1], device=q.device)[:, None]
         ki = torch.arange(k.shape[1], device=q.device)[None, :]
         mask = mask_fn(qi, ki)
+    if mask is not None:
         s = torch.where(mask, s, NEG_INF)
     s = s - s.amax(-1, keepdim=True)
     p = torch.exp(s)

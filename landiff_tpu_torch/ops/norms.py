@@ -8,6 +8,16 @@ from __future__ import annotations
 import torch
 
 
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm: x * rsqrt(mean(x^2) + eps) * weight. The mean of squares
+    is f32; the scale is cast to x.dtype before the multiply, as the JAX
+    function does (norms.py:18-29)."""
+    dt = x.dtype
+    var = x.float().square().mean(-1, keepdim=True)
+    return x * torch.rsqrt(var + eps).to(dt) * weight.to(dt)
+
+
 def layer_norm(x: torch.Tensor, weight=None, bias=None,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis; weight/bias optional."""

@@ -1,5 +1,6 @@
-"""3-D rotary position embeddings for TiTok (counterpart of the 3-D path
-of landiff_tpu/ops/rope.py; reference landiff/modules/pos_emb.py).
+"""Rotary position embeddings: the 1-D table of the stage-1 GPT and the
+3-D tables of TiTok (counterpart of landiff_tpu/ops/rope.py; reference
+landiff/modules/pos_emb.py).
 
 Tables are host-side float32 numpy, built once per config; application
 is an interleaved-pair rotation in fp32, cast back."""
@@ -11,7 +12,7 @@ import functools
 import numpy as np
 import torch
 
-from landiff_tpu_torch.config import Rope3DConfig
+from landiff_tpu_torch.config import Rope1DConfig, Rope3DConfig
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
@@ -27,6 +28,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     sin = sin[..., None, :].float()
     out = torch.stack([xr * cos - xi * sin, xr * sin + xi * cos], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def rope_1d_table(cfg: Rope1DConfig) -> tuple[np.ndarray, np.ndarray]:
+    """(cos, sin) tables of shape (max_len, dim//2), float32:
+    freqs_i = theta**(-2i/dim), angle(t, i) = t * freqs_i
+    (pos_emb.py:49-70)."""
+    dim, end, theta = cfg.dim, cfg.max_len, cfg.theta_base
+    freqs = 1.0 / (theta ** (np.arange(0, dim, 2)[: dim // 2]
+                             .astype(np.float32) / dim))
+    t = np.arange(end, dtype=np.float32)
+    angles = np.outer(t, freqs).astype(np.float32)
+    return np.cos(angles), np.sin(angles)
 
 
 def _axis_freqs(theta: float, n_cis: int, denom_dim: int) -> np.ndarray:

@@ -23,7 +23,7 @@ from landiff_tpu_torch.models import semantic_cond as sc_lib
 from landiff_tpu_torch.models import t5 as t5_lib
 from landiff_tpu_torch.models import vae as vae_lib
 from landiff_tpu_torch.pipeline.text import T5Text
-from landiff_tpu_torch.utils import seed_from_text
+from landiff_tpu_torch.utils import env_flag, seed_from_text
 
 
 @dataclass
@@ -48,6 +48,11 @@ class CogModelInferWrapper:
 
     def __init__(self, params, cfg: LanDiffConfig,
                  compute_dtype=torch.bfloat16, device="cuda"):
+        if env_flag("LANDIFF_DIT_INT8"):
+            raise NotImplementedError(
+                "W8A8 DiT linears (LANDIFF_DIT_INT8, LANDIFF_FAST) are not "
+                "ported yet: ROADMAP item 3, the fast serving configuration "
+                "slice")
         self.params = params
         self.cfg = cfg
         self.compute_dtype = compute_dtype

@@ -1,8 +1,9 @@
 """Shared pieces of the PyTorch-port parity tests (tests/test_torch_port_*).
 
-Parameters: `stage2_params()`, the port's own tiny-config init with its
-zero leaves filled (so no check passes vacuously on zero-init gates),
-handed to JAX in the JAX package's layouts and to the port back through
+Parameters: `stage2_params()` and `stage1_params()`, the port's own
+tiny-config init with its zero leaves filled (so no check passes
+vacuously on zero-init gates or the zero-init micro conditioner), handed
+to JAX in the JAX package's layouts and to the port back through
 `landiff_tpu_torch.bridge`. A jitted JAX init costs seconds of XLA
 compile per model; the JAX forward still checks every name and shape of
 the tree. Inputs come from numpy seeds and go to both packages as the
@@ -21,6 +22,7 @@ import torch
 from landiff_tpu_torch import bridge
 from landiff_tpu_torch import config as tcfg
 from landiff_tpu_torch.pipeline import dif_infer as tdi
+from landiff_tpu_torch.pipeline import llm_infer as tli
 from landiff_tpu_torch.utils import fill_zero_leaves, tree_map
 
 torch.set_num_threads(2)
@@ -37,6 +39,33 @@ def stage2_params():
     arrays = to_jax_layout(tparams)
     return (jax.tree_util.tree_map(jnp.asarray, arrays),
             bridge.to_torch(arrays, device="cpu"))
+
+
+@functools.lru_cache(maxsize=1)
+def stage1_params():
+    """(JAX tree, port tree) of the same tiny-config stage-1 parameters
+    {"lm": {"gpt", "tok_emb", "text_proj", "null_text_embedding",
+    "micro"}, "t5"}: the port's init with its zero leaves filled (the
+    micro conditioner's output linear is zero-init: unfilled, the prompt
+    would ignore frames and motion_score), seed 1."""
+    gen = torch.Generator().manual_seed(1)
+    cfg = tcfg.tiny_test_config()
+    tparams = fill_zero_leaves(tli.init_params(gen, cfg.llm, cfg.t5), gen)
+    arrays = to_jax_layout(tparams)
+    return (jax.tree_util.tree_map(jnp.asarray, arrays),
+            bridge.to_torch(arrays, device="cpu"))
+
+
+def gumbel_steps(seed: int, steps: int, vocab: int) -> torch.Tensor:
+    """The Gumbel noise jax.random.categorical adds at each step of the
+    JAX sampler (lm.py:395): key, sub = split(key) once per step from
+    PRNGKey(seed), then gumbel(sub, (V,)). Returns (steps, V)."""
+    key = jax.random.PRNGKey(seed)
+    out = []
+    for _ in range(steps):
+        key, sub = jax.random.split(key)
+        out.append(np.array(jax.random.gumbel(sub, (vocab,), jnp.float32)))
+    return torch.from_numpy(np.stack(out))
 
 
 def to_jax_layout(tree):
