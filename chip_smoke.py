@@ -12,7 +12,11 @@ Phases, in order; any failure exits nonzero before the last line:
   3. kernels: each flash kernel against its plain PyTorch version at the
               two main-path shapes (DiT: B=2 S=17,776 H=30 D=64 unmasked;
               TiTok decoder: B=1 S=18,768 H=12 D=64, video-decoder mask),
-              with times, bounds and the SDPA yardstick; the fused adaLN
+              with times, bounds and the SDPA yardstick; the flash
+              backward at the training shape (B=1) and the TiTok shape,
+              from the forward kernel's own out and lse, with the
+              run-to-run spread of dq and a small case whose masked rows
+              must give exactly 0; the fused adaLN
               kernel against its plain version at the DiT shape
               (2, 17,776, 1,920) bf16 with text_len 226, at a ragged shape
               and with f32 I/O, with its time beside the unfused chain's.
@@ -35,6 +39,19 @@ Phases, in order; any failure exits nonzero before the last line:
   7. exact:   one full-width control_warp_forward with int8 scores off;
               the exact kernel must launch 45 times.
   8. dit call: one warm model call timed with and without the knob.
+  9. train dit: the inference pipelines are freed; then the trainer's entry
+              point (training.train.train) takes three steps of the
+              stage-2 ControlNet step at full width in bf16 on synthesized
+              data (batch 1), saves a checkpoint, and a second call resumes
+              from it for a fourth step. Every loss finite, every control
+              leaf's gradient finite and not all zero, the control
+              parameters changed, the main and semantic parameters
+              untouched; per step the backward kernel launches 44 times,
+              the exact forward 88 (remat), the int8 forward 13. Then one
+              step by hand for the forward / backward / optimizer split.
+  10. train lm: two steps of the stage-1 step at full width (GPT 24 x
+              2,048, f32); losses finite, parameters changed, no flash
+              launch.
   (--profile: one warm denoise-step model call, without and with the knob,
    and 20 stage-1 decode steps, under torch.profiler.)
 Then one JSON line with every kernel's numbers, and the last line
@@ -45,10 +62,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -65,6 +84,17 @@ import numpy as np
 KERNEL_TOL_STEPS = 0.5
 KERNEL_TOL_RMS = 1e-3
 LSE_TOL = 1e-5
+
+# Backward kernel vs plain (attention.kernel_error per tensor, dq / dk /
+# dv): p and scale*ds are rounded to bf16 in both from exp2 results and f32
+# sums that differ in their last bits, and dq is summed by atomics in an
+# order that changes from run to run. Readings on an H100 at the two cases
+# below: at most 1.0 bf16 steps at the largest |plain| value (dv at the
+# TiTok shape; 0.25 at the training shape) and a relative RMS error of
+# 3.9e-4; dq differs between two runs by at most 0.125 steps, in 2e-4 of
+# its elements. The limits are about twice the readings and more.
+BWD_TOL_STEPS = 2.0
+BWD_TOL_RMS = 2e-3
 
 # adaLN kernel vs plain: both compute a row in f32 and round once, so in
 # bf16 an element differs by at most one bf16 step (taken at the element's
@@ -210,7 +240,133 @@ def phase_kernels():
     faults = [f for dit, titok in results.values()
               for f in dit["faults"] + titok["faults"]]
     check(not faults, "kernel vs plain: " + "; ".join(faults))
+    results["flash_bwd"] = phase_bwd_kernel(dec)
     return results
+
+
+def bwd_case(name, B, S, H, mask_fn, seed):
+    """flash_bwd against flash_bwd_plain from the exact forward kernel's
+    own out and lse; the SDPA backward, timed alone, as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from landiff_tpu_torch.ops import attention as A
+    from landiff_tpu_torch.ops import masks as M
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D = 64
+    r = lambda: torch.randn((B, S, H, D), generator=g, device=dev)
+    q, k, v, do = (r() * 1.5).bfloat16(), r().bfloat16(), r().bfloat16(), \
+        r().bfloat16()
+    out, lse = A.flash_fwd_exact(q, k, v, mask_fn=mask_fn)
+    call = lambda: A.flash_bwd(q, k, v, out, lse, do, mask_fn=mask_fn)
+    got = call()                                     # first call: tables
+    torch.cuda.synchronize()
+    again = call()
+    ms = cuda_ms(call, 3)
+    t0 = time.perf_counter()
+    want = A.flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mask_fn)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+
+    errs, faults = {}, []
+    for tname, gt, wt in zip(("dq", "dk", "dv"), got, want):
+        steps, rel_rms = A.kernel_error(gt, wt)
+        errs[tname] = {
+            "max_abs_err": (gt.float() - wt.float()).abs().max().item(),
+            "max_bf16_steps": steps, "rel_rms_err": rel_rms}
+        for ok, what in (
+                (bool(torch.isfinite(gt.float()).all()), "not finite"),
+                (steps <= BWD_TOL_STEPS, f"max |err| {steps} bf16 steps"),
+                (rel_rms <= BWD_TOL_RMS, f"relative RMS error {rel_rms}")):
+            if not ok:
+                faults.append(f"flash_bwd {name} {tname}: {what}")
+    # run to run: dk, dv are deterministic, dq is summed by atomics
+    for tname, a, b in zip(("dk", "dv"), got[1:], again[1:]):
+        if not torch.equal(a, b):
+            faults.append(f"flash_bwd {name}: {tname} differs between runs")
+    dq_steps, dq_rms = A.kernel_error(again[0], got[0])
+    spread = {"dq_max_bf16_steps": dq_steps, "dq_rel_rms": dq_rms,
+              "dq_share_of_elements_differing":
+                  (again[0] != got[0]).float().mean().item()}
+    del again, want
+
+    library_ms = None
+    if mask_fn is None:       # the backward of SDPA at the unmasked shape
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        try:   # a yardstick only: a backend that refuses the shape -> null
+            o = F.scaled_dot_product_attention(qt, kt, vt)
+            dot = do.transpose(1, 2)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(
+                o, (qt, kt, vt), dot, retain_graph=True), 3)
+            del o
+        except (RuntimeError, torch.OutOfMemoryError) as e:
+            log(json.dumps({"library_refused": name, "error": str(e)[:200]}))
+
+    visible = M.visible_count(mask_fn, S, S, device="cuda")
+    flops = 10.0 * B * H * visible * D
+    ops_s = flops / PEAK_BF16
+    # q k v do out read, dq dk dv written (bf16), lse read (f32)
+    nbytes = 8 * B * S * H * D * 2 + B * H * S * 4
+    bytes_s = nbytes / PEAK_BYTES
+    res = {
+        "case": name, "shape": [B, S, H, D],
+        "mask": None if mask_fn is None else type(mask_fn).__name__
+        + f"(kind={mask_fn.descriptor()[0]})",
+        "visible_pairs": visible, "errors": errs,
+        "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+        "run_to_run": spread, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
+        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+        "exp2_bound_ms": B * H * visible / PEAK_EXP2 * 1e3,
+        "tflops": flops / (ms * 1e-3) / 1e12, "faults": faults}
+    log(json.dumps({"kernel": "flash_bwd", **res}))
+    del q, k, v, do, out, lse, got
+    torch.cuda.empty_cache()
+    return res
+
+
+def bwd_masked_rows_case():
+    """Rows past the video-decoder layout see nothing and no row sees the
+    kv positions there: their dq, dk, dv must be exactly 0 (ragged tiles:
+    430 = 6 * 64 + 46)."""
+    import torch
+
+    from landiff_tpu_torch.ops import attention as A
+    from landiff_tpu_torch.ops import masks as M
+
+    layout = M.VideoMaskLayout(num_frames=3, tokens_per_frame=100,
+                               iframe_tokens=70, pframe_tokens=10)
+    n, S = layout.seq_len, layout.seq_len + 40
+    mask = M.video_decoder_mask(layout)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    r = lambda: torch.randn((2, S, 3, 64), generator=g,
+                            device="cuda").bfloat16()
+    q, k, v, do = r(), r(), r(), r()
+    out, lse = A.flash_fwd_exact(q, k, v, mask_fn=mask)
+    got = A.flash_bwd(q, k, v, out, lse, do, mask_fn=mask)
+    want = A.flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mask)
+    for tname, gt, wt in zip(("dq", "dk", "dv"), got, want):
+        check(float(gt[:, n:].abs().max()) == 0.0,
+              f"flash_bwd masked rows: {tname} is not exactly 0 there")
+        steps, rel_rms = A.kernel_error(gt, wt)
+        check(steps <= BWD_TOL_STEPS and rel_rms <= BWD_TOL_RMS,
+              f"flash_bwd masked rows {tname}: {steps} steps, rms {rel_rms}")
+    log(json.dumps({"kernel": "flash_bwd", "case": "masked_rows",
+                    "shape": [2, S, 3, 64], "rows_past_layout": S - n,
+                    "exactly_zero": True}))
+
+
+def phase_bwd_kernel(dec_mask):
+    train = bwd_case("dit_train", 1, 17776, 30, None, seed=21)
+    titok = bwd_case("titok_dec", 1, 18768, 12, dec_mask, seed=22)
+    bwd_masked_rows_case()
+    faults = train["faults"] + titok["faults"]
+    check(not faults, "kernel vs plain: " + "; ".join(faults))
+    train["titok_dec"] = titok
+    return train
 
 
 def adaln_case(name, B, S, D, text_len, dtype_name, seed, timed):
@@ -302,6 +458,7 @@ def read_counts():
 
     return {"flash_fwd_int8": A.flash_fwd_int8.launches,
             "flash_fwd_exact": A.flash_fwd_exact.launches,
+            "flash_bwd": A.flash_bwd.launches,
             "adaln": N.adaln_fused.launches}
 
 
@@ -724,6 +881,259 @@ def phase_profile(cfg, params, fused):
 
 
 # ---------------------------------------------------------------------------
+# phases 9-10: the trainer at full width
+
+
+# per optimizer step of the stage-2 trainer (batch 1, remat): 15 control
+# layers and main layers 1-29 are differentiated (main layer 0 sees no
+# input that depends on the control branch): one exact forward, its
+# recompute and one backward each; main layer 0 and the 12 TiTok decoder
+# layers of the semantic conditioner take the int8 forward
+TRAIN_DIT_LAUNCHES = {"flash_bwd": 44, "flash_fwd_exact": 88,
+                      "flash_fwd_int8": 13, "adaln": 0}
+
+
+def step_seconds(rows):
+    """Seconds of each logged step from the cumulative means the trainer
+    logs (sec_per_step = elapsed / steps so far, log_every=1)."""
+    total = [r["sec_per_step"] * (i + 1) for i, r in enumerate(rows)]
+    return [b - a for a, b in zip([0.0] + total, total)]
+
+
+def leaf_sums(tree):
+    """A (sum, sum of |x|) pair per leaf in f64: equal pairs before and
+    after mean the tree was not touched."""
+    import torch
+
+    from landiff_tpu_torch.utils import tree_leaves
+
+    sums = torch.stack([torch.stack((t.double().sum(), t.double().abs().sum()))
+                        for t in tree_leaves(tree)])
+    return sums.cpu()
+
+
+def phase_train_dit(workdir):
+    """training.train.train("dit") at full width, bf16, batch 1: three
+    steps and a checkpoint, then a resumed fourth. The parameter inits are
+    wrapped so that the zero-init leaves are filled (as for the inference
+    phases) and the trees can be inspected afterwards; the gradient
+    function is wrapped to inspect every step's gradients."""
+    import torch
+
+    from landiff_tpu_torch.config import LanDiffConfig
+    from landiff_tpu_torch.models import dit as dit_lib
+    from landiff_tpu_torch.models import semantic_cond as sc_lib
+    from landiff_tpu_torch.training import diffusion_loss, optim
+    from landiff_tpu_torch.training import train as train_lib
+    from landiff_tpu_torch.utils import (count_params, fill_zero_leaves,
+                                         tree_leaves)
+
+    cfg = LanDiffConfig()
+    data, ckpt = workdir / "dit_data", workdir / "dit_ckpt"
+    metrics = workdir / "dit_metrics.jsonl"
+    train_lib.synthesize("dit", cfg, 4, str(data), seed=0, shard_size=4)
+
+    made, grad_reports = {}, []
+    orig_dit_init, orig_sc_init = dit_lib.init, sc_lib.init
+    orig_grad = optim.grad
+
+    def dit_init(gen, c, *, control=False, dtype=torch.float32):
+        tree = fill_zero_leaves(
+            orig_dit_init(gen, c, control=control, dtype=dtype), gen)
+        made["control" if control else "main"] = tree
+        return tree
+
+    def sc_init(gen, *a, **kw):
+        made["sem"] = fill_zero_leaves(orig_sc_init(gen, *a, **kw), gen)
+        return made["sem"]
+
+    def grad(loss, params):
+        grads = orig_grad(loss, params)
+        leaves = tree_leaves(grads)
+        finite = torch.stack([torch.isfinite(g).all() for g in leaves])
+        nonzero = torch.stack([g.any() for g in leaves])
+        grad_reports.append({
+            "leaves": len(leaves), "finite": int(finite.sum()),
+            "not_all_zero": int(nonzero.sum()),
+            "global_norm": float(optim.global_norm(grads))})
+        return grads
+
+    dit_lib.init, sc_lib.init, optim.grad = dit_init, sc_init, grad
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, last = train_lib.train(
+            "dit", str(data), steps=3, batch_size=1, dtype=torch.bfloat16,
+            ckpt_dir=str(ckpt), log_every=1, metrics_path=str(metrics),
+            device="cuda")
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        first_launches = read_counts()
+        first = dict(made)
+        before = {k: leaf_sums(first[k]) for k in ("main", "sem")}
+        rows = [json.loads(l) for l in metrics.read_text().splitlines()]
+
+        reset_counts()
+        t0 = time.perf_counter()
+        state2, last2 = train_lib.train(
+            "dit", str(data), steps=4, batch_size=1, dtype=torch.bfloat16,
+            ckpt_dir=str(ckpt), log_every=1, metrics_path=str(metrics),
+            resume=True, device="cuda")
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        resumed_launches = read_counts()
+    finally:
+        dit_lib.init, sc_lib.init, optim.grad = (orig_dit_init, orig_sc_init,
+                                                 orig_grad)
+    all_rows = [json.loads(l) for l in metrics.read_text().splitlines()]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check([r["step"] for r in all_rows] == [1, 2, 3, 4],
+          f"logged steps {[r['step'] for r in all_rows]}")
+    check(all(np.isfinite(r["loss"]) for r in all_rows),
+          f"losses {[r['loss'] for r in all_rows]}")
+    check(len(grad_reports) == 4, f"{len(grad_reports)} gradient passes")
+    for i, rep in enumerate(grad_reports):
+        check(rep["finite"] == rep["leaves"],
+              f"step {i + 1}: a control gradient is not finite: {rep}")
+        # final_ln_w / final_ln_b of the control tree are read by no
+        # control forward (it has no final head), in JAX as here
+        check(rep["not_all_zero"] == rep["leaves"] - 2,
+              f"step {i + 1}: a control gradient is all zero: {rep}")
+    for got, n in ((first_launches, 3), (resumed_launches, 1)):
+        want = {k: v * n for k, v in TRAIN_DIT_LAUNCHES.items()}
+        check(got == want, f"launches over {n} steps {got}, want {want}")
+    # the frozen trees were not touched by three steps
+    for k in ("main", "sem"):
+        check(torch.equal(leaf_sums(first[k]), before[k]),
+              f"the {k} parameters changed")
+    # the control branch moved (the first update has rate 0, the second not)
+    ctrl0, ctrl3 = tree_leaves(first["control"]), tree_leaves(state[0])
+    changed = [not torch.equal(a, b) for a, b in zip(ctrl0, ctrl3)]
+    matrices = [c for c, a in zip(changed, ctrl0) if a.dim() >= 2]
+    check(all(matrices), "a control matrix did not change in three steps")
+    ctrl4 = tree_leaves(state2[0])
+    check(any(not torch.equal(a, b) for a, b in zip(ctrl3, ctrl4)),
+          "the resumed step changed nothing")
+    check(all(bool(torch.isfinite(t.float()).all()) for t in ctrl4),
+          "a control parameter is not finite after four steps")
+
+    log(json.dumps({
+        "phase": "train_dit", "dtype": "bf16", "batch_size": 1,
+        "params": {k: count_params(first[k]) for k in first},
+        "losses": [r["loss"] for r in all_rows],
+        "step_seconds": step_seconds(rows),
+        "resumed_step_seconds": all_rows[-1]["sec_per_step"],
+        "train_call_seconds": [first_s, resumed_s],
+        "gradients": grad_reports,
+        "control_leaves_changed": [sum(changed), len(changed)],
+        "launches_per_step": TRAIN_DIT_LAUNCHES,
+        "launches": {"three_steps": first_launches,
+                     "resumed_step": resumed_launches},
+        "peak_gpu_mem_gb": peak_gb}))
+
+    # one more step by hand for the split: forward, backward (with the
+    # recompute of 44 layers), optimizer update
+    made2 = dict(made)     # the resumed call's frozen trees
+    del first, before, state, ctrl0, ctrl3
+    d = cfg.dit
+    g = torch.Generator(device="cuda").manual_seed(31)
+    lat = torch.randn((1, d.latent_frames, d.in_channels, d.latent_height,
+                       d.latent_width), generator=g, device="cuda")
+    ctx = torch.randn((1, d.text_length, d.text_dim), generator=g,
+                      device="cuda")
+    tokens = torch.randint(0, cfg.tokenizer.vq.codebook_size,
+                           (1, cfg.tokenizer.titok.latent_tokens),
+                           generator=g, device="cuda")
+    opt = train_lib.make_optimizer(1e-4, 4)
+    ctrl = optim.require_grad(state2[0])
+    opt_state = state2[1]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss = diffusion_loss.video_diffusion_loss(
+        made2["main"], ctrl, made2["sem"], lat, ctx, tokens, g, d,
+        cfg.sampler, cfg.tokenizer, cfg.semantic_cond,
+        compute_dtype=torch.bfloat16, remat=True)
+    ev[1].record()
+    grads = orig_grad(loss, ctrl)
+    ev[2].record()
+    updates, opt_state = opt.update(grads, opt_state, ctrl)
+    optim.apply_updates(ctrl, updates)
+    ev[3].record()
+    torch.cuda.synchronize()
+    log(json.dumps({
+        "phase": "train_dit_split", "what": "one step by hand, batch 1",
+        "forward_ms": ev[0].elapsed_time(ev[1]),
+        "backward_with_recompute_ms": ev[1].elapsed_time(ev[2]),
+        "optimizer_ms": ev[2].elapsed_time(ev[3]),
+        "loss": float(loss.detach())}))
+    return first_launches
+
+
+def phase_train_lm(workdir):
+    """training.train.train("lm") at full width (GPT 24 x 2,048, f32, the
+    trainer's default), two steps, batch 1: the dense attention route, no
+    flash launch."""
+    import torch
+
+    from landiff_tpu_torch.config import LanDiffConfig
+    from landiff_tpu_torch.models import lm as lm_lib
+    from landiff_tpu_torch.training import train as train_lib
+    from landiff_tpu_torch.utils import count_params, tree_leaves
+
+    cfg = LanDiffConfig()
+    data, metrics = workdir / "lm_data", workdir / "lm_metrics.jsonl"
+    train_lib.synthesize("lm", cfg, 2, str(data), seed=0, shard_size=2)
+    made = {}
+    orig_init = lm_lib.init
+
+    def lm_init(gen, *a, **kw):
+        made["lm"] = orig_init(gen, *a, **kw)
+        return made["lm"]
+
+    lm_lib.init = lm_init
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, last = train_lib.train(
+            "lm", str(data), steps=2, batch_size=1, log_every=1,
+            metrics_path=str(metrics), device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        lm_lib.init = orig_init
+    launches = read_counts()
+    rows = [json.loads(l) for l in metrics.read_text().splitlines()]
+    check([r["step"] for r in rows] == [1, 2], f"logged steps {rows}")
+    check(all(np.isfinite(r["loss"]) for r in rows), f"losses {rows}")
+    check(not any(launches.values()),
+          f"a kernel launched on the stage-1 step: {launches}")
+    before, after = tree_leaves(made["lm"]), tree_leaves(state[0])
+    changed = [not torch.equal(a, b) for a, b in zip(before, after)]
+    # every GPT matrix and the token embedding moved in the second update
+    # (the first has rate 0); the micro conditioner's first linear sits
+    # behind a zero-init output linear and gets no gradient yet
+    moved = [not torch.equal(a, b) for a, b in zip(
+        tree_leaves(made["lm"]["gpt"]) + [made["lm"]["tok_emb"]],
+        tree_leaves(state[0]["gpt"]) + [state[0]["tok_emb"]]) if a.dim() >= 2]
+    check(all(moved), "a GPT matrix did not change in two steps")
+    check(all(bool(torch.isfinite(t).all()) for t in after),
+          "an LM parameter is not finite after two steps")
+    sched = train_lib._lm_schedule(cfg)
+    log(json.dumps({
+        "phase": "train_lm", "dtype": "f32", "batch_size": 1,
+        "sequence": sched.full_len, "params": count_params(made["lm"]),
+        "losses": [r["loss"] for r in rows],
+        "step_seconds": step_seconds(rows), "train_call_seconds": seconds,
+        "leaves_changed": [sum(changed), len(changed)],
+        "launches": launches,
+        "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -786,7 +1196,14 @@ def main():
         phase_profile(cfg, dif.params, fused=True)
         phase_profile_decode(cfg, llm)
     del llm, dif
+    gc.collect()
     torch.cuda.empty_cache()
+    # 9. the stage-2 trainer; 10. the stage-1 trainer
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        train_launches = phase_train_dit(Path(tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_train_lm(Path(tmp))
 
     rows = []
     for kname, launches, replaces in (
@@ -818,6 +1235,21 @@ def main():
         "unfused_ms": adaln["unfused_ms"], "shape": adaln["shape"],
         "max_bf16_steps": adaln["max_bf16_steps"],
         "ragged": adaln["ragged"], "f32": adaln["f32"]})
+    bwd = measured["flash_bwd"]
+    check(train_launches["flash_bwd"] > 0,
+          "flash_bwd never launched on the training path")
+    rows.append({
+        "name": "flash_bwd", "route": "cuda",
+        "source": "landiff_tpu_torch/ops/csrc/flash_bwd.cu",
+        "replaces": "landiff_tpu/ops/attention.py:658 "
+                    "_flash_bwd_fused_kernel",
+        "launches": train_launches["flash_bwd"],
+        "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
+        "shape": bwd["shape"], "errors": bwd["errors"],
+        "run_to_run": bwd["run_to_run"], "titok_dec": bwd["titok_dec"]})
+    rows[0]["launches_train_dit"] = train_launches["flash_fwd_exact"]
     log(json.dumps({"phase": "done",
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": rows}))

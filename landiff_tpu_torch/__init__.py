@@ -7,8 +7,9 @@ of landiff_tpu. Public functions keep the JAX layouts (BSHD attention,
 (B, T, C, H, W) latents, (B, 3, T, H, W) video). Entry points run on
 "cuda" unless the caller passes device="cpu".
 
-Ported so far: stage 2 of inference (prompt + semantic tokens -> video),
-see pipeline/dif_infer.py. The flash-attention forwards run as CUDA
-kernels (ops/csrc/flash_fwd.cu) on the card and as their plain PyTorch
-versions on the CPU.
+Ported so far: inference, prompt -> semantic tokens -> video
+(pipeline/infer_video.py), and training of the stage-2 control branch and
+the stage-1 LM (training/train.py). The flash-attention forwards and
+backward and the fused adaLN modulate run as CUDA kernels (ops/csrc/) on
+the card and as their plain PyTorch versions on the CPU.
 """

@@ -9,8 +9,9 @@ Every other array (linear weights stored (in, out) for x @ W, biases,
 tables, codebooks) keeps its layout. Every 4-D or 5-D leaf of the stage-2
 trees is a conv kernel (DiT patchify, semantic upsampler, VAE), which is
 what makes the rule by rank safe. The stage-1 tree ({"lm": {"gpt",
-"tok_emb", "text_proj", "null_text_embedding", "micro"}, "t5"}) holds
-only vectors and (in, out) matrices and crosses unchanged. The port's own
+"tok_emb", "text_proj", "null_text_embedding", "micro", and for training
+"micro_null"}, "t5"}) holds only vectors and (in, out) matrices and
+crosses unchanged. The port's own
 `init` functions build the converted layouts directly.
 """
 

@@ -13,18 +13,23 @@ landiff/diffusion/dit_video_concat.py).
 
 Parameters keep the JAX tree; linear weights are (in, out), the patch
 conv kernel is OIHW (see bridge.py). Compute dtype bf16, norms and
-softmax accumulate in f32. Not ported yet: TP/SP variants, rotary3d,
-W8A8 quantize_int8 (opt-in) and remat.
+softmax accumulate in f32. `remat=True` recomputes each layer in the
+backward (torch.utils.checkpoint, non-reentrant, so that the first
+forward and the recompute see the same grad mode and take the same
+attention route). Not ported yet: TP/SP variants, rotary3d, W8A8
+quantize_int8 (opt-in) and the LANDIFF_REMAT_SAVE_ATTN policy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from landiff_tpu_torch.config import DiTConfig
 from landiff_tpu_torch.ops.adaln import adaln_modulate
@@ -91,7 +96,7 @@ def _linear(p, name, x):
     return x @ p[f"{name}_w"].to(x.dtype) + p[f"{name}_b"].to(x.dtype)
 
 
-def _layer(p, x, emb, cfg: DiTConfig):
+def _layer(p, x, emb, cfg: DiTConfig, attn_impl="auto"):
     """One AdaLN DiT layer over the concatenated [text|video] sequence."""
     B, S, D = x.shape
     tl = cfg.text_length
@@ -129,7 +134,7 @@ def _layer(p, x, emb, cfg: DiTConfig):
     if cfg.qk_ln:
         q = layer_norm(q, p["q_ln_w"], p["q_ln_b"], 1e-6)
         k = layer_norm(k, p["k_ln_w"], p["k_ln_b"], 1e-6)
-    attn = attention(q, k, v).reshape(B, S, D)
+    attn = attention(q, k, v, impl=attn_impl).reshape(B, S, D)
     x = x + gate_msa * _linear(p, "attn_out", attn)
 
     h = modulate(x, "ln2", 3, 4)
@@ -156,17 +161,45 @@ def _embed_inputs(params, x, timesteps, context, cfg: DiTConfig,
     return h, e
 
 
+def _remat_policy():
+    """The per-layer checkpoint's policy (JAX dit.py:469): by default
+    everything in a layer is recomputed. LANDIFF_REMAT_SAVE_ATTN=1 asks to
+    keep the flash kernel's out / lse across the checkpoint; the kernels
+    are launched outside PyTorch's operator set, which its selective
+    checkpointing does not see, so the knob is refused until the port
+    keeps them by its own means (ROADMAP queue 2)."""
+    if os.environ.get("LANDIFF_REMAT_SAVE_ATTN") == "1":
+        raise NotImplementedError(
+            "LANDIFF_REMAT_SAVE_ATTN=1 (save the flash out / lse across "
+            "the layer checkpoint) is not ported yet: ROADMAP queue 2")
+    return None
+
+
+def _layer_fn(remat: bool):
+    """`_layer`, or `_layer` recomputed in the backward. Non-reentrant: a
+    reentrant checkpoint runs its first forward under no_grad, where
+    `attention` would take the int8 forward, and the recompute under grad,
+    where it takes the exact one: loss and gradient from two forwards."""
+    if not remat:
+        return _layer
+    _remat_policy()
+    return functools.partial(checkpoint, _layer, use_reentrant=False)
+
+
 def forward(params, x, timesteps, context, cfg: DiTConfig, *,
-            control_outputs=None, compute_dtype=torch.bfloat16):
+            control_outputs=None, attn_impl="auto",
+            compute_dtype=torch.bfloat16, remat=False):
     """Main DiT forward.
 
     x: (B, T, C, H, W) noisy latents; timesteps: (B,); context:
     (B, text_length, text_dim) T5 features; control_outputs: optional list
     of (B, S, D) tensors added to the full hidden sequence after layers
-    0..len-1. Returns (B, T, C_out, H, W) v-prediction."""
+    0..len-1; remat: recompute each layer in the backward. Returns
+    (B, T, C_out, H, W) v-prediction."""
     h, emb = _embed_inputs(params, x, timesteps, context, cfg, compute_dtype)
+    layer_fn = _layer_fn(remat)
     for i, p in enumerate(params["layers"]):
-        h = _layer(p, h, emb, cfg)
+        h = layer_fn(p, h, emb, cfg, attn_impl)
         if control_outputs is not None and i < len(control_outputs):
             h = h + control_outputs[i].to(h.dtype)
     return _final_head(params, h, emb, cfg)
@@ -192,15 +225,17 @@ def _final_head(params, h, emb, cfg: DiTConfig):
 
 
 def control_forward(params, x, timesteps, context, cfg: DiTConfig,
-                    semantic_feature, *, compute_dtype=torch.bfloat16):
+                    semantic_feature, *, attn_impl="auto",
+                    compute_dtype=torch.bfloat16, remat=False):
     """Control branch: x + semantic_feature through the control layers;
     each layer's stream passes through its zero-init linear. Returns the
     list of layer outputs (full [text|video] sequences)."""
     x = x.to(compute_dtype) + semantic_feature.to(compute_dtype)
     h, emb = _embed_inputs(params, x, timesteps, context, cfg, compute_dtype)
+    layer_fn = _layer_fn(remat)
     outs = []
     for p in params["layers"]:
-        h = _layer(p, h, emb, cfg)
+        h = layer_fn(p, h, emb, cfg, attn_impl)
         h = h @ p["zero_linear_w"].to(h.dtype)   # bias-free (1210-1218)
         outs.append(h)
     return outs
@@ -208,13 +243,16 @@ def control_forward(params, x, timesteps, context, cfg: DiTConfig,
 
 def control_warp_forward(main_params, control_params, x, timesteps, context,
                          cfg: DiTConfig, semantic_feature, *,
-                         compute_dtype=torch.bfloat16):
+                         attn_impl="auto", compute_dtype=torch.bfloat16,
+                         remat=False):
     """ControlDiffWarp.forward (dit_video_concat.py:1196-1200)."""
     ctrl_cfg = dataclasses.replace(cfg, num_layers=cfg.control_layers)
     ctrl = control_forward(control_params, x, timesteps, context, ctrl_cfg,
-                           semantic_feature, compute_dtype=compute_dtype)
+                           semantic_feature, attn_impl=attn_impl,
+                           compute_dtype=compute_dtype, remat=remat)
     return forward(main_params, x, timesteps, context, cfg,
-                   control_outputs=ctrl, compute_dtype=compute_dtype)
+                   control_outputs=ctrl, attn_impl=attn_impl,
+                   compute_dtype=compute_dtype, remat=remat)
 
 
 # ---------------------------------------------------------------------------

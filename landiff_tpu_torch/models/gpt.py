@@ -6,13 +6,13 @@ Reference: landiff/llm/models/transformer.py (GPT),
 landiff/llm/modules/transformer_blocks.py (LlamaTransformerBlock,
 local_kvcache_inference).
 
-Inference only: `prefill` runs the prompt and fills the KV cache,
+`forward` is the training / packed forward over a whole sequence.
+At inference `prefill` runs the prompt and fills the KV cache and
 `decode_step` runs one token against it. The cache is preallocated on the
 device and written IN PLACE (the JAX functions return new arrays); the
 caller's loop keeps every index on the device. Blocks run in the compute
-dtype, norms accumulate in f32, the head runs in f32 on the last position.
-Not ported yet: `forward` / `block_forward` (the training forward) and the
-weight-only int8 / int4 decode leaves.
+dtype, norms accumulate in f32, the inference head runs in f32 on the last
+position. Not ported yet: the weight-only int8 / int4 decode leaves.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from landiff_tpu_torch.config import LLMConfig
 from landiff_tpu_torch.ops import masks as masks_lib
-from landiff_tpu_torch.ops.attention import mha_reference
+from landiff_tpu_torch.ops.attention import attention, mha_reference
 from landiff_tpu_torch.ops.norms import layer_norm, rms_norm
 from landiff_tpu_torch.ops.rope import apply_rope
 
@@ -68,6 +68,31 @@ def _qkv(p, x, cfg: LLMConfig):
 
 def _mlp(p, x):
     return _dot(gelu_tanh(_dot(x, p["w1"])) * _dot(x, p["w3"]), p["w2"])
+
+
+def block_forward(p, x, cos, sin, cfg: LLMConfig, attn_impl="auto"):
+    """Full-sequence causal block. x: (B, S, D); cos/sin: (S, Dk/2)."""
+    h = rms_norm(x, p["norm0"], cfg.norm_eps)
+    q, k, v = _qkv(p, h, cfg)
+    q, k = apply_rope(q, cos[None], sin[None]), apply_rope(k, cos[None],
+                                                           sin[None])
+    attn = attention(q, k, v, mask_fn=masks_lib.causal, impl=attn_impl)
+    x = x + _dot(attn.reshape(x.shape), p["wo"])
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    return x + _mlp(p, h)
+
+
+def forward(params, features, cfg: LLMConfig, cos, sin, *, apply_head=True,
+            attn_impl="auto", compute_dtype=torch.bfloat16):
+    """Training / packed forward. features: (B, S, D) embeddings; returns
+    logits (B, S, V) in the compute dtype, or the normed stream."""
+    x = features.to(compute_dtype)
+    for p in params["blocks"]:
+        x = block_forward(p, x, cos, sin, cfg, attn_impl)
+    x = layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"])
+    if not apply_head:
+        return x
+    return x @ params["head"].to(x.dtype)
 
 
 def _bcast_rope(cos, sin):

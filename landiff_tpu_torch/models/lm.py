@@ -23,9 +23,10 @@ of all steps is one tensor, (steps, V) with steps = full_len - prefix_len,
 either drawn up front from a `torch.Generator` or handed in (`gumbel=`),
 which is how a test feeds both packages the same noise.
 
-Not ported yet: the training-time conditioning dropouts
-(micro_cond_features_batch, text_dropout) and the ground-truth first
-I-frame prompt (assemble_prompt_with_gt_iframe).
+The training-time conditioning dropouts (micro_cond_features_batch,
+text_dropout) take their keep masks from a `torch.Generator` or as
+tensors. Not ported yet: the ground-truth first I-frame prompt
+(assemble_prompt_with_gt_iframe).
 """
 
 from __future__ import annotations
@@ -190,6 +191,58 @@ def micro_cond_features(params, cfg: LLMConfig, values: dict[str, float],
         h = F.silu(_affine(p, "fc0", emb, compute_dtype))
         outs.append(_affine(p, "fc1", h, compute_dtype)[0])
     return torch.stack(outs)
+
+
+def _keep_mask(rng, shape, prob: float, device) -> torch.Tensor:
+    """Keep where uniform > prob (as the JAX dropouts draw it). rng: a
+    torch.Generator on `device`, or the bool mask itself."""
+    if isinstance(rng, torch.Generator):
+        return torch.rand(shape, generator=rng, device=device) > prob
+    return rng.to(device).reshape(shape)
+
+
+def micro_cond_features_batch(params, cfg: LLMConfig, values, batch: int,
+                              *, drop_rng=None, drop_probs=None,
+                              compute_dtype=torch.bfloat16):
+    """Batched MicroConditioner with training-time conditioning dropout
+    (conditioner.py:77-88, 117-141): per key, the sinusoid embedding is
+    replaced PRE-MLP by the learned null embedding
+    (params["micro_null"][key], shape (freq,)) with probability
+    drop_probs[key], per sample. drop_rng: None (no dropout), a
+    torch.Generator, or a dict key -> (batch,) bool keep mask. Returns
+    (batch, num_keys, D)."""
+    drop_probs = drop_probs or {}
+    outs = []
+    for key in sorted(cfg.micro_cond_keys):
+        p = params["micro"][key]
+        dev = p["fc0_w"].device
+        v = torch.as_tensor(values[key], dtype=torch.float32,
+                            device=dev).expand(batch)
+        emb = timestep_embedding(v, cfg.micro_cond_embed_dim,
+                                 dtype=compute_dtype)          # (B, freq)
+        prob = drop_probs.get(key, 0.0)
+        if drop_rng is not None and prob > 0:
+            null = params["micro_null"][key].to(compute_dtype)
+            rng = drop_rng[key] if isinstance(drop_rng, dict) else drop_rng
+            keep = _keep_mask(rng, (batch, 1), prob, dev)
+            emb = torch.where(keep, emb, null[None])
+        h = F.silu(_affine(p, "fc0", emb, compute_dtype))
+        outs.append(_affine(p, "fc1", h, compute_dtype))
+    return torch.stack(outs, dim=1)
+
+
+def text_dropout(params, text_feats, rng, drop_prob: float):
+    """TextCond training-time CFG dropout (conditioner.py:238-248): with
+    probability drop_prob per SAMPLE, the whole projected text feature
+    block is replaced by the learned null embedding (which thereby
+    receives gradients). text_feats: (B, n_text, D); rng: a
+    torch.Generator or a (B,) bool keep mask."""
+    if drop_prob <= 0:
+        return text_feats
+    B = text_feats.shape[0]
+    keep = _keep_mask(rng, (B, 1, 1), drop_prob, text_feats.device)
+    null = params["null_text_embedding"].to(text_feats.dtype)
+    return torch.where(keep, text_feats, null[None, None])
 
 
 def text_cond_features(params, text_embedding, compute_dtype=torch.bfloat16):
@@ -494,10 +547,13 @@ def sample_batch(params, cfg: LLMConfig, schedule: SampleSchedule,
 
 
 def init(gen: torch.Generator, cfg: LLMConfig, t5_dim: int = 4096,
-         dtype=torch.float32):
+         dtype=torch.float32, micro_drop_probs: dict | None = None):
     """Random parameters with the JAX init's tree (lm.py:573), drawn from
     `gen` on its device. The micro conditioner's output linear is
-    zero-init (conditioner.py:85-89)."""
+    zero-init (conditioner.py:85-89). micro_drop_probs: keys with a
+    probability > 0 get a learned null embedding under "micro_null"
+    (randn(freq) / sqrt(freq), conditioner.py:58-68), which the
+    training-time per-key dropout uses."""
     D = cfg.hidden_size
     dev = gen.device
     z = lambda *s: torch.zeros(s, dtype=dtype, device=dev)
@@ -512,7 +568,7 @@ def init(gen: torch.Generator, cfg: LLMConfig, t5_dim: int = 4096,
             "fc1_w": z(512, D),
             "fc1_b": z(D),
         }
-    return {
+    out = {
         "gpt": gpt.init(gen, cfg, dtype),
         "tok_emb": nrm((cfg.vocab_size, D), 0.02),
         "text_proj": {
@@ -522,3 +578,10 @@ def init(gen: torch.Generator, cfg: LLMConfig, t5_dim: int = 4096,
         "null_text_embedding": nrm((D,), 1.0 / math.sqrt(D)),
         "micro": micro,
     }
+    freq = cfg.micro_cond_embed_dim
+    micro_null = {name: nrm((freq,), 1.0 / math.sqrt(freq))
+                  for name in sorted(cfg.micro_cond_keys)
+                  if micro_drop_probs and micro_drop_probs.get(name, 0.0) > 0}
+    if micro_null:
+        out["micro_null"] = micro_null
+    return out

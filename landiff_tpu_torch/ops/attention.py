@@ -9,14 +9,24 @@ Layout: (batch, seq, heads, head_dim), BSHD, everywhere.
     counts the launch in its `launches` attribute; on a CPU tensor it runs
     its plain PyTorch version (`flash_exact_plain` / `flash_int8_plain`),
     which repeats the kernel's arithmetic tile by tile.
-  - `attention`: the dispatcher, with the JAX selection rules as a pure
-    function of shape and dtype (`select_path`), so that the same shapes
-    take the same numeric path in both packages.
+  - `flash_bwd`: the flash backward (dq, dk, dv from the exact forward's
+    out and log2 lse). CUDA tensors launch csrc/flash_bwd.cu and count the
+    launch; CPU tensors run `flash_bwd_plain`.
+  - `attention`: the dispatcher (`impl="auto" | "xla" | "pallas"` as in
+    JAX; "pallas" names the flash route), with the JAX selection rules as
+    a pure function of shape and dtype (`select_path`), so that the same
+    shapes take the same numeric path in both packages. A call that is
+    differentiated (grad enabled and q, k or v requires grad) goes
+    through `_FlashDiff`, the counterpart of JAX's `_flash_diff`: always
+    the exact forward, whatever LANDIFF_ATTN_INT8 says, and the flash
+    backward. The int8 forward's lse is approximate and never reaches the
+    backward.
 
 The kernels replace the Pallas kernels `_flash_kernel` (:91),
-`_flash_kernel_cached` (:197) and `_flash_kernel_cached_i8` (:264) of
-landiff_tpu/ops/attention.py; see csrc/flash_fwd.cu for their bounds on
-the H100 and the design.
+`_flash_kernel_cached` (:197), `_flash_kernel_cached_i8` (:264) and
+`_flash_bwd_fused_kernel` (:658) of landiff_tpu/ops/attention.py; see
+csrc/flash_fwd.cu and csrc/flash_bwd.cu for their bounds on the H100 and
+the design.
 """
 
 from __future__ import annotations
@@ -178,6 +188,58 @@ def flash_int8_plain(q, k, v, *, mask_fn=None, scale=None,
     return _flash_plain(q, k, v, mask_fn, scale, True, block_kv)
 
 
+def flash_bwd_plain(q, k, v, out, lse, do, *, mask_fn=None, scale=None,
+                    block_q: int | None = None,
+                    block_kv: int = KERNEL_BLOCK_KV):
+    """Plain version of the backward kernel (_flash_bwd_fused_kernel),
+    tile by tile in the kernel's arithmetic: q' = q * scale*log2e rounded
+    to q.dtype, s = q'.k^T (masked: -1e30), p = exp2(s - lse) * keep, dp =
+    do.v^T, ds = p * (dp - delta) with delta = rowsum(do * out); p and
+    scale*ds rounded to q.dtype before dv += p^T.do, dk += (scale*ds)^T.q,
+    dq += (scale*ds).k; every sum in f32. The roundings are per element,
+    so the tiles (block_q None: all q rows at once) change only the order
+    of the f32 sums. lse: (B, H, Sq) log2, from the exact forward. Returns
+    (dq, dk, dv) in the inputs' dtypes."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    dev, dt = q.device, q.dtype
+    bq = Sq if block_q is None else block_q
+    bhsd = lambda x: x.float().permute(0, 2, 1, 3)
+    qs = bhsd((q.float() * _f32(scale * LOG2E, dev)).to(dt))
+    qf, kf, vf, dof = bhsd(q), bhsd(k), bhsd(v), bhsd(do.to(dt))
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None]
+    lse = lse[..., None]                                # (B, H, Sq, 1)
+    sc = _f32(scale, dev)
+    dq = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, H, Skv, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, H, Skv, D), dtype=torch.float32, device=dev)
+    for j0 in range(0, Skv, block_kv):
+        j = slice(j0, min(j0 + block_kv, Skv))
+        kj, vj = kf[:, :, j], vf[:, :, j]
+        for i0 in range(0, Sq, bq):
+            i = slice(i0, min(i0 + bq, Sq))
+            s = qs[:, :, i] @ kj.transpose(-1, -2)
+            keep = None
+            if mask_fn is not None:
+                keep = mask_fn(
+                    torch.arange(i.start, i.stop, device=dev)[:, None],
+                    torch.arange(j.start, j.stop, device=dev)[None, :])
+                s = torch.where(keep, s, NEG_INF)
+            pr = torch.exp2(s - lse[:, :, i])
+            if keep is not None:
+                pr = pr * keep
+            dp = dof[:, :, i] @ vj.transpose(-1, -2)
+            dsb = ((pr * (dp - delta[:, :, i])) * sc).to(dt).float()
+            pb = pr.to(dt).float()
+            dv[:, :, j] += pb.transpose(-1, -2) @ dof[:, :, i]
+            dk[:, :, j] += dsb.transpose(-1, -2) @ qf[:, :, i]
+            dq[:, :, i] += dsb @ kj
+    bshd = lambda x, like: x.permute(0, 2, 1, 3).to(like.dtype).contiguous()
+    return bshd(dq, q), bshd(dk, k), bshd(dv, v)
+
+
 def kernel_error(out: torch.Tensor, ref: torch.Tensor):
     """How far a kernel's output is from its plain version's: (max |out -
     ref| in bf16 steps at the largest |ref|, the relative RMS error
@@ -195,22 +257,15 @@ def kernel_error(out: torch.Tensor, ref: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=32)
-def visibility_tables(mask_fn, q_len: int, kv_len: int, device: str):
-    """Per-q-tile (count, order, kind) int32 tables at the kernel's tiles:
-    the visible kv tiles of each q tile in ascending order and their kind
-    (1 partial, 2 full)."""
+def visibility_tables(mask_fn, q_len: int, kv_len: int, device: str,
+                      kv_major: bool = False):
+    """(count, order, kind) int32 tables on `device` at the kernels' tiles
+    (masks.tile_tables): per q tile its visible kv tiles (the forwards),
+    or with kv_major per kv tile the q tiles that see it (the backward)."""
     vis = masks_lib.block_visibility(mask_fn, q_len, kv_len, KERNEL_BLOCK_Q,
                                      KERNEL_BLOCK_KV, device=device)
-    nq, nk = vis.shape
-    count = np.zeros((nq,), np.int32)
-    order = np.zeros((nq, nk), np.int32)
-    kind = np.zeros((nq, nk), np.int32)
-    for i in range(nq):
-        ids = np.nonzero(vis[i])[0]
-        count[i] = len(ids)
-        order[i, :len(ids)] = ids
-        kind[i, :len(ids)] = vis[i, ids]
-    return tuple(torch.from_numpy(a).to(device) for a in (count, order, kind))
+    tables = masks_lib.tile_tables(vis.T if kv_major else vis)
+    return tuple(torch.from_numpy(a).to(device) for a in tables)
 
 
 def _check_inputs(q, k, v):
@@ -218,8 +273,10 @@ def _check_inputs(q, k, v):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"the flash kernels take bfloat16, {name} is "
-                            f"{t.dtype}")
+            raise TypeError(
+                f"the flash kernels take bfloat16, {name} is {t.dtype}: run "
+                "sequences of 2,048 positions or more in bf16 (the "
+                "trainer's --bf16)")
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous BSHD tensor")
         if t.data_ptr() % 16:
@@ -237,28 +294,30 @@ def _check_inputs(q, k, v):
         raise ValueError("B * H exceeds the kernel grid")
 
 
+def _mask_args(mask_fn, Sq: int, Skv: int, dev, kv_major: bool):
+    """((count, order, kind) pointers, table width, mask descriptor) as
+    the kernels take them; no tables for no mask."""
+    if mask_fn is None:
+        return (None, None, None), 0, (masks_lib.MASK_NONE, 0, 1, 0, 1)
+    if not isinstance(mask_fn, masks_lib.MaskSpec):
+        raise TypeError("the flash kernels take a MaskSpec (kernel "
+                        f"descriptor) or None, got {mask_fn!r}")
+    tables = visibility_tables(mask_fn, Sq, Skv, str(dev), kv_major)
+    return (tuple(t.data_ptr() for t in tables), tables[1].shape[1],
+            mask_fn.descriptor())
+
+
 def _launch(q, k, v, mask_fn, scale, int8: bool):
     from landiff_tpu_torch.ops import kernels
 
     _check_inputs(q, k, v)
-    if mask_fn is not None and not isinstance(mask_fn, masks_lib.MaskSpec):
-        raise TypeError("the flash kernels take a MaskSpec (kernel "
-                        f"descriptor) or None, got {mask_fn!r}")
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     qscale = float(np.float32(scale * LOG2E))
     dev = q.device
-    if mask_fn is None:
-        count = order = kind = None
-        nk_table = 0
-        desc = (masks_lib.MASK_NONE, 0, 1, 0, 1)
-    else:
-        count, order, kind = visibility_tables(mask_fn, Sq, Skv, str(dev))
-        nk_table = order.shape[1]
-        desc = mask_fn.descriptor()
-    ptr = lambda t: None if t is None else t.data_ptr()
+    tables, nk_table, desc = _mask_args(mask_fn, Sq, Skv, dev, False)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -272,13 +331,13 @@ def _launch(q, k, v, mask_fn, scale, int8: bool):
             sk = sk.contiguous()
             rc = lib.landiff_flash_fwd_i8(
                 q.data_ptr(), k8.data_ptr(), sk.data_ptr(), v.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), ptr(count), ptr(order),
-                ptr(kind), B, H, Sq, Skv, nk_table, qscale, *desc, stream)
+                out.data_ptr(), lse.data_ptr(), *tables, B, H, Sq, Skv,
+                nk_table, qscale, *desc, stream)
         else:
             rc = lib.landiff_flash_fwd_bf16(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), ptr(count), ptr(order), ptr(kind), B, H, Sq,
-                Skv, nk_table, qscale, *desc, stream)
+                lse.data_ptr(), *tables, B, H, Sq, Skv, nk_table, qscale,
+                *desc, stream)
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError {rc}")
     return out, lse
@@ -304,29 +363,99 @@ def flash_fwd_int8(q, k, v, *, mask_fn=None, scale=None):
     return out
 
 
+def flash_bwd(q, k, v, out, lse, do, *, mask_fn=None, scale=None):
+    """Flash backward: (dq, dk, dv) in the inputs' dtypes from the exact
+    forward's out and log2 lse (B, H, Sq). CUDA tensors launch the kernel
+    (csrc/flash_bwd.cu); CPU tensors run flash_bwd_plain. delta =
+    rowsum(do * out) is taken here in torch operations, as
+    `_flash_bwd_pallas` takes it outside its kernel (:799). The kernel adds dq with f32
+    atomics into a zeroed (B, Sq, H, D) workspace that is cast at the end,
+    so the last bits of dq vary from run to run; dk and dv do not."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mask_fn,
+                               scale=scale)
+    from landiff_tpu_torch.ops import kernels
+
+    do = do.to(q.dtype).contiguous()
+    _check_inputs(q, k, v)
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    for name, t in (("out", out), ("do", do)):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"tensor like q, got {tuple(t.shape)} {t.dtype}")
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous f32 (B, H, Sq) tensor, "
+                         f"got {tuple(lse.shape)} {lse.dtype}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    tables, nq_table, desc = _mask_args(mask_fn, Sq, Skv, dev, True)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq32 = torch.zeros((B, Sq, H, D), dtype=torch.float32, device=dev)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(dev):
+        rc = kernels.flash_bwd_library().landiff_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq32.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *tables, B, H, Sq, Skv, nq_table,
+            float(np.float32(scale * LOG2E)), float(np.float32(scale)),
+            *desc, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash backward launch failed: cudaError {rc}")
+    flash_bwd.launches += 1
+    return dq32.to(q.dtype), dk, dv
+
+
 flash_fwd_exact.launches = 0
 flash_fwd_int8.launches = 0
+flash_bwd.launches = 0
 
 
 def reset_launch_counts():
     flash_fwd_exact.launches = 0
     flash_fwd_int8.launches = 0
+    flash_bwd.launches = 0
+
+
+class _FlashDiff(torch.autograd.Function):
+    """The differentiable flash route, counterpart of JAX's `_flash_diff`
+    (:830-870): the forward is always the exact kernel, with its log2 lse
+    saved; the backward is `flash_bwd`. With LANDIFF_ATTN_BWD=xla the
+    backward is `flash_bwd_plain` instead, on CUDA tensors too (JAX's
+    double-scan oracle `_flash_diff_bwd_xla` under the same knob): a
+    choice the caller makes. Without the knob a kernel that fails to build
+    or to launch raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_fn, scale):
+        out, lse = flash_fwd_exact(q, k, v, mask_fn=mask_fn, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask_fn, ctx.scale = mask_fn, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = (flash_bwd_plain
+               if os.environ.get("LANDIFF_ATTN_BWD", "pallas") == "xla"
+               else flash_bwd)
+        dq, dk, dv = bwd(q, k, v, out, lse, do, mask_fn=ctx.mask_fn,
+                         scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 # ---------------------------------------------------------------------------
 # dispatcher
 
 
-def select_path(q_len: int, kv_len: int, head_dim: int,
-                itemsize: int) -> str:
-    """The JAX package's choice for `attention(impl="auto")` on the TPU,
-    as a pure function of shape and dtype: "reference" below 2,048 query
-    positions (attention.py:993-995); else "int8" where flash_attention
-    takes the int8-score kernel (LANDIFF_ATTN_INT8, default on, :1002, and
-    its "cached" rule, :562-565), else "exact"."""
-    if q_len < 2048:
-        return "reference"
-    int8_scores = os.environ.get("LANDIFF_ATTN_INT8", "1") == "1"
+def _takes_int8(q_len: int, kv_len: int, head_dim: int, itemsize: int,
+                int8_scores: bool) -> bool:
+    """flash_attention's rule (:556-565): the int8-score kernel only where
+    K/V would be resident ("cached": the pair fits the VMEM budget and
+    there is more than one 512-row q block)."""
     block_q = min(512, masks_lib.round_up(q_len, 128))
     block_kv = min(1024, masks_lib.round_up(kv_len, 128))
     nq = masks_lib.round_up(q_len, block_q) // block_q
@@ -334,21 +463,55 @@ def select_path(q_len: int, kv_len: int, head_dim: int,
     cached = (2 * head_dim * kv_p * itemsize <= _KV_CACHE_VMEM_BUDGET
               and nq > 1
               and os.environ.get("LANDIFF_ATTN_CACHED", "1") != "0")
-    return "int8" if int8_scores and cached else "exact"
+    return int8_scores and cached
 
 
-def attention(q, k, v, *, mask_fn=None):
-    """Dispatcher: the dense reference or a flash forward, chosen as the
-    JAX package chooses (`select_path`); softmax scale 1/sqrt(D)."""
-    path = select_path(q.shape[1], k.shape[1], q.shape[-1],
-                       q.element_size())
-    if path == "reference":
-        return mha_reference(q, k, v, mask_fn=mask_fn)
+def select_path(q_len: int, kv_len: int, head_dim: int,
+                itemsize: int) -> str:
+    """The JAX package's choice for `attention(impl="auto")` on the TPU
+    where nothing is differentiated, as a pure function of shape and
+    dtype: "reference" below 2,048 query positions (attention.py:993-995);
+    else "int8" where flash_attention takes the int8-score kernel
+    (LANDIFF_ATTN_INT8, default on, :1002, and its "cached" rule), else
+    "exact"."""
+    if q_len < 2048:
+        return "reference"
+    int8_scores = os.environ.get("LANDIFF_ATTN_INT8", "1") == "1"
+    return ("int8" if _takes_int8(q_len, kv_len, head_dim, itemsize,
+                                  int8_scores) else "exact")
+
+
+def attention(q, k, v, *, mask_fn=None, mask=None, scale=None,
+              impl: str = "auto", int8_scores: bool | None = None):
+    """Dispatcher, as JAX's (:979-1003). impl: "auto" (the flash route
+    from 2,048 query positions, the dense reference below), "xla" (the
+    dense reference) or "pallas" (the flash route; the name is JAX's).
+
+    The flash route is differentiable: where grad is enabled and q, k or
+    v requires grad it is `_FlashDiff` (exact forward, flash backward).
+    Elsewhere int8_scores (default LANDIFF_ATTN_INT8, on) selects the
+    int8-score forward under flash_attention's "cached" rule."""
+    if impl == "auto":
+        impl = "pallas" if q.shape[1] >= 2048 else "xla"
+    if impl == "xla":
+        return mha_reference(q, k, v, mask=mask, scale=scale,
+                             mask_fn=mask_fn)
+    if impl != "pallas":
+        raise ValueError(f"impl must be auto, xla or pallas, got {impl!r}")
+    if mask is not None:
+        raise ValueError("the flash route takes mask_fn, not a dense mask")
     for knob in ("LANDIFF_ATTN_INT8_PV", "LANDIFF_ATTN_EXP_BF16"):
         if os.environ.get(knob) == "1":
             raise NotImplementedError(
                 f"{knob}=1 selects a flash variant the port has not "
                 "ported yet")
-    fn = flash_fwd_int8 if path == "int8" else flash_fwd_exact
-    return fn(q.contiguous(), k.contiguous(), v.contiguous(),
-              mask_fn=mask_fn)[0]
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashDiff.apply(q, k, v, mask_fn, scale)
+    if int8_scores is None:
+        int8_scores = os.environ.get("LANDIFF_ATTN_INT8", "1") == "1"
+    int8 = _takes_int8(q.shape[1], k.shape[1], q.shape[-1],
+                       q.element_size(), bool(int8_scores))
+    fn = flash_fwd_int8 if int8 else flash_fwd_exact
+    return fn(q, k, v, mask_fn=mask_fn, scale=scale)[0]

@@ -40,23 +40,12 @@
 // tables every kv tile is visible. Partial tiles (kind 1, or the ragged
 // last kv tile) evaluate the mask descriptor and the Skv bound per score.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kD = 64;          // head dim
-constexpr int kBQ = 64;         // q rows per CTA (4 warps x 16)
-constexpr int kBKV = 64;        // kv rows per tile
-constexpr int kThreads = 128;
-constexpr int kStrideH = kD + 8;   // bf16 smem row stride (144 B): no bank conflicts
 constexpr int kStrideB = kD + 16;  // int8 smem row stride (80 B): no bank conflicts
-constexpr float kNegInf = -1e30f;
 constexpr float kInv127 = 1.0f / 127.0f;   // 0.00787401572f
-
-enum MaskKind { kMaskNone = 0, kMaskCausal = 1, kMaskVideoEncoder = 2,
-                kMaskVideoDecoder = 3 };
 
 struct Params {
   const void* q;
@@ -73,72 +62,6 @@ struct Params {
   int mask_kind, nf, tpf, iqt, pft;   // mask descriptor (VideoMaskLayout)
 };
 
-__device__ __forceinline__ int floordiv(int a, int b) {
-  int q = a / b;
-  return (q * b != a && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
-
-// The boolean algebra of landiff_tpu/ops/masks.py, evaluated per score.
-__device__ __forceinline__ bool mask_keep(const Params& p, int q, int kv) {
-  if (p.mask_kind == kMaskNone) return true;
-  if (p.mask_kind == kMaskCausal) return q >= kv;
-  const int tpf = p.tpf, pft = p.pft;
-  const int fe = p.nf * tpf;
-  const int iqe = fe + p.iqt;
-  const int sl = iqe + pft * (p.nf - 1);
-  const int q_frame = floordiv(q, tpf);
-  const int kv_frame = floordiv(kv, tpf);
-  const int p_frame = floordiv(q - iqe, pft) + 1;
-  if (p.mask_kind == kMaskVideoEncoder) {
-    const bool in_frames = kv_frame <= q_frame;
-    const bool kv_in_iq = kv >= fe && kv < iqe;
-    const bool iq = kv < tpf || (kv_in_iq && kv <= q);
-    const bool pq = kv < (p_frame + 1) * tpf || (kv >= fe && kv <= q);
-    return (q < fe && in_frames) || (q >= fe && q < iqe && iq) ||
-           (q >= iqe && q < sl && pq);
-  }
-  // kMaskVideoDecoder
-  const bool sees = kv < tpf || (kv >= fe && kv < iqe);
-  const bool pfp = (kv < fe && kv_frame <= q_frame) ||
-                   (kv >= fe && kv < iqe + q_frame * pft);
-  const bool pq = kv < (p_frame + 1) * tpf ||
-                  (kv >= fe && kv < iqe + p_frame * pft);
-  return (q < tpf && sees) || (q >= tpf && q < fe && pfp) ||
-         (q >= fe && q < iqe && sees) || (q >= iqe && q < sl && pq);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16- and 4-byte async copies; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-               "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
-               "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
                                        uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -146,19 +69,6 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Raw storage (trivially constructible, as __shared__ requires); bf16

@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
-Each source under csrc/ (flash_fwd.cu, adaln.cu) is compiled by nvcc for
-sm_90a into its own shared library with a plain C interface and loaded
-with ctypes. The build runs at first use, into a directory git ignores
-(ops/_build/), keyed by a hash of the source and the flags, so a checkout
-builds everything from its own sources; `build()` starts one nvcc per
+Each source under csrc/ (flash_fwd.cu, flash_bwd.cu, adaln.cu) is compiled
+by nvcc for sm_90a into its own shared library with a plain C interface
+and loaded with ctypes. The build runs at first use, into a directory git
+ignores (ops/_build/), keyed by a hash of the source, the shared headers
+(csrc/*.cuh) and the flags, so a checkout builds everything from its own
+sources; `build()` starts one nvcc per
 source, all at once. No --use_fast_math: the int8 flash kernel's codes
 depend on IEEE division and round-half-to-even.
 """
@@ -20,7 +21,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu", "adaln": CSRC / "adaln.cu"}
+SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu",
+           "flash_bwd": CSRC / "flash_bwd.cu", "adaln": CSRC / "adaln.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -41,7 +43,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     source = SOURCES[name]
-    digest = hashlib.sha256(source.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
@@ -88,6 +91,17 @@ def flash_library() -> ctypes.CDLL:
     lib.landiff_flash_fwd_i8.argtypes = (
         [ptr] * 9 + [i32] * 5 + [f32] + [i32] * 5 + [ptr])
     lib.landiff_flash_fwd_i8.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def flash_bwd_library() -> ctypes.CDLL:
+    """The flash-backward library with its C signature declared."""
+    lib = ctypes.CDLL(str(build(["flash_bwd"])["flash_bwd"]))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.landiff_flash_bwd.argtypes = (
+        [ptr] * 12 + [i32] * 5 + [f32] * 2 + [i32] * 5 + [ptr])
+    lib.landiff_flash_bwd.restype = i32
     return lib
 
 

@@ -169,6 +169,24 @@ def block_visibility(mask_fn, q_len: int, kv_len: int, block_q: int,
     return out.cpu().numpy()
 
 
+def tile_tables(vis: np.ndarray):
+    """Per-row (count, order, kind) int32 tables of a block-visibility
+    matrix: the visible blocks of each row in ascending order and their
+    kind (1 partial, 2 full). Of `vis` (nq, nk) they are the per-q-tile
+    tables a forward kernel walks (flash_attention :537-545); of `vis.T`
+    the per-kv-tile tables of the backward (_flash_bwd_call :713-724)."""
+    n_rows, n_cols = vis.shape
+    count = np.zeros((n_rows,), np.int32)
+    order = np.zeros((n_rows, n_cols), np.int32)
+    kind = np.zeros((n_rows, n_cols), np.int32)
+    for r in range(n_rows):
+        ids = np.nonzero(vis[r])[0]
+        count[r] = len(ids)
+        order[r, :len(ids)] = ids
+        kind[r, :len(ids)] = vis[r, ids]
+    return count, order, kind
+
+
 def visible_count(mask_fn, q_len: int, kv_len: int, device="cpu") -> int:
     """Number of visible (q, kv) pairs: the work a block-sparse kernel's
     scores need."""

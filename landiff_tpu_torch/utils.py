@@ -114,13 +114,16 @@ def save_video_tensor(video, video_path: str, fps: int = 8) -> Path:
         return write_mjpeg_avi(images, path.with_suffix(".avi"), fps)
 
 
-def tree_map(fn, tree):
-    """Apply fn to every leaf of a tree of dicts, lists and tuples."""
+def tree_map(fn, tree, *rest):
+    """Apply fn to every leaf of a tree of dicts, lists and tuples; with
+    more trees of the same structure, to the leaves at the same place."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:

@@ -56,6 +56,133 @@ def stage1_params():
             bridge.to_torch(arrays, device="cpu"))
 
 
+def train_dit_params(control_dtype=None):
+    """(JAX trees, port trees) of the stage-2 trainer's three parameter
+    sets, {"main", "control", "semantic"}, from stage2_params: zero leaves
+    filled, so that a fresh control branch's zero linears do not cut every
+    gradient off and the main layers' part of the backward is held to
+    something. control_dtype: cast the control branch (bf16 masters)."""
+    jparams, tparams = stage2_params()
+    names = ("main", "control", "semantic")
+    jp, tp = {k: jparams[k] for k in names}, {k: tparams[k] for k in names}
+    if control_dtype is not None:
+        jdt, tdt = control_dtype
+        jp["control"] = jax.tree_util.tree_map(       # cast on the host
+            lambda a: jnp.asarray(np.asarray(a).astype(jdt)), jp["control"])
+        tp["control"] = tree_map(lambda t: t.to(tdt), tp["control"])
+    return jp, tp
+
+
+@functools.lru_cache(maxsize=4)
+def _sr_bits(shapes):
+    """key -> the 16 noise bits of every leaf, one compiled function for
+    all leaves (an eager call compiles once per shape)."""
+    def bits(key):
+        k_sr = jax.random.fold_in(key, 0x5B)
+        return [jax.random.bits(jax.random.fold_in(k_sr, i), shape,
+                                jnp.uint32) & jnp.uint32(0xFFFF)
+                for i, shape in enumerate(shapes)]
+
+    return fast_jit(bits, jax.random.PRNGKey(0))
+
+
+@functools.lru_cache(maxsize=8)
+def _loss_draws(latents_shape, num_idx, ucg_rate):
+    """key -> (idx, noise, keep) as the JAX loss draws them, compiled
+    once per shape."""
+    def draws(key):
+        B = latents_shape[0]
+        k_idx, k_noise, k_ucg = jax.random.split(key, 3)
+        return (jax.random.randint(k_idx, (B,), 0, num_idx),
+                jax.random.normal(k_noise, latents_shape, jnp.float32),
+                jax.random.bernoulli(k_ucg, 1.0 - ucg_rate, (B,)))
+
+    return fast_jit(draws, jax.random.PRNGKey(0))
+
+
+def dit_loss_draws(key, latents_shape, num_idx: int, *, ucg_rate=0.0,
+                   sr_tree=None):
+    """The draws of the JAX stage-2 loss for `key`
+    (diffusion_loss.py:56-66: split(key, 3) -> randint, normal,
+    bernoulli) and, with sr_tree (the JAX control tree), the
+    stochastic-rounding bits of apply_updates_sr (sr.py:35, :60: per leaf
+    i of the flattened tree, bits(fold_in(fold_in(key, 0x5B), i)) & 0xFFFF)
+    as a tree of the same structure. Returns the port's LossDraws."""
+    from landiff_tpu_torch.training.diffusion_loss import LossDraws
+
+    idx, noise, keep = _loss_draws(tuple(latents_shape), num_idx,
+                                   float(ucg_rate))(key)
+    idx, noise = np.array(idx), np.array(noise)
+    keep = torch.from_numpy(np.array(keep)) if ucg_rate > 0.0 else None
+    bits = None
+    if sr_tree is not None:
+        leaves, treedef = jax.tree_util.tree_flatten(sr_tree)
+        raw = _sr_bits(tuple(leaf.shape for leaf in leaves))(key)
+
+        def to_port(b):
+            b = np.array(b).astype(np.int32)
+            if b.ndim in bridge._PERMUTE:      # conv kernels: as the bridge
+                b = np.ascontiguousarray(
+                    np.transpose(b, bridge._PERMUTE[b.ndim]))
+            return torch.from_numpy(b)
+
+        bits = jax.tree_util.tree_unflatten(treedef,
+                                            [to_port(b) for b in raw])
+    return LossDraws(torch.from_numpy(idx).long(), torch.from_numpy(noise),
+                     keep, bits)
+
+
+def train_lm_params(micro_drop_probs=None):
+    """(JAX tree, port tree) of the stage-1 trainer's parameters: the "lm"
+    tree of stage1_params plus, for the keys of micro_drop_probs, the
+    learned null embeddings "micro_null" (lm.py:610-617), from a numpy
+    seed."""
+    jparams, tparams = stage1_params()
+    jp, tp = dict(jparams["lm"]), dict(tparams["lm"])
+    freq = tcfg.tiny_test_config().llm.micro_cond_embed_dim
+    nulls = {k: randn(900 + i, freq, scale=freq ** -0.5)
+             for i, k in enumerate(sorted(micro_drop_probs or {}))}
+    if nulls:
+        jp["micro_null"] = {k: jnp.asarray(v) for k, v in nulls.items()}
+        tp["micro_null"] = bridge.to_torch(nulls, device="cpu")
+    return jp, tp
+
+
+def lm_cond_draws(key, batch: int, micro_keys, micro_drop_probs=None):
+    """The keep masks of the JAX stage-1 loss for `key`
+    (lm_train.py:121-129: split(key) -> text, micro; text keep =
+    uniform(k_text, (B, 1, 1)) > p is compared by the caller, so the
+    uniforms are returned thresholded at the caller's probabilities;
+    lm.py:197-207: one subkey per sorted micro key). Returns a function
+    cfg_drop_prob -> the port's CondDraws."""
+    from landiff_tpu_torch.training.lm_train import CondDraws
+
+    k_text, k_micro = jax.random.split(key)
+    u_text = np.array(jax.random.uniform(k_text, (batch, 1, 1)))[:, 0, 0]
+    keys = sorted(micro_keys)
+    subkeys = jax.random.split(k_micro, len(keys))
+    u_micro = {k: np.array(jax.random.uniform(sk, (batch, 1)))[:, 0]
+               for k, sk in zip(keys, subkeys)}
+    probs = micro_drop_probs or {}
+
+    def draws(cfg_drop_prob: float):
+        return CondDraws(
+            torch.from_numpy(u_text > cfg_drop_prob),
+            {k: torch.from_numpy(u > probs.get(k, 0.0))
+             for k, u in u_micro.items()})
+
+    return draws
+
+
+def fast_jit(fn, *args):
+    """fn compiled for these arguments with XLA's backend optimizations
+    off: a tiny-config train step compiles in 2.4 s instead of 9.9 s and
+    runs as fast, and tier-1 has little time to spare. Returns the
+    compiled callable (positional arguments of the same shapes only)."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+
+
 def gumbel_steps(seed: int, steps: int, vocab: int) -> torch.Tensor:
     """The Gumbel noise jax.random.categorical adds at each step of the
     JAX sampler (lm.py:395): key, sub = split(key) once per step from

@@ -1,5 +1,5 @@
-"""PyTorch port: the CUDA kernels (flash forwards, fused adaLN) against
-their plain versions, on the card only (skipped elsewhere; run them where
+"""PyTorch port: the CUDA kernels (flash forwards, flash backward, fused
+adaLN) against their plain versions, on the card only (skipped elsewhere; run them where
 the card is, with
 `python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py`).
 
@@ -9,6 +9,13 @@ within 1e-5 (log2 units): about twice the readings on an H100 (0.5 steps,
 9.4e-5, 1.9e-6). Both round p to bf16 at the same running max; exp2 and
 the order of the f32 sums differ, which can move a p or an output across
 a bf16 rounding boundary.
+
+The backward kernel takes the forward kernel's own out and lse; dq, dk and
+dv are each held to its plain version within two bf16 steps at the largest
+|plain| value and a relative RMS error of 2e-3: p and scale*ds are rounded
+to bf16 in both, from exp2 results and f32 sums that differ in their last
+bits, and dq is summed by atomics in an order that changes from run to
+run. Rows that see nothing give exactly 0.
 
 The adaLN kernel and its plain version both compute in f32 and round
 once: within one bf16 step per element in bf16 (steps taken at the
@@ -78,6 +85,66 @@ def test_kernel_matches_plain(dev, int8, mask, Sq, Skv):
             torch.tensor(TA.NEG_INF, dtype=torch.float32).item()
 
 
+_BWD_TOL_STEPS = 2.0
+_BWD_TOL_RMS = 2e-3
+
+
+@pytest.mark.parametrize("mask,Sq,Skv", _CASES + [(None, 64, 64),
+                                                  (None, 1, 130)])
+def test_bwd_kernel_matches_plain(dev, mask, Sq, Skv):
+    mf = _MASKS[mask]
+    q, k, v = _qkv(dev, 2, Sq, Skv, 3, seed=1)
+    out, lse = TA.flash_fwd_exact(q, k, v, mask_fn=mf)
+    do = torch.randn(out.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2)
+                     ).bfloat16()
+    before = TA.flash_bwd.launches
+    got = TA.flash_bwd(q, k, v, out, lse, do, mask_fn=mf)
+    torch.cuda.synchronize()
+    assert TA.flash_bwd.launches == before + 1
+    want = TA.flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mf)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g.float()).all()), name
+        steps, rel_rms = TA.kernel_error(g, w)
+        assert steps <= _BWD_TOL_STEPS and rel_rms <= _BWD_TOL_RMS, \
+            (name, steps, rel_rms)
+    if mask == "decoder" and Sq > _LAYOUT.seq_len:   # rows that see nothing
+        assert got[0][:, _LAYOUT.seq_len:].abs().max().item() == 0.0
+        # and no row sees the kv positions past the layout
+        assert got[1][:, _LAYOUT.seq_len:].abs().max().item() == 0.0
+        assert got[2][:, _LAYOUT.seq_len:].abs().max().item() == 0.0
+
+
+def test_attention_under_grad_takes_the_exact_forward_and_the_bwd_kernel(
+        dev, monkeypatch):
+    monkeypatch.setenv("LANDIFF_ATTN_INT8", "1")
+    q, k, v = (t.requires_grad_() for t in _qkv(dev, 1, 2112, 2112, 2))
+    TA.reset_launch_counts()
+    out = TA.attention(q, k, v)
+    assert out.grad_fn is not None
+    assert (TA.flash_fwd_exact.launches, TA.flash_fwd_int8.launches) == (1, 0)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert TA.flash_bwd.launches == 1
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    TA.mha_reference(*ref).float().square().sum().backward()
+    for t, r in zip((q, k, v), ref):
+        steps, rel_rms = TA.kernel_error(t.grad, r.grad)
+        assert rel_rms <= 2e-2, (steps, rel_rms)     # bf16 p and ds
+    with torch.no_grad():                            # today's selection
+        TA.attention(q, k, v)
+    assert TA.flash_fwd_int8.launches == 1
+
+
+def test_bwd_knob_selects_the_plain_version(dev, monkeypatch):
+    monkeypatch.setenv("LANDIFF_ATTN_BWD", "xla")
+    q, k, v = (t.requires_grad_() for t in _qkv(dev, 1, 128, 128, 2))
+    TA.reset_launch_counts()
+    TA.attention(q, k, v, impl="pallas").float().sum().backward()
+    assert TA.flash_bwd.launches == 0 and q.grad is not None
+
+
 def test_kernel_refuses_what_it_does_not_take(dev):
     q, k, v = _qkv(dev, 1, 128, 128, 2)
     with pytest.raises(TypeError):
@@ -87,6 +154,11 @@ def test_kernel_refuses_what_it_does_not_take(dev):
                            v[..., :32].contiguous())
     with pytest.raises(ValueError):
         TA.flash_fwd_int8(q.transpose(1, 2), k, v)
+    out, lse = TA.flash_fwd_exact(q, k, v)
+    with pytest.raises(TypeError, match="--bf16"):
+        TA.flash_bwd(q.float(), k.float(), v.float(), out, lse, out)
+    with pytest.raises(ValueError):
+        TA.flash_bwd(q, k, v, out, lse[:, :, :-1].contiguous(), out)
 
 
 def _adaln_inputs(dev, B, S, D, dtype, seed=0):
