@@ -9,10 +9,16 @@ Phases, in order; any failure exits nonzero before the last line:
               convolutions, printed.
   2. build:   nvcc builds every kernel from the checkout's sources, one
               process per source, started together.
-  3. kernels: each flash kernel against its plain PyTorch version at the
-              two main-path shapes (DiT: B=2 S=17,776 H=30 D=64 unmasked;
+  3. kernels: the SFU's exp2 rate in f32 and bf16x2 (a probe, for the
+              bounds); each flash kernel against its plain PyTorch version
+              at the two main-path shapes (DiT: B=2 S=17,776 H=30 D=64 unmasked;
               TiTok decoder: B=1 S=18,768 H=12 D=64, video-decoder mask),
-              with times, bounds and the SDPA yardstick; the flash
+              with times, bounds and the SDPA yardstick, and so each
+              variant of the forward (int8_pv, int8_pv + exp_bf16, int8 +
+              exp_bf16, exact + exp_bf16); the direct entry
+              flash_attention under the three knobs at both shapes (the
+              path of the exp_bf16 variants, which the dispatcher never
+              takes); the flash
               backward at the training shape (B=1) and the TiTok shape,
               from the forward kernel's own out and lse, with the
               run-to-run spread of dq and a small case whose masked rows
@@ -39,6 +45,13 @@ Phases, in order; any failure exits nonzero before the last line:
   7. exact:   one full-width control_warp_forward with int8 scores off;
               the exact kernel must launch 45 times.
   8. dit call: one warm model call timed with and without the knob.
+  8b. fast:   the fast serving configuration (LANDIFF_FAST=2 with
+              LANDIFF_ATTN_INT8_PV=1, set for this phase only): wrappers
+              built from the resident parameters (W8A8 main and control
+              DiTs, int8 GPT block linears), one prompt -> codes -> video
+              at 50 steps: 1,218 valid codes, the video's shape and range,
+              28 model calls (22 with two rows, 6 with one), 45 * 28 + 12
+              int8_pv launches and no other forward.
   9. train dit: the inference pipelines are freed; then the trainer's entry
               point (training.train.train) takes three steps of the
               stage-2 ControlNet step at full width in bf16 on synthesized
@@ -84,6 +97,11 @@ import numpy as np
 KERNEL_TOL_STEPS = 0.5
 KERNEL_TOL_RMS = 1e-3
 LSE_TOL = 1e-5
+# The variants widen these limits by what their arithmetic moves
+# (attention.variant_limits): int8_pv by two V-code steps; exp_bf16 is
+# held to the plain version with the card's own exp2 within the base
+# limits and a tile sum's rounding, and to the true 2^x within limits set
+# from the readings.
 
 # Backward kernel vs plain (attention.kernel_error per tensor, dq / dk /
 # dv): p and scale*ds are rounded to bf16 in both from exp2 results and f32
@@ -107,11 +125,24 @@ ADALN_TOL_STEPS = 1.0
 ADALN_TOL_RMS_BF16 = 3e-5
 ADALN_TOL_F32 = 1e-6
 
+# the forward kernel's variants: (int8 scores, int8_pv, exp_bf16)
+FWD_VARIANTS = ((False, False, False), (True, False, False),
+                (True, True, False), (True, True, True),
+                (True, False, True), (False, False, True))
+REPLACES_FWD = {
+    False: "landiff_tpu/ops/attention.py:91 _flash_kernel, :197 "
+           "_flash_kernel_cached",
+    True: "landiff_tpu/ops/attention.py:264 _flash_kernel_cached_i8"}
+
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
-# SFU exp2 co-bound: 16 MUFU results per SM per clock, 132 SMs, 1.98 GHz
+# f32 exp2 on the SFUs: 16 results per SM per clock (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0), 132
+# SMs, 1.98 GHz (the H100 SXM's maximum boost clock). The bf16x2 form's
+# rate is this times the ratio the probe measures in the same run
+# (exp2_rates).
 PEAK_EXP2 = 132 * 16 * 1.98e9
 
 
@@ -148,7 +179,52 @@ def cuda_ms(fn, iters, repeats=5):
 # phase 3: kernels at the main-path shapes
 
 
-def kernel_case(name, B, S, H, mask_fn, int8, seed):
+def exp2_rates():
+    """Exp2 results per second of the SFU probe (flash_fwd.cu
+    landiff_ex2_rate) in f32 and in bf16x2, timed here; returns the rates
+    the bounds use: f32, the larger of PEAK_EXP2 and the f32 reading
+    (a bound must not assume less than the card does), and bf16x2, that
+    times the measured bf16x2 / f32 ratio."""
+    import torch
+
+    from landiff_tpu_torch.ops import kernels
+
+    lib = kernels.flash_library()
+    blocks, iters = 132 * 8, 2048
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    read = {}
+    for name, pairs in (("f32", 0), ("bf16x2", 1)):
+        def call():
+            rc = lib.landiff_ex2_rate(out.data_ptr(), blocks, iters, pairs,
+                                      stream)
+            check(rc == 0, f"exp2 rate probe ({name}): cudaError {rc}")
+        ms = cuda_ms(call, 3)
+        read[name] = blocks * 256 * 8 * iters * (1 + pairs) / (ms * 1e-3)
+    ratio = read["bf16x2"] / read["f32"]
+    f32 = max(PEAK_EXP2, read["f32"])
+    rates = {False: f32, True: f32 * ratio}
+    log(json.dumps({"phase": "exp2_rate", "f32_per_s": read["f32"],
+                    "bf16x2_per_s": read["bf16x2"], "ratio": ratio,
+                    "published_f32_per_s": PEAK_EXP2,
+                    "bound_f32_per_s": rates[False],
+                    "bound_bf16x2_per_s": rates[True]}))
+    return rates
+
+
+def least_time(times: dict) -> tuple[float, str, str]:
+    """The bound of a kernel whose units work side by side: `times` maps
+    each unit ("bytes" for the memory) to the seconds of its share of the
+    work at its peak. Returns (the largest, "bytes" or "operations", the
+    unit that binds)."""
+    unit = max(times, key=times.get)
+    return times[unit], "bytes" if unit == "bytes" else "operations", unit
+
+
+def kernel_case(name, B, S, H, mask_fn, int8, seed, exp2_rate, int8_pv=False,
+                exp_bf16=False):
+    import functools
+
     import torch
     import torch.nn.functional as F
 
@@ -161,8 +237,11 @@ def kernel_case(name, B, S, H, mask_fn, int8, seed):
     q = (torch.randn((B, S, H, D), generator=g, device=dev) * 1.5).bfloat16()
     k = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
     v = torch.randn((B, S, H, D), generator=g, device=dev).bfloat16()
-    fn = A.flash_fwd_int8 if int8 else A.flash_fwd_exact
-    plain = A.flash_int8_plain if int8 else A.flash_exact_plain
+    opts = dict(exp_bf16=exp_bf16, **({"int8_pv": int8_pv} if int8 else {}))
+    fn = functools.partial(A.flash_fwd_int8 if int8 else A.flash_fwd_exact,
+                           **opts)
+    plain = functools.partial(
+        A.flash_int8_plain if int8 else A.flash_exact_plain, **opts)
 
     out, lse = fn(q, k, v, mask_fn=mask_fn)          # first call: tables
     torch.cuda.synchronize()
@@ -175,9 +254,33 @@ def kernel_case(name, B, S, H, mask_fn, int8, seed):
     steps, rel_rms = A.kernel_error(out, ref)
     lse_err = (lse - ref_lse).abs().max().item()
     finite = bool(torch.isfinite(out.float()).all())
+    lim = A.variant_limits(ref, v, int8_pv=int8_pv, exp_bf16=exp_bf16,
+                           tol_steps=KERNEL_TOL_STEPS,
+                           tol_rms=KERNEL_TOL_RMS, lse_tol=LSE_TOL)
+    checks = [(finite, "output not finite"),
+              (err <= lim["max_abs"], f"max |err| {err} > {lim['max_abs']}"),
+              (rel_rms <= lim["rel_rms"], f"relative RMS error {rel_rms}"),
+              (lse_err <= lim["lse"], f"lse error {lse_err}")]
+    card = None
+    if exp_bf16:   # the same plain version with the card's own exp2
+        card_out, card_lse = plain(q, k, v, mask_fn=mask_fn,
+                                   exp2_table=A.card_exp2_table("cuda"))
+        c_steps, c_rms = A.kernel_error(out, card_out)
+        card = {"max_abs_err": (out.float() - card_out.float()).abs().max()
+                .item(), "max_bf16_steps": c_steps, "rel_rms_err": c_rms,
+                "lse_max_abs_err": (lse - card_lse).abs().max().item(),
+                "limits": lim["card"]}
+        checks += [
+            (card["max_abs_err"] <= lim["card"]["max_abs"],
+             f"vs card exp2: max |err| {card['max_abs_err']}"),
+            (c_rms <= lim["card"]["rel_rms"],
+             f"vs card exp2: relative RMS error {c_rms}"),
+            (card["lse_max_abs_err"] <= lim["card"]["lse"],
+             f"vs card exp2: lse error {card['lse_max_abs_err']}")]
+        del card_out, card_lse
 
     library_ms = None
-    if not int8:
+    if not int8:   # SDPA computes the exact function (exp_bf16: close to it)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         attn_mask = None
         if mask_fn is not None:
@@ -193,29 +296,32 @@ def kernel_case(name, B, S, H, mask_fn, int8, seed):
 
     visible = M.visible_count(mask_fn, S, S, device="cuda")
     flops = 4.0 * B * H * visible * D
-    ops_s = (flops / 2 / PEAK_INT8 + flops / 2 / PEAK_BF16 if int8
-             else flops / PEAK_BF16)
     nbytes = 4 * B * S * H * D * 2 + B * H * S * 4   # q k v in, out + lse
-    bytes_s = nbytes / PEAK_BYTES
+    # q.k at the int8 rate with int8 scores, p.v with int8_pv; one exp2
+    # per visible pair on the SFUs, beside the tensor cores
+    bound_s, bound_by, unit = least_time({
+        "tensor cores": flops / 2 / (PEAK_INT8 if int8 else PEAK_BF16)
+        + flops / 2 / (PEAK_INT8 if int8_pv else PEAK_BF16),
+        "exp2": B * H * visible / exp2_rate, "bytes": nbytes / PEAK_BYTES})
     res = {
         "case": name, "shape": [B, S, H, D],
         "mask": None if mask_fn is None else type(mask_fn).__name__
         + f"(kind={mask_fn.descriptor()[0]})",
         "visible_pairs": visible, "max_abs_err": err,
         "max_bf16_steps": steps, "rel_rms_err": rel_rms,
-        "lse_max_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
-        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-        "exp2_bound_ms": B * H * visible / PEAK_EXP2 * 1e3,
+        "lse_max_abs_err": lse_err, "limits": {
+            k: lim[k] for k in ("max_abs", "rel_rms", "lse", "exp2_rel_err",
+                                "exp2_not_rounded_share") if k in lim},
+        "vs_card_exp2": card, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": bound_s * 1e3,
+        "bound_by": bound_by, "bound_unit": unit,
         "tflops": flops / (ms * 1e-3) / 1e12,
     }
-    kname = "flash_fwd_int8" if int8 else "flash_fwd_exact"
+    kname = A.variant_name(int8, int8_pv, exp_bf16)
     log(json.dumps({"kernel": kname, **res}))
-    res["faults"] = [f"{kname} {name}: {what}" for ok, what in (
-        (finite, "output not finite"),
-        (steps <= KERNEL_TOL_STEPS, f"max |err| {steps} bf16 steps"),
-        (rel_rms <= KERNEL_TOL_RMS, f"relative RMS error {rel_rms}"),
-        (lse_err <= LSE_TOL, f"lse error {lse_err}")) if not ok]
+    res["name"] = kname
+    res["faults"] = [f"{kname} {name}: {what}" for ok, what in checks
+                     if not ok]
     del q, k, v, out, ref, lse, ref_lse
     torch.cuda.empty_cache()
     return res
@@ -232,19 +338,92 @@ def phase_kernels():
                                pframe_tokens=t.pframe_latent_tokens)
     check(layout.seq_len == 18768, f"TiTok sequence {layout.seq_len}")
     dec = M.video_decoder_mask(layout)
+    rates = exp2_rates()
     results = {}
-    for kname, int8 in (("flash_fwd_exact", False), ("flash_fwd_int8", True)):
-        dit = kernel_case("dit", 2, 17776, 30, None, int8, seed=1)
-        titok = kernel_case("titok_dec", 1, 18768, 12, dec, int8, seed=2)
-        results[kname] = (dit, titok)
+    for int8, int8_pv, exp_bf16 in FWD_VARIANTS:
+        kw = dict(int8_pv=int8_pv, exp_bf16=exp_bf16,
+                  exp2_rate=rates[exp_bf16])
+        dit = kernel_case("dit", 2, 17776, 30, None, int8, seed=1, **kw)
+        titok = kernel_case("titok_dec", 1, 18768, 12, dec, int8, seed=2,
+                            **kw)
+        results[dit["name"]] = (dit, titok)
     faults = [f for dit, titok in results.values()
               for f in dit["faults"] + titok["faults"]]
     check(not faults, "kernel vs plain: " + "; ".join(faults))
-    results["flash_bwd"] = phase_bwd_kernel(dec)
+    results["flash_bwd"] = phase_bwd_kernel(dec, rates[False])
+    results["dec_mask"] = dec
     return results
 
 
-def bwd_case(name, B, S, H, mask_fn, seed):
+# the environment of the flash routes and of the fast configuration; the
+# phases that set some of them restore all of them
+ROUTE_KNOBS = ("LANDIFF_FAST", "LANDIFF_ATTN_INT8", "LANDIFF_ATTN_INT8_PV",
+               "LANDIFF_ATTN_EXP_BF16", "LANDIFF_FUSED_ADALN",
+               "LANDIFF_DIT_INT8", "LANDIFF_DECODE_INT8",
+               "LANDIFF_DECODE_INT4", "LANDIFF_STEP_REUSE",
+               "LANDIFF_CFG_WINDOW")
+
+
+class knobs:
+    """Within the block exactly `env` of ROUTE_KNOBS is set; the earlier
+    environment comes back after it."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.saved = {k: os.environ.pop(k, None) for k in ROUTE_KNOBS}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def phase_direct(dec_mask):
+    """flash_attention, the direct entry (what JAX's SP ring calls), under
+    the knobs that select each exp_bf16 variant, at the DiT and the TiTok
+    shapes: the path of those variants, which the dispatcher never takes
+    (JAX's attention() pins exp_bf16=False). Counts reset just before and
+    read just after: two launches of each, none of anything else."""
+    import torch
+
+    from landiff_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    shapes = ((2, 17776, 30, None), (1, 18768, 12, dec_mask))
+    settings = {
+        "flash_fwd_exact_exp_bf16": {"LANDIFF_ATTN_EXP_BF16": "1"},
+        "flash_fwd_int8_exp_bf16": {"LANDIFF_ATTN_INT8": "1",
+                                    "LANDIFF_ATTN_EXP_BF16": "1"},
+        "flash_fwd_int8_pv_exp_bf16": {"LANDIFF_ATTN_INT8": "1",
+                                       "LANDIFF_ATTN_EXP_BF16": "1",
+                                       "LANDIFF_ATTN_INT8_PV": "1"}}
+    inputs = [[torch.randn((B, S, H, 64), generator=g,
+                           device="cuda").bfloat16() for _ in range(3)]
+              + [mask] for B, S, H, mask in shapes]
+    reset_counts()
+    for env in settings.values():
+        with knobs(**env):
+            for q, k, v, mask in inputs:
+                out = A.flash_attention(q, k, v, mask_fn=mask)
+                check(out.shape == q.shape and bool(
+                    torch.isfinite(out.float()).all()),
+                    f"flash_attention under {env}: {tuple(out.shape)}")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {k: 2 if k in settings else 0 for k in launches}
+    check(launches == want, f"direct launches {launches}, want {want}")
+    log(json.dumps({"phase": "direct", "settings": settings,
+                    "launches": launches}))
+    del inputs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bwd_case(name, B, S, H, mask_fn, seed, exp2_rate):
     """flash_bwd against flash_bwd_plain from the exact forward kernel's
     own out and lse; the SDPA backward, timed alone, as the yardstick."""
     import torch
@@ -307,10 +486,12 @@ def bwd_case(name, B, S, H, mask_fn, seed):
 
     visible = M.visible_count(mask_fn, S, S, device="cuda")
     flops = 10.0 * B * H * visible * D
-    ops_s = flops / PEAK_BF16
-    # q k v do out read, dq dk dv written (bf16), lse read (f32)
+    # q k v do out read, dq dk dv written (bf16), lse read (f32); p is
+    # recomputed, one exp2 per visible pair
     nbytes = 8 * B * S * H * D * 2 + B * H * S * 4
-    bytes_s = nbytes / PEAK_BYTES
+    bound_s, bound_by, unit = least_time({
+        "tensor cores": flops / PEAK_BF16, "exp2": B * H * visible / exp2_rate,
+        "bytes": nbytes / PEAK_BYTES})
     res = {
         "case": name, "shape": [B, S, H, D],
         "mask": None if mask_fn is None else type(mask_fn).__name__
@@ -318,9 +499,8 @@ def bwd_case(name, B, S, H, mask_fn, seed):
         "visible_pairs": visible, "errors": errs,
         "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
         "run_to_run": spread, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
-        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-        "exp2_bound_ms": B * H * visible / PEAK_EXP2 * 1e3,
+        "library_ms": library_ms, "bound_ms": bound_s * 1e3,
+        "bound_by": bound_by, "bound_unit": unit,
         "tflops": flops / (ms * 1e-3) / 1e12, "faults": faults}
     log(json.dumps({"kernel": "flash_bwd", **res}))
     del q, k, v, do, out, lse, got
@@ -359,9 +539,11 @@ def bwd_masked_rows_case():
                     "exactly_zero": True}))
 
 
-def phase_bwd_kernel(dec_mask):
-    train = bwd_case("dit_train", 1, 17776, 30, None, seed=21)
-    titok = bwd_case("titok_dec", 1, 18768, 12, dec_mask, seed=22)
+def phase_bwd_kernel(dec_mask, exp2_rate):
+    train = bwd_case("dit_train", 1, 17776, 30, None, seed=21,
+                     exp2_rate=exp2_rate)
+    titok = bwd_case("titok_dec", 1, 18768, 12, dec_mask, seed=22,
+                     exp2_rate=exp2_rate)
     bwd_masked_rows_case()
     faults = train["faults"] + titok["faults"]
     check(not faults, "kernel vs plain: " + "; ".join(faults))
@@ -453,12 +635,11 @@ def reset_counts():
 
 
 def read_counts():
+    """Launches per kernel and forward variant since reset_counts."""
     from landiff_tpu_torch.ops import adaln as N
     from landiff_tpu_torch.ops import attention as A
 
-    return {"flash_fwd_int8": A.flash_fwd_int8.launches,
-            "flash_fwd_exact": A.flash_fwd_exact.launches,
-            "flash_bwd": A.flash_bwd.launches,
+    return {**A.LAUNCHES,
             "adaln": N.adaln_fused.launches}
 
 
@@ -489,6 +670,13 @@ def build_full(steps):
                    "stage1_t5": count_params(llm.params["t5"])},
         "gpu_mem_gb": torch.cuda.memory_allocated() / 1e9}))
     return cfg, llm, dif
+
+
+def check_no_variant(launches):
+    """The default path (no knob) runs no int8_pv or exp_bf16 variant."""
+    ran = {k: n for k, n in launches.items()
+           if ("_pv" in k or "exp_bf16" in k) and n}
+    check(not ran, f"forward variants ran on the default path: {ran}")
 
 
 def check_video(task_video, latent=None):
@@ -526,6 +714,7 @@ def phase_stage2(cfg, dif, steps):
     check(launches["flash_fwd_exact"] == 0,
           "exact kernel ran on the int8 path")
     check(launches["adaln"] == 0, "adaLN kernel ran with the knob unset")
+    check_no_variant(launches)
     log(json.dumps({
         "phase": "stage2", "warm": True, "fused_adaln": False,
         "seconds": seconds,
@@ -594,6 +783,7 @@ def phase_video(cfg, llm, dif, steps):
           f"int8 launches {launches['flash_fwd_int8']}, want "
           f"{n * (12 + 45 * steps)}")
     check(launches["flash_fwd_exact"] == 0, "exact kernel ran on the path")
+    check_no_variant(launches)
     check(not np.array_equal(codes[0], codes[1]),
           "two prompts gave the same codes")
     log(json.dumps({"phase": "video", "launches": launches,
@@ -693,11 +883,11 @@ def phase_exact(cfg, params):
                                            x, ts, ctx, d, sem)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = A.flash_fwd_exact.launches
+        launches = A.LAUNCHES["flash_fwd_exact"]
     finally:
         os.environ.pop("LANDIFF_ATTN_INT8")
     check(launches == 45, f"exact launches {launches}, want 45")
-    check(A.flash_fwd_int8.launches == 0, "int8 kernel ran with int8 off")
+    check(A.LAUNCHES["flash_fwd_int8"] == 0, "int8 kernel ran with int8 off")
     check(tuple(out.shape) == shape, f"exact-path output {tuple(out.shape)}")
     check(bool(torch.isfinite(out.float()).all()), "exact path not finite")
     log(json.dumps({"phase": "exact", "seconds": seconds,
@@ -762,6 +952,94 @@ def phase_dit_call(cfg, params):
         "2, 45 layers, int8 scores", "unfused_ms": times[False],
         "fused_adaln_ms": times[True],
         "fused_vs_unfused_rel_rms": rel, "launches": launches}))
+
+
+FAST_STEPS = 50
+# per 50-step video: 28 model calls x 45 DiT layers + 12 TiTok decoder
+# layers, all on the int8 route
+FAST_PV_LAUNCHES = 45 * 28 + 12
+
+
+def phase_fast(cfg, llm, dif):
+    """The fast serving configuration at full width: LANDIFF_FAST=2 (W8A8
+    DiT linears, int8 stage-1 weights, step reuse, guidance window [2, 44))
+    and LANDIFF_ATTN_INT8_PV=1, set for this phase only. The wrappers are
+    built by their constructors from the resident parameters (they
+    quantize: the f32 main and control DiTs, the bf16 GPT blocks), and one
+    prompt goes to a video through infer_video.generate at the released 50
+    steps. The model calls are counted by their batch rows."""
+    import torch
+
+    from landiff_tpu_torch.models import dit as dit_lib
+    from landiff_tpu_torch.models import lm
+    from landiff_tpu_torch.pipeline import dif_infer, infer_video, llm_infer
+
+    fast_cfg = dataclasses.replace(cfg, sampler=dataclasses.replace(
+        cfg.sampler, num_steps=FAST_STEPS))
+    prompt, seed = "a corgi running along a beach at sunset", 1
+    rows = []
+    orig = dit_lib.control_warp_forward
+
+    call_s = {1: [], 2: []}
+
+    def counted(main, control, x, *a, **kw):
+        rows.append(x.shape[0])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(main, control, x, *a, **kw)
+        torch.cuda.synchronize()
+        call_s.setdefault(x.shape[0], []).append(time.perf_counter() - t)
+        return out
+
+    with knobs(LANDIFF_FAST="2", LANDIFF_ATTN_INT8_PV="1"):
+        t0 = time.perf_counter()
+        fllm = llm_infer.ArModelInferWrapper(
+            llm.params, cfg.llm, cfg.t5,
+            dataclasses.replace(llm.sample_cfg, seed=seed), device="cuda")
+        fdif = dif_infer.CogModelInferWrapper(dif.params, fast_cfg,
+                                              device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(isinstance(fllm.params["lm"]["gpt"]["blocks"][0]["wqkv"], dict),
+              "stage 1 is not on int8 weights")
+        check(all(isinstance(fdif.params[k]["layers"][0]["qkv_w"], dict)
+                  for k in ("main", "control")), "the DiT is not W8A8")
+        # the first request of these wrappers; every kernel it launches
+        # has run earlier in the process
+        dit_lib.control_warp_forward = counted
+        try:
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            res = infer_video.generate(fllm, fdif, prompt, seed=seed)
+            launches = read_counts()
+        finally:
+            dit_lib.control_warp_forward = orig
+    check_codes(res["codes"], cfg, "fast")
+    check_video(res["video"])
+    check(len(rows) == 28 and rows.count(2) == 22 and rows.count(1) == 6,
+          f"fast path model calls by rows {rows}")
+    want = {k: 0 for k in launches}
+    want["flash_fwd_int8_pv"] = FAST_PV_LAUNCHES
+    check(launches == want, f"fast launches {launches}, want {want}")
+    decode_steps = lm.video_frames_to_code_len(cfg.llm,
+                                               fllm.sample_cfg.num_frames)
+    log(json.dumps({
+        "phase": "fast", "steps": FAST_STEPS, "first_request": True,
+        "env": {"LANDIFF_FAST": "2", "LANDIFF_ATTN_INT8_PV": "1"},
+        "build_seconds": build_s, "stage1_s": res["stage1_s"],
+        "stage2_s": res["stage2_s"],
+        "whole_video_s": res["stage1_s"] + res["stage2_s"],
+        "stage1_phase_seconds": fllm.phase_seconds,
+        "decode_steps_per_s": decode_steps / fllm.phase_seconds["sample"],
+        "stage2_phase_seconds": fdif.phase_seconds,
+        "model_calls_by_rows": rows, "launches": launches,
+        "model_call_s_median_by_rows": {
+            r: float(np.median(v)) for r, v in call_s.items() if v},
+        "video_mean": float(res["video"].mean()),
+        "video_std": float(res["video"].std()),
+        "codes_head": res["codes"][:8].tolist(),
+        "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    return launches
 
 
 def profiled(fn, what):
@@ -1002,7 +1280,7 @@ def phase_train_dit(workdir):
         check(rep["not_all_zero"] == rep["leaves"] - 2,
               f"step {i + 1}: a control gradient is all zero: {rep}")
     for got, n in ((first_launches, 3), (resumed_launches, 1)):
-        want = {k: v * n for k, v in TRAIN_DIT_LAUNCHES.items()}
+        want = {k: TRAIN_DIT_LAUNCHES.get(k, 0) * n for k in got}
         check(got == want, f"launches over {n} steps {got}, want {want}")
     # the frozen trees were not touched by three steps
     for k in ("main", "sem"):
@@ -1182,6 +1460,7 @@ def main():
 
     # 3. kernels
     measured = phase_kernels()
+    direct_launches = phase_direct(measured.pop("dec_mask"))
     adaln = phase_adaln()
     # 4. the pipeline; 5. prompt -> codes -> video; 6. stage 2 alone
     cfg, llm, dif = build_full(args.steps)
@@ -1195,6 +1474,8 @@ def main():
         phase_profile(cfg, dif.params, fused=False)
         phase_profile(cfg, dif.params, fused=True)
         phase_profile_decode(cfg, llm)
+    # 8b. the fast serving configuration
+    fast_launches = phase_fast(cfg, llm, dif)
     del llm, dif
     gc.collect()
     torch.cuda.empty_cache()
@@ -1205,15 +1486,24 @@ def main():
         torch.cuda.empty_cache()
         phase_train_lm(Path(tmp))
 
+    # launches of each forward variant on its path: the exact kernel on the
+    # int8-off DiT call, the int8 kernel on prompt -> video, int8_pv on the
+    # fast configuration, the exp_bf16 variants on the direct entry
+    path_launches = {**direct_launches,
+                     "flash_fwd_exact": exact_launches,
+                     "flash_fwd_int8": video_launches["flash_fwd_int8"],
+                     "flash_fwd_int8_pv": fast_launches["flash_fwd_int8_pv"]}
     rows = []
-    for kname, launches, replaces in (
-            ("flash_fwd_exact", exact_launches,
-             "landiff_tpu/ops/attention.py:91 _flash_kernel, "
-             ":197 _flash_kernel_cached"),
-            ("flash_fwd_int8", video_launches["flash_fwd_int8"],
-             "landiff_tpu/ops/attention.py:264 _flash_kernel_cached_i8")):
+    for int8, int8_pv, exp_bf16 in FWD_VARIANTS:
+        from landiff_tpu_torch.ops.attention import variant_name
+
+        kname = variant_name(int8, int8_pv, exp_bf16)
         dit, titok = measured[kname]
+        launches = path_launches[kname]
         check(launches > 0, f"{kname} never launched on its path")
+        replaces = REPLACES_FWD[int8] + (
+            ", int8_pv :338-348" if int8_pv else "") + (
+            ", exp_bf16 _softmax_tile :37-57" if exp_bf16 else "")
         rows.append({
             "name": kname, "route": "cuda",
             "source": "landiff_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -1221,7 +1511,8 @@ def main():
             "max_abs_err": dit["max_abs_err"], "ms": dit["ms"],
             "plain_ms": dit["plain_ms"], "bound_ms": dit["bound_ms"],
             "bound_by": dit["bound_by"], "library_ms": dit["library_ms"],
-            "shape": dit["shape"], "titok_dec": titok})
+            "bound_unit": dit["bound_unit"], "shape": dit["shape"],
+            "titok_dec": titok})
     rows[1]["launches_stage2_alone"] = stage2_launches["flash_fwd_int8"]
     check(video_launches["adaln"] > 0, "adaln never launched on its path")
     rows.append({

@@ -6,7 +6,11 @@ own operators without transposes:
   - 4-D conv kernels, HWIO (kh, kw, ci, co)      -> OIHW for F.conv2d
   - 5-D conv kernels, (kt, kh, kw, ci, co)       -> OIDHW for F.conv3d
 Every other array (linear weights stored (in, out) for x @ W, biases,
-tables, codebooks) keeps its layout. Every 4-D or 5-D leaf of the stage-2
+tables, codebooks, the int8 codes and scales of the quantized trees, which
+are 2-D or 1-D) keeps its layout. bfloat16 arrays (the scales of
+gpt.quantize_int8 / quantize_int4) cross bit for bit: numpy holds them as
+ml_dtypes.bfloat16, which torch.from_numpy does not take, so their bits
+go over as uint16 and are viewed as torch.bfloat16. Every 4-D or 5-D leaf of the stage-2
 trees is a conv kernel (DiT patchify, semantic upsampler, VAE), which is
 what makes the rule by rank safe. The stage-1 tree ({"lm": {"gpt",
 "tok_emb", "text_proj", "null_text_embedding", "micro", and for training
@@ -27,6 +31,9 @@ _PERMUTE = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 
 def _convert(a, device) -> torch.Tensor:
     arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(arr.view(np.uint16)))
+        return bits.view(torch.bfloat16).to(device)
     if arr.ndim in _PERMUTE and np.issubdtype(arr.dtype, np.floating):
         arr = np.transpose(arr, _PERMUTE[arr.ndim])
     return torch.from_numpy(np.array(arr)).to(device)   # a writable copy

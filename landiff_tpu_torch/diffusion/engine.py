@@ -20,6 +20,7 @@ from landiff_tpu_torch.diffusion import samplers, schedule
 from landiff_tpu_torch.models import dit as dit_lib
 from landiff_tpu_torch.models import semantic_cond as sc_lib
 from landiff_tpu_torch.models import vae as vae_lib
+from landiff_tpu_torch.utils import env_value, logger
 
 
 @functools.lru_cache(maxsize=8)
@@ -42,7 +43,10 @@ def make_denoise_fn(main_params, control_params, sem_params,
 
     context / uc_context: (B, 226, 4096); semantic_tokens: (B, L). Returns
     denoise_fn(x, step) -> f32 v-parameterized x0 prediction after the
-    DynamicCFG combination (engine.py:99-123)."""
+    DynamicCFG combination (engine.py:99-123), with its twin
+    denoise_fn.cond_only(x, step): the cond row alone, batch B, no CFG
+    combination (engine.py:125-145), for steps outside a guidance
+    window."""
     q_alpha = denoiser_quantized_alphas(sampler_cfg).astype(np.float32)
     alpha_table = schedule.sampler_tables(sampler_cfg)["alpha"].astype(
         np.float32)
@@ -52,14 +56,16 @@ def make_denoise_fn(main_params, control_params, sem_params,
         forward_t=dit_cfg.latent_frames, compute_dtype=compute_dtype)
     sem2 = torch.cat([sem, sem], dim=0)
 
-    def denoise_fn(x, step):
-        B = x.shape[0]
+    def scalings(step):
         # DiscreteDenoiser sigma quantization: nearest 1000-table entry,
         # in f32 as the JAX closure computes it
         a = np.float32(step["alpha"])
         alpha = q_alpha[np.argmin(np.abs(a - alpha_table))]
-        c_skip = float(alpha)
-        c_out = float(-np.sqrt(np.float32(1.0) - alpha * alpha))
+        return float(alpha), float(-np.sqrt(np.float32(1.0) - alpha * alpha))
+
+    def denoise_fn(x, step):
+        B = x.shape[0]
+        c_skip, c_out = scalings(step)
         x2 = torch.cat([x, x], dim=0)
         ts = torch.full((2 * B,), float(step["timestep"]),
                         dtype=torch.float32, device=x.device)
@@ -70,19 +76,49 @@ def make_denoise_fn(main_params, control_params, sem_params,
         x_u, x_c = denoised[:B], denoised[B:]
         return x_u + step["cfg_scale"] * (x_c - x_u)
 
+    def cond_only(x, step):
+        B = x.shape[0]
+        c_skip, c_out = scalings(step)
+        ts = torch.full((B,), float(step["timestep"]), dtype=torch.float32,
+                        device=x.device)
+        net_out = dit_lib.control_warp_forward(
+            main_params, control_params, x.to(compute_dtype), ts,
+            ctx2[B:], dit_cfg, sem, compute_dtype=compute_dtype)
+        return net_out.float() * c_out + x.float() * c_skip
+
+    denoise_fn.cond_only = cond_only
     return denoise_fn
 
 
 def sample_latents(denoise_fn, sampler_cfg: SamplerConfig,
                    dit_cfg: DiTConfig, *, generator: torch.Generator,
-                   init_noise=None, step_noise=None) -> torch.Tensor:
+                   init_noise=None, step_noise=None,
+                   reuse_every: int | None = None,
+                   cfg_window: tuple[int, int] | None = None) -> torch.Tensor:
     """Engine.sample (diffusion_video.py:255-315), VPSDE branch: randn
     latents -> sampler loop. Returns (1, T, C, H, W) f32 on the
     generator's device. init_noise / step_noise: optional initial latents
-    and per-step noises replacing the generator's draws."""
+    and per-step noises replacing the generator's draws.
+
+    reuse_every (default LANDIFF_STEP_REUSE, off) and cfg_window (default
+    LANDIFF_CFG_WINDOW "lo,hi", off), as JAX reads them (engine.py:
+    179-198), LANDIFF_FAST=2 supplying both: a window from the environment
+    is dropped with a warning when denoise_fn has no cond_only twin; an
+    explicit cfg_window without one raises in the sampler."""
     if sampler_cfg.name != "vpsde_dpmpp2m":
         raise NotImplementedError(
             f"sampler {sampler_cfg.name!r} is not ported yet")
+    if reuse_every is None:
+        reuse_every = int(env_value("LANDIFF_STEP_REUSE", "0") or 0)
+    if cfg_window is None:
+        env = env_value("LANDIFF_CFG_WINDOW", "")
+        if env:
+            lo, hi = env.split(",")
+            cfg_window = (int(lo), int(hi))
+            if getattr(denoise_fn, "cond_only", None) is None:
+                logger.warning("LANDIFF_CFG_WINDOW ignored: denoise_fn has "
+                               "no cond_only variant")
+                cfg_window = None
     device = generator.device
     if init_noise is not None:
         x = torch.as_tensor(init_noise, dtype=torch.float32).to(device)
@@ -92,7 +128,9 @@ def sample_latents(denoise_fn, sampler_cfg: SamplerConfig,
         x = torch.randn(shape, generator=generator, device=device)
     return samplers.vpsde_dpmpp2m_sample(denoise_fn, x, sampler_cfg,
                                          generator=generator,
-                                         noises=step_noise)
+                                         noises=step_noise,
+                                         reuse_every=reuse_every,
+                                         cfg_window=cfg_window)
 
 
 def decode_first_stage(vae_params, latents, vae_cfg: VAEConfig, *,

@@ -11,7 +11,8 @@ denoise_fn contract (provided by the engine):
     denoised = denoise_fn(x, step) -> f32 tensor like x
 with `step` a dict of per-step host scalars
     {"alpha": f32, "timestep": int, "idx": int, "cfg_scale": f32}.
-Not ported yet (all opt-in): step reuse, the guidance window, the
+With a guidance window the sampler calls `denoise_fn.cond_only(x, step)`
+(the cond row alone) outside it. Not ported yet: sdedit and the
 deterministic samplers.
 """
 
@@ -24,6 +25,36 @@ import torch
 
 from landiff_tpu_torch.config import SamplerConfig
 from landiff_tpu_torch.diffusion import schedule as sched
+
+# always-compute windows of cross-step model-output reuse
+# (LANDIFF_STEP_REUSE, samplers.py:33-34)
+REUSE_HEAD_DEFAULT = 3
+REUSE_TAIL_DEFAULT = 3
+
+
+def reuse_compute_schedule(n: int, reuse_every: int,
+                           head: int = REUSE_HEAD_DEFAULT,
+                           tail: int = REUSE_TAIL_DEFAULT) -> np.ndarray:
+    """bool[n], True = call the model (samplers.py:37-53). The first head
+    and last tail steps compute (both clamped to >= 1: step 0 has no
+    residual to reuse, the last step's denoised is the output); in between
+    every reuse_every-th step from head computes."""
+    head = max(1, int(head))
+    tail = max(1, int(tail))
+    compute = np.ones(n, bool)
+    for i in range(head, n - tail):
+        compute[i] = (i - head) % int(reuse_every) == 0
+    return compute
+
+
+def cfg_window_schedule(n: int, lo: int, hi: int) -> np.ndarray:
+    """bool[n], True = both CFG rows, False = the cond row alone
+    (samplers.py:84-91): guidance on steps [lo, hi), hi < 0 counting from
+    the end."""
+    hi = hi if hi >= 0 else n + hi
+    mask = np.zeros(n, bool)
+    mask[max(0, lo):max(0, min(n, hi))] = True
+    return mask
 
 
 def _per_step_arrays(cfg: SamplerConfig):
@@ -75,19 +106,49 @@ def step_dicts(cfg: SamplerConfig) -> list[dict]:
 def vpsde_dpmpp2m_sample(denoise_fn: Callable, x: torch.Tensor,
                          cfg: SamplerConfig, *,
                          generator: torch.Generator | None = None,
-                         noises=None, fixed_frames: int = 0) -> torch.Tensor:
+                         noises=None, fixed_frames: int = 0,
+                         reuse_every: int = 0,
+                         reuse_head: int = REUSE_HEAD_DEFAULT,
+                         reuse_tail: int = REUSE_TAIL_DEFAULT,
+                         cfg_window: tuple[int, int] | None = None
+                         ) -> torch.Tensor:
     """DPM-Solver++(2M) SDE in VP parameterization.
 
     x: (B, T, C, H, W) initial noise; if fixed_frames > 0, x[:, :f] are
     clean prefix latents spliced back every step. noises: optional
-    per-step noise tensors like x (else drawn from `generator`)."""
+    per-step noise tensors like x (else drawn from `generator`, one draw
+    per step whether the model is called or not, samplers.py:166).
+
+    reuse_every > 1 (samplers.py:158-163): on the steps
+    reuse_compute_schedule marks False the model is not called and the
+    step takes denoised = x + resid, the residual (denoised - x) of the
+    last computed step. cfg_window (lo, hi): outside [lo, hi) the step
+    calls denoise_fn.cond_only, the cond row alone (samplers.py:257-286).
+    JAX segments the schedule into static programs; this loop chooses per
+    step, which calls the same functions on the same steps."""
+    n = cfg.num_steps
+    compute = (reuse_compute_schedule(n, reuse_every, reuse_head, reuse_tail)
+               if reuse_every and reuse_every > 1 else np.ones(n, bool))
+    full = np.ones(n, bool)
+    if cfg_window is not None:
+        if getattr(denoise_fn, "cond_only", None) is None:
+            raise ValueError(
+                "cfg_window requested but denoise_fn has no .cond_only "
+                "variant (engine.make_denoise_fn provides one)")
+        full = cfg_window_schedule(n, *cfg_window)
     prefix = x[:, :fixed_frames] if fixed_frames > 0 else None
     x = x.float()
     old_d = torch.zeros_like(x)
+    resid = None
     for i, step in enumerate(step_dicts(cfg)):
         if prefix is not None:
             x = torch.cat([prefix, x[:, fixed_frames:]], dim=1)
-        denoised = denoise_fn(x, step).float()
+        if compute[i]:
+            fn = denoise_fn if full[i] else denoise_fn.cond_only
+            denoised = fn(x, step).float()
+            resid = denoised - x
+        else:
+            denoised = x + resid
         if noises is not None:
             noise = noises[i].to(x.device, torch.float32)
         else:

@@ -16,8 +16,10 @@ conv kernel is OIHW (see bridge.py). Compute dtype bf16, norms and
 softmax accumulate in f32. `remat=True` recomputes each layer in the
 backward (torch.utils.checkpoint, non-reentrant, so that the first
 forward and the recompute see the same grad mode and take the same
-attention route). Not ported yet: TP/SP variants, rotary3d, W8A8
-quantize_int8 (opt-in) and the LANDIFF_REMAT_SAVE_ATTN policy.
+attention route). `quantize_int8` turns the four per-layer matrices into
+W8A8 leaves ({"q": int8 (in, out), "s": f32 (out,)}), which `_linear`
+multiplies in int8 (LANDIFF_DIT_INT8, pipeline/dif_infer.py). Not ported
+yet: TP/SP variants, rotary3d and the LANDIFF_REMAT_SAVE_ATTN policy.
 """
 
 from __future__ import annotations
@@ -92,8 +94,58 @@ def pos_embed_table(cfg: DiTConfig) -> np.ndarray:
 # layers
 
 
+def _w8a8_matmul(x, q, s):
+    """int8 x int8 product (dit.py:169-186): per-token dynamic absmax
+    activation scales, per-output-channel weight scales, int32 sums, then
+    f32(y) * sa * s rounded to x.dtype. The scale is written
+    `max(...) / 127.0` inside a jitted program, which XLA compiles into a
+    product by f32(1/127) (ops/attention.INV127); x / sa stays a division.
+    The int32 product is torch._int_mm (an f32 matmul would round: K =
+    7,680 gives sums up to 1.2e8 > 2^24)."""
+    from landiff_tpu_torch.ops.attention import INV127
+
+    xf = x.float()
+    sa = (xf.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+          * torch.full((), INV127, dtype=torch.float32, device=x.device))
+    xq = torch.clamp(torch.round(xf / sa), -127, 127).to(torch.int8)
+    y = torch._int_mm(xq.reshape(-1, xq.shape[-1]), q)
+    y = y.reshape(*x.shape[:-1], q.shape[-1])
+    return (y.float() * sa * s).to(x.dtype)
+
+
 def _linear(p, name, x):
-    return x @ p[f"{name}_w"].to(x.dtype) + p[f"{name}_b"].to(x.dtype)
+    """x @ W + b; a W8A8 leaf {"q", "s"} runs `_w8a8_matmul` (dit.py:189)."""
+    w = p[f"{name}_w"]
+    if isinstance(w, dict):
+        y = _w8a8_matmul(x, w["q"], w["s"])
+    else:
+        y = x @ w.to(x.dtype)
+    return y + p[f"{name}_b"].to(x.dtype)
+
+
+_INT8_LAYER_LEAVES = ("qkv_w", "attn_out_w", "mlp0_w", "mlp1_w")
+
+
+def quantize_int8(params):
+    """W8A8 quantization of the per-layer matrices of _INT8_LAYER_LEAVES
+    (dit.py:198-220): per-output-channel absmax scales s = max(max|w|,
+    1e-8) / 127 (a true division: JAX runs this eagerly, dif_infer.py:72),
+    codes clip(round(w / s)). adaLN, zero_linear, the embeddings and the
+    head keep their weights. Apply to main AND control. "q" is stored
+    column-major ((out, in) memory viewed as (in, out)), the operand
+    layout of cuBLAS's int8 product."""
+    def quant(w):
+        a = w.float()
+        scale = a.abs().amax(0).clamp_min(1e-8) / 127.0
+        codes = torch.clamp(torch.round(a / scale), -127, 127)
+        return {"q": codes.to(torch.int8).t().contiguous().t(), "s": scale}
+
+    out = dict(params)
+    out["layers"] = [
+        {k: (quant(v) if k in _INT8_LAYER_LEAVES else v)
+         for k, v in layer.items()}
+        for layer in params["layers"]]
+    return out
 
 
 def _layer(p, x, emb, cfg: DiTConfig, attn_impl="auto"):

@@ -12,7 +12,9 @@ At inference `prefill` runs the prompt and fills the KV cache and
 device and written IN PLACE (the JAX functions return new arrays); the
 caller's loop keeps every index on the device. Blocks run in the compute
 dtype, norms accumulate in f32, the inference head runs in f32 on the last
-position. Not ported yet: the weight-only int8 / int4 decode leaves.
+position. `quantize_int8` / `quantize_int4` make the weight-only
+quantized block linears of the fast decode (LANDIFF_DECODE_INT8 / _INT4,
+pipeline/llm_infer.py), which `_dot` reads.
 """
 
 from __future__ import annotations
@@ -49,14 +51,29 @@ class KVCache(NamedTuple):
 
 
 def _dot(x, w):
-    """x @ w for a plain weight. The weight-only quantized leaves of the
-    JAX package ({"q", "s"} int8, {"q4", "s"} int4) belong to the fast
-    serving configuration, which is not ported yet."""
-    if isinstance(w, dict):
-        raise NotImplementedError(
-            "weight-only int8 / int4 GPT leaves are not ported yet (the "
-            "fast serving configuration slice)")
-    return x @ w.to(x.dtype)
+    """x @ w for a plain weight or a weight-only quantized leaf (gpt.py:
+    54-83), in x.dtype as JAX computes it.
+
+    int8 leaf {"q": int8 (in, out), "s": (out,)}: (x @ q) * s.
+    int4 leaf {"q4": int8 (in, out / 2), "s": (G, out)}: byte j of a row
+    holds columns 2j (low nibble) and 2j + 1 (high), two's complement; the
+    G groups of in / G rows are contracted apart, scaled, then summed.
+    The codes are cast to x.dtype at every call (a fused dequantizing
+    product is no TPU kernel and is left for later)."""
+    if not isinstance(w, dict):
+        return x @ w.to(x.dtype)
+    if "q4" not in w:
+        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+    p, s = w["q4"], w["s"]
+    lo = (p << 4) >> 4                   # sign-extend the low nibble
+    hi = p >> 4                          # arithmetic shift: the high one
+    q = torch.stack((lo, hi), dim=-1).reshape(p.shape[0], -1)
+    G, O = s.shape
+    g = p.shape[0] // G
+    xg = x.reshape(*x.shape[:-1], G, g)
+    part = torch.einsum("...gi,gio->...go", xg,
+                        q.reshape(G, g, O).to(x.dtype))
+    return (part * s.to(x.dtype)).sum(-2)
 
 
 def _qkv(p, x, cfg: LLMConfig):
@@ -192,11 +209,57 @@ def _head_last(params, x_last):
 
 def cast_blocks(params, dtype):
     """The block weights in `dtype`, cast once (what `w.to(x.dtype)` gives
-    at every use); ln_f and head keep their dtype for the f32 head."""
+    at every use); quantized leaves stay as they are (`_dot` casts them);
+    ln_f and head keep their dtype for the f32 head."""
     out = dict(params)
-    out["blocks"] = [{k: v.to(dtype) for k, v in blk.items()}
+    out["blocks"] = [{k: v if isinstance(v, dict) else v.to(dtype)
+                      for k, v in blk.items()}
                      for blk in params["blocks"]]
     return out
+
+
+_QUANT_LEAVES = ("wqkv", "wo", "w1", "w2", "w3")
+
+
+def _quantize_blocks(params, quant):
+    out = dict(params)
+    out["blocks"] = [{k: (quant(v) if k in _QUANT_LEAVES else v)
+                      for k, v in blk.items()}
+                     for blk in params["blocks"]]
+    return out
+
+
+def quantize_int8(params):
+    """Weight-only int8 block linears (gpt.py:236-253): per-output-channel
+    s = max(max|w| / 127, 1e-8) (a true division: JAX runs it eagerly,
+    llm_infer.py:73), codes clip(round(w / s)), s stored in bf16. Norms,
+    embeddings and the f32 head are untouched."""
+    def quant(w):
+        a = w.float()
+        s = (a.abs().amax(0) / 127.0).clamp_min(1e-8)
+        q = torch.clamp(torch.round(a / s), -127, 127).to(torch.int8)
+        return {"q": q, "s": s.to(torch.bfloat16)}
+
+    return _quantize_blocks(params, quant)
+
+
+def quantize_int4(params, group: int = 128):
+    """Weight-only int4 block linears (gpt.py:256-288): group-wise absmax
+    scales over `group` input rows (all rows where `group` does not divide
+    them), s = max(max|w| / 7, 1e-8) in bf16, codes in [-7, 7] packed two
+    per byte, column 2j in the low nibble of byte j."""
+    def quant(w):
+        a = w.float()
+        I, O = a.shape
+        g = group if I % group == 0 else I
+        ag = a.reshape(I // g, g, O)
+        s = (ag.abs().amax(1) / 7.0).clamp_min(1e-8)
+        q = torch.clamp(torch.round(ag / s[:, None, :]), -7, 7).reshape(
+            I, O).to(torch.int8)
+        packed = (q[:, 1::2] << 4) | (q[:, 0::2] & 0x0F)
+        return {"q4": packed, "s": s.to(torch.bfloat16)}
+
+    return _quantize_blocks(params, quant)
 
 
 def _trunc_normal(gen, shape, dtype):

@@ -4,14 +4,20 @@ Layout: (batch, seq, heads, head_dim), BSHD, everywhere.
 
   - `mha_reference`: the dense oracle (f32 softmax, fully masked rows -> 0,
     sum floor 1e-6), what JAX's `xla` path runs.
-  - `flash_fwd_exact` / `flash_fwd_int8`: the two flash forwards. On a CUDA
-    tensor each launches its hand-written kernel (csrc/flash_fwd.cu) and
-    counts the launch in its `launches` attribute; on a CPU tensor it runs
-    its plain PyTorch version (`flash_exact_plain` / `flash_int8_plain`),
-    which repeats the kernel's arithmetic tile by tile.
+  - `flash_fwd_exact` / `flash_fwd_int8`: the two flash forwards, each
+    with an `exp_bf16` variant (p = exp2 in bf16) and the int8 one with an
+    `int8_pv` variant (p.v in int8 against per-block V codes from
+    `quantize_v_blocks`). On a CUDA tensor each launches its hand-written
+    kernel (csrc/flash_fwd.cu) and counts the launch in `LAUNCHES` under
+    the variant's name (`variant_name`); on a CPU tensor it runs its plain
+    PyTorch version (`flash_exact_plain` / `flash_int8_plain`), which
+    repeats the kernel's arithmetic tile by tile.
   - `flash_bwd`: the flash backward (dq, dk, dv from the exact forward's
     out and log2 lse). CUDA tensors launch csrc/flash_bwd.cu and count the
-    launch; CPU tensors run `flash_bwd_plain`.
+    launch in `LAUNCHES["flash_bwd"]`; CPU tensors run `flash_bwd_plain`.
+  - `flash_attention`: the direct forward, counterpart of JAX's
+    `flash_attention` (:485-604), which reads LANDIFF_ATTN_INT8,
+    LANDIFF_ATTN_EXP_BF16 and LANDIFF_ATTN_INT8_PV itself.
   - `attention`: the dispatcher (`impl="auto" | "xla" | "pallas"` as in
     JAX; "pallas" names the flash route), with the JAX selection rules as
     a pure function of shape and dtype (`select_path`), so that the same
@@ -20,7 +26,9 @@ Layout: (batch, seq, heads, head_dim), BSHD, everywhere.
     through `_FlashDiff`, the counterpart of JAX's `_flash_diff`: always
     the exact forward, whatever LANDIFF_ATTN_INT8 says, and the flash
     backward. The int8 forward's lse is approximate and never reaches the
-    backward.
+    backward. Elsewhere LANDIFF_ATTN_INT8_PV=1 selects the `int8_pv`
+    variant where the int8 route is taken, and LANDIFF_ATTN_EXP_BF16 is
+    ignored, as JAX's `attention` pins exp_bf16=False (:838).
 
 The kernels replace the Pallas kernels `_flash_kernel` (:91),
 `_flash_kernel_cached` (:197), `_flash_kernel_cached_i8` (:264) and
@@ -48,6 +56,9 @@ LOG2E = 1.4426950408889634
 KERNEL_BLOCK_Q = 64
 KERNEL_BLOCK_KV = 64
 KERNEL_HEAD_DIM = 64
+# JAX's default kv block (flash_attention block_kv=1024), which is also the
+# int8_pv V-scale block: one scale per (b, h, block of this many rows)
+JAX_BLOCK_KV = 1024
 
 # JAX's VMEM budget for the K/V-resident ("cached") kernel (:35); only
 # its selection rule is reproduced here
@@ -118,18 +129,89 @@ def quantize_k_positions(k: torch.Tensor):
     return torch.round(kf / sk[..., None]).to(torch.int8), sk
 
 
+def v_block_rows(kv_len: int) -> int:
+    """The int8_pv V-scale block of flash_attention at its default tile:
+    min(1024, round_up(kv_len, 128)) rows (:518, :576)."""
+    return min(JAX_BLOCK_KV, masks_lib.round_up(kv_len, 128))
+
+
+def quantize_v_blocks(v: torch.Tensor, v_block: int):
+    """Per-(b, h, V block) symmetric absmax int8 V, as flash_attention
+    quantizes it for int8_pv (:573-584): kv zero-padded to a multiple of
+    v_block, one scale per block of v_block rows over all of D. Returns
+    (codes int8 (B, H, D, Skv_p) with kv contiguous, the layout the kernel
+    reads; scales f32 (B, H, Skv_p // v_block))."""
+    B, S, H, D = v.shape
+    Sp = masks_lib.round_up(S, v_block)
+    vt = torch.nn.functional.pad(v.float().permute(0, 2, 3, 1), (0, Sp - S))
+    vb = vt.reshape(B, H, D, Sp // v_block, v_block)
+    sv = (vb.abs().amax(dim=(2, 4)).clamp_min(1e-30)
+          * _f32(INV127, v.device))
+    codes = torch.round(vb / sv[:, :, None, :, None]).to(torch.int8)
+    # contiguous: with no padding vt is a permuted view of v, whose layout
+    # the elementwise ops above keep
+    return codes.reshape(B, H, D, Sp).contiguous(), sv
+
+
 # ---------------------------------------------------------------------------
 # plain versions of the kernels
 
 
-def _flash_plain(q, k, v, mask_fn, scale, int8: bool, block_kv: int):
+def exp2_bf16(x: torch.Tensor) -> torch.Tensor:
+    """2^x of a bf16 tensor, rounded to bf16: the kernel's ex2.approx on
+    bf16x2, and what the Pallas kernel's jnp.exp2 computes on a TPU, where
+    Mosaic lowers it to math.exp2 (jax/_src/pallas/mosaic/lowering.py,
+    _exp2_lowering_rule). XLA's own lowering, which JAX's CPU and interpret
+    runs take, is exp(ln 2 * x) in the input's dtype: for bf16,
+    2^(0.99750 x)."""
+    return torch.exp2(x)
+
+
+@functools.lru_cache(maxsize=4)
+def card_exp2_table(device: str) -> torch.Tensor:
+    """The exp_bf16 kernels' exp2 as the card computes it
+    (ex2.approx.ftz.bf16x2, within 2^-7 relative of 2^x, so not always the
+    rounding of the true value): a (65536,) bf16 table indexed by the
+    input's bits, from one launch of the kernel library's probe over all
+    bf16 values. Given to the plain versions as `exp2_table`, it lets a
+    comparison on the card hold the rest of the variant's arithmetic
+    tightly; the plain version proper keeps the true exp2."""
+    from landiff_tpu_torch.ops import kernels
+
+    dev = torch.device(device)
+    idx = torch.arange(65536, dtype=torch.int32, device=dev)
+    bits = torch.where(idx >= 32768, idx - 65536, idx).to(torch.int16)
+    out = torch.empty_like(bits)
+    with torch.cuda.device(dev):
+        rc = kernels.flash_library().landiff_ex2_bf16x2(
+            bits.data_ptr(), out.data_ptr(), 32768,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ex2 probe launch failed: cudaError {rc}")
+    return out.view(torch.bfloat16)
+
+
+def _flash_plain(q, k, v, mask_fn, scale, int8: bool, block_kv: int,
+                 int8_pv: bool = False, exp_bf16: bool = False,
+                 v_block: int | None = None,
+                 exp2_table: torch.Tensor | None = None):
     """Online-softmax flash forward over kv tiles of `block_kv`, all q rows
     at once, in the kernels' arithmetic (log2 domain, masked scores -1e30,
     p cast to v.dtype for p.v, out = acc / max(l, 1e-30)). Tiles a row
     cannot see change nothing (their p is 0 and alpha is 1), so skipping
-    them, as the kernels do, gives the same numbers."""
+    them, as the kernels do, gives the same numbers.
+
+    exp_bf16 (_softmax_tile :44-50): p = exp2(bf16(s - m_new)) in bf16, the
+    tile's row sum taken in f32 and rounded to bf16 before it joins l.
+    int8_pv (:338-348): p8 = round(127 p) and V in int8 per V block of
+    v_block rows (default v_block_rows(Skv)); acc = acc * alpha +
+    (p8 . v8) * (sv * f32(1/127)). The p8 . v8 sums are integers below
+    2^24 (block_kv <= 1024), so the f32 product is exact. exp2_table (a
+    card_exp2_table) replaces the bf16 exp2 by a lookup."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
+    if int8_pv and not int8:
+        raise ValueError("int8_pv needs int8 scores")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     qscale = _f32(scale * LOG2E, q.device)
@@ -145,6 +227,14 @@ def _flash_plain(q, k, v, mask_fn, scale, int8: bool, block_kv: int):
         qq = (q.float() * qscale).to(q.dtype).float().permute(0, 2, 1, 3)
         kk = k.float().permute(0, 2, 3, 1)
     vv = v.permute(0, 2, 1, 3)                          # (B, H, Skv, D)
+    if int8_pv:
+        v_block = v_block_rows(Skv) if v_block is None else v_block
+        if v_block % block_kv:
+            raise ValueError(f"a kv tile of {block_kv} rows must lie inside "
+                             f"one V block of {v_block}")
+        v8, sv = quantize_v_blocks(v, v_block)
+        vv = v8.float().transpose(-1, -2)               # (B, H, Skv_p, D)
+        svs = sv * _f32(INV127, dev)                    # (B, H, nvb)
     m = torch.full((B, H, Sq, 1), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, H, Sq, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
@@ -162,11 +252,26 @@ def _flash_plain(q, k, v, mask_fn, scale, int8: bool, block_kv: int):
             s = torch.where(keep, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
-        if keep is not None:
-            p = p * keep
-        l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + p.to(v.dtype).float() @ vv[:, :, j0:j1].float()
+        if exp_bf16:
+            d = (s - m_new).bfloat16()
+            pb = (exp2_bf16(d) if exp2_table is None else
+                  exp2_table[d.view(torch.int16).long() & 0xffff])
+            if keep is not None:
+                pb = pb * keep.bfloat16()
+            p = pb.float()
+            tile_sum = p.sum(-1, keepdim=True).bfloat16().float()
+        else:
+            p = torch.exp2(s - m_new)
+            if keep is not None:
+                p = p * keep
+            tile_sum = p.sum(-1, keepdim=True)
+        l = l * alpha + tile_sum
+        if int8_pv:
+            pv = torch.round(p * 127.0) @ vv[:, :, j0:j1]
+            acc = acc * alpha + pv * svs[:, :, j0 // v_block, None, None]
+        else:
+            acc = acc * alpha + (p.to(v.dtype).float()
+                                 @ vv[:, :, j0:j1].float())
         m = m_new
     out = (acc / l.clamp_min(1e-30)).to(q.dtype).permute(0, 2, 1, 3)
     lse = torch.where(l > 0, m + torch.log2(l.clamp_min(1e-30)),
@@ -175,17 +280,23 @@ def _flash_plain(q, k, v, mask_fn, scale, int8: bool, block_kv: int):
 
 
 def flash_exact_plain(q, k, v, *, mask_fn=None, scale=None,
-                      block_kv: int = KERNEL_BLOCK_KV):
+                      block_kv: int = KERNEL_BLOCK_KV,
+                      exp_bf16: bool = False, exp2_table=None):
     """Plain version of the exact kernel (_flash_kernel / _cached):
     returns (out (B, Sq, H, D) q.dtype, lse (B, H, Sq) f32 log2)."""
-    return _flash_plain(q, k, v, mask_fn, scale, False, block_kv)
+    return _flash_plain(q, k, v, mask_fn, scale, False, block_kv,
+                        exp_bf16=exp_bf16, exp2_table=exp2_table)
 
 
 def flash_int8_plain(q, k, v, *, mask_fn=None, scale=None,
-                     block_kv: int = KERNEL_BLOCK_KV):
-    """Plain version of the int8-score kernel (_flash_kernel_cached_i8,
-    int8_pv off): returns (out, lse) like flash_exact_plain."""
-    return _flash_plain(q, k, v, mask_fn, scale, True, block_kv)
+                     block_kv: int = KERNEL_BLOCK_KV, int8_pv: bool = False,
+                     exp_bf16: bool = False, v_block: int | None = None,
+                     exp2_table=None):
+    """Plain version of the int8-score kernel (_flash_kernel_cached_i8):
+    returns (out, lse) like flash_exact_plain."""
+    return _flash_plain(q, k, v, mask_fn, scale, True, block_kv,
+                        int8_pv=int8_pv, exp_bf16=exp_bf16, v_block=v_block,
+                        exp2_table=exp2_table)
 
 
 def flash_bwd_plain(q, k, v, out, lse, do, *, mask_fn=None, scale=None,
@@ -252,6 +363,72 @@ def kernel_error(out: torch.Tensor, ref: torch.Tensor):
     return (diff.abs().max() / step).item(), rel_rms.item()
 
 
+# A tile's row sum of the bf16 p, rounded to bf16 on both sides from f32
+# sums taken in another order, may round the other way: l moves by at most
+# this much, relative.
+TILE_SUM_REL = 2.0 ** -7
+# The exp_bf16 variants against the plain version proper (the true 2^x):
+# every p is off by up to the card exp2's error, and with int8_pv that
+# flips codes of rint(127 p). Readings on an H100 (the cuda tests' small
+# shapes and chip_smoke.py's main shapes): max |err| at most 1.5 bf16
+# steps at the largest |plain| output, relative RMS error 3.7e-3 (1.4e-2
+# with int8_pv). The limits are about twice the readings.
+EXP2_TRUE_TOL_STEPS = 3.0
+EXP2_TRUE_TOL_RMS = {False: 1e-2, True: 3e-2}   # by int8_pv
+
+
+def card_exp2_error(device: str) -> tuple[float, float]:
+    """e: the largest relative error of the card's bf16 exp2
+    (card_exp2_table) against 2^x over every bf16 x in [-126, 0], where
+    2^x is a normal number; and the share of those inputs on which it is
+    not 2^x rounded to bf16."""
+    table = card_exp2_table(device).double().cpu()
+    bits = torch.arange(65536, dtype=torch.int32)
+    x = torch.where(bits >= 32768, bits - 65536, bits).to(torch.int16) \
+        .view(torch.bfloat16).double()
+    sel = (x >= -126) & (x <= 0)
+    true = torch.exp2(x[sel])
+    rel = ((table[sel] - true).abs() / true).max().item()
+    differ = (table[sel] != true.bfloat16().double()).double().mean().item()
+    return rel, differ
+
+
+def variant_limits(ref, v, *, int8_pv: bool, exp_bf16: bool,
+                   tol_steps: float, tol_rms: float, lse_tol: float) -> dict:
+    """Limits of a forward kernel against its plain version `ref` (from
+    inputs with values `v`), from the caller's base limits (tol_steps bf16
+    steps at the largest |ref|, relative RMS tol_rms, lse_tol in log2
+    units), widened by what the variant's arithmetic moves:
+      - int8_pv: a p8 = rint(127 p) that rounds the other way on one side
+        (127 p within an f32 ulp of a half) moves out by at most sv, the V
+        block's scale (|v8| <= 127 and l >= 1); max |err| may take two.
+      - exp_bf16 is held twice. Against the plain version with the card's
+        own exp2 (exp2_table=card_exp2_table), under "card": the same p on
+        both sides, a tile sum that may round the other way (TILE_SUM_REL):
+        two more bf16 steps and log2(1 + TILE_SUM_REL) more in lse.
+        Against the plain version proper: EXP2_TRUE_TOL_STEPS and
+        EXP2_TRUE_TOL_RMS from the readings, and lse within log2(1 + e)
+        + log2(1 + TILE_SUM_REL) more, e the card exp2's error.
+    Returns {"max_abs" (absolute), "rel_rms", "lse"}, with exp_bf16 also
+    "card" (the same three), "exp2_rel_err" and "exp2_not_rounded_share"."""
+    top = ref.float().abs().max().item()
+    step = 2.0 ** (math.frexp(max(top, 2.0 ** -126))[1] - 8)
+    base = tol_steps * step
+    if int8_pv:
+        base += 2 * quantize_v_blocks(
+            v, v_block_rows(v.shape[1]))[1].max().item()
+    if not exp_bf16:
+        return {"max_abs": base, "rel_rms": tol_rms, "lse": lse_tol}
+    e, differ = card_exp2_error(str(ref.device))
+    tile_lse = math.log2(1 + TILE_SUM_REL)
+    return {"max_abs": EXP2_TRUE_TOL_STEPS * step,
+            "rel_rms": EXP2_TRUE_TOL_RMS[int8_pv],
+            "lse": lse_tol + math.log2(1 + e) + tile_lse,
+            "exp2_rel_err": e, "exp2_not_rounded_share": differ,
+            "card": {"max_abs": base + 2 * step, "rel_rms": tol_rms,
+                     "lse": lse_tol + tile_lse}}
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 
@@ -307,7 +484,27 @@ def _mask_args(mask_fn, Sq: int, Skv: int, dev, kv_major: bool):
             mask_fn.descriptor())
 
 
-def _launch(q, k, v, mask_fn, scale, int8: bool):
+def variant_name(int8: bool, int8_pv: bool = False,
+                 exp_bf16: bool = False) -> str:
+    """The name a forward kernel variant is counted and reported under."""
+    return ("flash_fwd_int8" if int8 else "flash_fwd_exact") \
+        + ("_pv" if int8_pv else "") + ("_exp_bf16" if exp_bf16 else "")
+
+
+# launches per kernel variant: each wrapper adds one where it launches
+FWD_VARIANTS = tuple(variant_name(i8, pv, e) for i8, pv in
+                     ((False, False), (True, False), (True, True))
+                     for e in (False, True))
+LAUNCHES = dict.fromkeys(FWD_VARIANTS + ("flash_bwd",), 0)
+
+
+def reset_launch_counts():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _launch(q, k, v, mask_fn, scale, int8: bool, int8_pv: bool,
+            exp_bf16: bool):
     from landiff_tpu_torch.ops import kernels
 
     _check_inputs(q, k, v)
@@ -329,38 +526,46 @@ def _launch(q, k, v, mask_fn, scale, int8: bool):
         if int8:
             k8, sk = quantize_k_positions(k)     # (B, Skv, H, D), (B, Skv, H)
             sk = sk.contiguous()
+            v_in, vsc, v_block, skv_p = v, None, 0, 0
+            if int8_pv:
+                v_block = v_block_rows(Skv)
+                v_in, vsc = quantize_v_blocks(v, v_block)
+                skv_p = v_in.shape[-1]
             rc = lib.landiff_flash_fwd_i8(
-                q.data_ptr(), k8.data_ptr(), sk.data_ptr(), v.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), *tables, B, H, Sq, Skv,
-                nk_table, qscale, *desc, stream)
+                q.data_ptr(), k8.data_ptr(), sk.data_ptr(), v_in.data_ptr(),
+                None if vsc is None else vsc.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *tables, B, H, Sq, Skv, nk_table, qscale,
+                *desc, v_block, skv_p, int(exp_bf16), stream)
         else:
             rc = lib.landiff_flash_fwd_bf16(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), *tables, B, H, Sq, Skv, nk_table, qscale,
-                *desc, stream)
+                *desc, int(exp_bf16), stream)
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: cudaError {rc}")
+    LAUNCHES[variant_name(int8, int8_pv, exp_bf16)] += 1
     return out, lse
 
 
-def flash_fwd_exact(q, k, v, *, mask_fn=None, scale=None):
+def flash_fwd_exact(q, k, v, *, mask_fn=None, scale=None,
+                    exp_bf16: bool = False):
     """Exact flash forward: (out (B, Sq, H, D), lse (B, H, Sq) log2).
     CUDA tensors launch the kernel; CPU tensors run flash_exact_plain."""
     if q.device.type == "cpu":
-        return flash_exact_plain(q, k, v, mask_fn=mask_fn, scale=scale)
-    out = _launch(q, k, v, mask_fn, scale, int8=False)
-    flash_fwd_exact.launches += 1
-    return out
+        return flash_exact_plain(q, k, v, mask_fn=mask_fn, scale=scale,
+                                 exp_bf16=exp_bf16)
+    return _launch(q, k, v, mask_fn, scale, False, False, exp_bf16)
 
 
-def flash_fwd_int8(q, k, v, *, mask_fn=None, scale=None):
-    """int8-score flash forward: (out, lse). CUDA tensors launch the
-    kernel; CPU tensors run flash_int8_plain."""
+def flash_fwd_int8(q, k, v, *, mask_fn=None, scale=None,
+                   int8_pv: bool = False, exp_bf16: bool = False):
+    """int8-score flash forward: (out, lse). int8_pv: p.v in int8, V
+    quantized per block of v_block_rows(Skv) rows. CUDA tensors launch the
+    kernel; CPU tensors run flash_int8_plain (at the kernel's kv tile)."""
     if q.device.type == "cpu":
-        return flash_int8_plain(q, k, v, mask_fn=mask_fn, scale=scale)
-    out = _launch(q, k, v, mask_fn, scale, int8=True)
-    flash_fwd_int8.launches += 1
-    return out
+        return flash_int8_plain(q, k, v, mask_fn=mask_fn, scale=scale,
+                                int8_pv=int8_pv, exp_bf16=exp_bf16)
+    return _launch(q, k, v, mask_fn, scale, True, int8_pv, exp_bf16)
 
 
 def flash_bwd(q, k, v, out, lse, do, *, mask_fn=None, scale=None):
@@ -405,19 +610,8 @@ def flash_bwd(q, k, v, out, lse, do, *, mask_fn=None, scale=None):
             *desc, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash backward launch failed: cudaError {rc}")
-    flash_bwd.launches += 1
+    LAUNCHES["flash_bwd"] += 1
     return dq32.to(q.dtype), dk, dv
-
-
-flash_fwd_exact.launches = 0
-flash_fwd_int8.launches = 0
-flash_bwd.launches = 0
-
-
-def reset_launch_counts():
-    flash_fwd_exact.launches = 0
-    flash_fwd_int8.launches = 0
-    flash_bwd.launches = 0
 
 
 class _FlashDiff(torch.autograd.Function):
@@ -481,6 +675,39 @@ def select_path(q_len: int, kv_len: int, head_dim: int,
                                   int8_scores) else "exact")
 
 
+def _knob(name: str) -> bool:
+    return os.environ.get(name) == "1"
+
+
+def flash_attention(q, k, v, *, mask_fn=None, scale=None,
+                    int8_scores: bool | None = None,
+                    exp_bf16: bool | None = None,
+                    int8_pv: bool | None = None, return_lse: bool = False):
+    """The flash forward called directly, as JAX's flash_attention
+    (:485-604) is by the SP ring: no autograd, and each option not given
+    is read as JAX reads it (:556-561): int8_scores from LANDIFF_ATTN_INT8
+    (off unless "1", unlike the dispatcher's default), exp_bf16 from
+    LANDIFF_ATTN_EXP_BF16, int8_pv from LANDIFF_ATTN_INT8_PV. int8 scores
+    only under the "cached" rule; int8_pv only with int8 scores. Returns
+    out (B, Sq, H, D), or (out, lse (B, H, Sq) log2) with return_lse."""
+    if int8_scores is None:
+        int8_scores = _knob("LANDIFF_ATTN_INT8")
+    if exp_bf16 is None:
+        exp_bf16 = _knob("LANDIFF_ATTN_EXP_BF16")
+    if int8_pv is None:
+        int8_pv = _knob("LANDIFF_ATTN_INT8_PV")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _takes_int8(q.shape[1], k.shape[1], q.shape[-1], q.element_size(),
+                   bool(int8_scores)):
+        out, lse = flash_fwd_int8(q, k, v, mask_fn=mask_fn, scale=scale,
+                                  int8_pv=bool(int8_pv),
+                                  exp_bf16=bool(exp_bf16))
+    else:
+        out, lse = flash_fwd_exact(q, k, v, mask_fn=mask_fn, scale=scale,
+                                   exp_bf16=bool(exp_bf16))
+    return (out, lse) if return_lse else out
+
+
 def attention(q, k, v, *, mask_fn=None, mask=None, scale=None,
               impl: str = "auto", int8_scores: bool | None = None):
     """Dispatcher, as JAX's (:979-1003). impl: "auto" (the flash route
@@ -490,7 +717,9 @@ def attention(q, k, v, *, mask_fn=None, mask=None, scale=None,
     The flash route is differentiable: where grad is enabled and q, k or
     v requires grad it is `_FlashDiff` (exact forward, flash backward).
     Elsewhere int8_scores (default LANDIFF_ATTN_INT8, on) selects the
-    int8-score forward under flash_attention's "cached" rule."""
+    int8-score forward under flash_attention's "cached" rule, in its
+    int8_pv variant under LANDIFF_ATTN_INT8_PV=1; the exp_bf16 variants
+    are never taken here (JAX's `_flash_diff` pins exp_bf16=False, :838)."""
     if impl == "auto":
         impl = "pallas" if q.shape[1] >= 2048 else "xla"
     if impl == "xla":
@@ -500,18 +729,12 @@ def attention(q, k, v, *, mask_fn=None, mask=None, scale=None,
         raise ValueError(f"impl must be auto, xla or pallas, got {impl!r}")
     if mask is not None:
         raise ValueError("the flash route takes mask_fn, not a dense mask")
-    for knob in ("LANDIFF_ATTN_INT8_PV", "LANDIFF_ATTN_EXP_BF16"):
-        if os.environ.get(knob) == "1":
-            raise NotImplementedError(
-                f"{knob}=1 selects a flash variant the port has not "
-                "ported yet")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashDiff.apply(q, k, v, mask_fn, scale)
     if int8_scores is None:
         int8_scores = os.environ.get("LANDIFF_ATTN_INT8", "1") == "1"
-    int8 = _takes_int8(q.shape[1], k.shape[1], q.shape[-1],
-                       q.element_size(), bool(int8_scores))
-    fn = flash_fwd_int8 if int8 else flash_fwd_exact
-    return fn(q, k, v, mask_fn=mask_fn, scale=scale)[0]
+    return flash_attention(q, k, v, mask_fn=mask_fn, scale=scale,
+                           int8_scores=bool(int8_scores), exp_bf16=False,
+                           int8_pv=_knob("LANDIFF_ATTN_INT8_PV"))

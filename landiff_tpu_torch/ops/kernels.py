@@ -86,11 +86,15 @@ def flash_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build(["flash_fwd"])["flash_fwd"]))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.landiff_flash_fwd_bf16.argtypes = (
-        [ptr] * 8 + [i32] * 5 + [f32] + [i32] * 5 + [ptr])
+        [ptr] * 8 + [i32] * 5 + [f32] + [i32] * 6 + [ptr])
     lib.landiff_flash_fwd_bf16.restype = i32
     lib.landiff_flash_fwd_i8.argtypes = (
-        [ptr] * 9 + [i32] * 5 + [f32] + [i32] * 5 + [ptr])
+        [ptr] * 10 + [i32] * 5 + [f32] + [i32] * 8 + [ptr])
     lib.landiff_flash_fwd_i8.restype = i32
+    lib.landiff_ex2_bf16x2.argtypes = [ptr, ptr, i32, ptr]
+    lib.landiff_ex2_bf16x2.restype = i32
+    lib.landiff_ex2_rate.argtypes = [ptr, i32, i32, i32, ptr]
+    lib.landiff_ex2_rate.restype = i32
     return lib
 
 

@@ -3,8 +3,11 @@
 landiff/diffusion/dif_infer.py CogWrapper.forward :152-243, decode_latent
 :245-271, CogModelInferWrapper :274-302).
 
-Everything stays on one device. Not ported yet: the mesh / TP path, W8A8
-linears, prefix video (image-to-video) and parameter offload.
+Everything stays on one device. Under LANDIFF_DIT_INT8 (LANDIFF_FAST >= 1)
+the main and control DiTs are quantized to W8A8 once, at construction;
+LANDIFF_STEP_REUSE / LANDIFF_CFG_WINDOW (LANDIFF_FAST=2) reach the sampler
+through engine.sample_latents. Not ported yet: the mesh / TP path, prefix
+video (image-to-video) and parameter offload.
 """
 
 from __future__ import annotations
@@ -48,12 +51,13 @@ class CogModelInferWrapper:
 
     def __init__(self, params, cfg: LanDiffConfig,
                  compute_dtype=torch.bfloat16, device="cuda"):
-        if env_flag("LANDIFF_DIT_INT8"):
-            raise NotImplementedError(
-                "W8A8 DiT linears (LANDIFF_DIT_INT8, LANDIFF_FAST) are not "
-                "ported yet: ROADMAP item 3, the fast serving configuration "
-                "slice")
         self.params = params
+        if env_flag("LANDIFF_DIT_INT8"):
+            # W8A8 DiT linears (dif_infer.py:64-72): the quantized trees
+            # replace main and control; the caller's trees are untouched
+            self.params = dict(params)
+            for k in ("main", "control"):
+                self.params[k] = dit_lib.quantize_int8(params[k])
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.device = torch.device(device)

@@ -8,8 +8,11 @@ Everything stays on one device. The wrapper casts the GPT blocks and the
 T5 matrices to the compute dtype once, when it is built: the decode reads
 every GPT weight at every one of its ~1,245 steps, and a cast at use (what
 the stage-2 modules do) would read the f32 copy each time. The results are
-those of casting at use. Not ported yet: the mesh (tensor-parallel) path
-and the weight-only int8 / int4 decode.
+those of casting at use. With int8_decode / int4_decode (LANDIFF_DECODE_
+INT8 / _INT4; LANDIFF_FAST >= 1 turns on int8; int4 wins if both are set)
+the GPT block linears are quantized from the given weights first, as JAX
+does (llm_infer.py:52-74), and only the other block leaves are cast. Not
+ported yet: the mesh (tensor-parallel) path.
 """
 
 from __future__ import annotations
@@ -64,18 +67,17 @@ class ArModelInferWrapper:
             int8_decode = env_flag("LANDIFF_DECODE_INT8")
         if int4_decode is None:
             int4_decode = env_flag("LANDIFF_DECODE_INT4")
-        if int8_decode or int4_decode:
-            raise NotImplementedError(
-                "weight-only int8 / int4 decode (LANDIFF_DECODE_INT8, "
-                "LANDIFF_DECODE_INT4, LANDIFF_FAST) is not ported yet: "
-                "ROADMAP item 8, the fast serving configuration slice")
         if mesh is not None:
             raise NotImplementedError(
                 "the tensor-parallel stage 1 is not ported yet: ROADMAP "
                 "item 15")
         lm_params = dict(params["lm"])
-        lm_params["gpt"] = gpt_lib.cast_blocks(lm_params["gpt"],
-                                               compute_dtype)
+        gpt = lm_params["gpt"]
+        if int4_decode:
+            gpt = gpt_lib.quantize_int4(gpt)
+        elif int8_decode:
+            gpt = gpt_lib.quantize_int8(gpt)
+        lm_params["gpt"] = gpt_lib.cast_blocks(gpt, compute_dtype)
         self.params = {"lm": lm_params,
                        "t5": t5_lib.cast_matmul_weights(params["t5"],
                                                         compute_dtype)}

@@ -14,11 +14,14 @@ import torch
 
 logger = logging.getLogger("landiff_tpu_torch")
 
-# LANDIFF_FAST presets of the JAX package (utils.py:34-35): level 1 turns
-# on the quantization knobs. The port reads the same names so that a knob
-# it has not ported yet is refused rather than silently dropped.
+# LANDIFF_FAST presets of the JAX package (utils.py:34-37): level 1 turns
+# on W8A8 DiT linears and the weight-only int8 stage-1 decode; level 2
+# adds cross-step reuse of the model output (every 2nd middle step) and
+# the guidance window [2, 44). An explicitly set knob always wins.
 _FAST_PRESET = {"LANDIFF_DIT_INT8": (1, True),
                 "LANDIFF_DECODE_INT8": (1, True)}
+_FAST_VALUES = {"LANDIFF_STEP_REUSE": (2, "2"),
+                "LANDIFF_CFG_WINDOW": (2, "2,44")}
 
 
 def fast_level() -> int:
@@ -42,6 +45,18 @@ def env_flag(name: str, default: bool = False) -> bool:
             return _FAST_PRESET[name][1]
         return default
     return v.lower() not in ("0", "false", "no", "")
+
+
+def env_value(name: str, default: str = "") -> str:
+    """Read a string-valued env knob: an explicit setting wins; otherwise
+    LANDIFF_FAST>=level supplies the preset value (_FAST_VALUES);
+    otherwise `default`."""
+    v = os.environ.get(name)
+    if v is not None:
+        return v
+    if name in _FAST_VALUES and fast_level() >= _FAST_VALUES[name][0]:
+        return _FAST_VALUES[name][1]
+    return default
 
 
 def stable_hash(key: str) -> int:

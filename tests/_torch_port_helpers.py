@@ -12,6 +12,7 @@ same arrays.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import jax
@@ -181,6 +182,24 @@ def fast_jit(fn, *args):
     compiled callable (positional arguments of the same shapes only)."""
     return jax.jit(fn).lower(*args).compile(
         compiler_options={"xla_backend_optimization_level": 0})
+
+
+@contextlib.contextmanager
+def fast_compiles():
+    """Every JAX program compiled inside the block with XLA's backend
+    optimizations off (jax_disable_most_optimizations), for JAX code whose
+    jits are its own (a whole pipeline wrapper, a sampler): compiling the
+    tiny stage 2 under LANDIFF_FAST=2 takes 11 s instead of 23. The flag
+    is not part of JAX's cache key, so a program compiled inside stays
+    cached after the block; the HLO passes are the same either way and
+    the LLVM backend keeps IEEE arithmetic at every level, so a later call
+    of it computes the same numbers."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", before)
 
 
 def gumbel_steps(seed: int, steps: int, vocab: int) -> torch.Tensor:

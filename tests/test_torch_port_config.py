@@ -160,10 +160,19 @@ def test_dispatcher_path_matches_jax(monkeypatch, Sq, Skv, D, dtype,
 
 
 def test_dispatcher_refuses_unported_variants(monkeypatch):
+    """Every flash variant is ported: LANDIFF_ATTN_INT8_PV=1 selects the
+    int8_pv forward on the int8 route instead of raising. What the
+    dispatcher refuses is an impl it does not know and a dense mask on the
+    flash route."""
     q = torch.zeros(1, 2048, 1, 64)
     monkeypatch.setenv("LANDIFF_ATTN_INT8_PV", "1")
-    with pytest.raises(NotImplementedError):
-        tattn.attention(q, q, q)
+    assert torch.equal(tattn.attention(q, q, q),
+                       tattn.flash_int8_plain(q, q, q, int8_pv=True)[0])
+    with pytest.raises(ValueError):
+        tattn.attention(q, q, q, impl="cuda")
+    with pytest.raises(ValueError):
+        tattn.attention(q, q, q, impl="pallas",
+                        mask=torch.ones(2048, 2048, dtype=torch.bool))
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|landiff_tpu)(\.|\s|$)",

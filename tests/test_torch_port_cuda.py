@@ -17,6 +17,11 @@ to bf16 in both, from exp2 results and f32 sums that differ in their last
 bits, and dq is summed by atomics in an order that changes from run to
 run. Rows that see nothing give exactly 0.
 
+The int8_pv and exp_bf16 variants of the forward are held to their plain
+versions with the forward's limits widened by what each variant's
+arithmetic can move (attention.variant_limits, as chip_smoke.py holds
+them); the W8A8 product of the DiT to its CPU result bit for bit.
+
 The adaLN kernel and its plain version both compute in f32 and round
 once: within one bf16 step per element in bf16 (steps taken at the
 element's own size, not below that at 2^-7) and 1e-5 relative + 1e-5
@@ -71,10 +76,11 @@ def test_kernel_matches_plain(dev, int8, mask, Sq, Skv):
     q, k, v = _qkv(dev, 2, Sq, Skv, 3)
     fn, plain = ((TA.flash_fwd_int8, TA.flash_int8_plain) if int8
                  else (TA.flash_fwd_exact, TA.flash_exact_plain))
-    before = fn.launches
+    name = TA.variant_name(int8)
+    before = TA.LAUNCHES[name]
     out, lse = fn(q, k, v, mask_fn=mf)
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    assert TA.LAUNCHES[name] == before + 1
     ref, ref_lse = plain(q, k, v, mask_fn=mf)
     steps, rel_rms = TA.kernel_error(out, ref)
     assert steps <= _TOL_STEPS and rel_rms <= _TOL_RMS, (steps, rel_rms)
@@ -83,6 +89,91 @@ def test_kernel_matches_plain(dev, int8, mask, Sq, Skv):
         assert out[:, _LAYOUT.seq_len:].abs().max().item() == 0.0
         assert lse[:, :, _LAYOUT.seq_len:].max().item() == \
             torch.tensor(TA.NEG_INF, dtype=torch.float32).item()
+
+
+# (int8_pv, exp_bf16) of the int8 kernel, and exp_bf16 of the exact one
+_VARIANTS = [(True, True, False), (True, True, True), (True, False, True),
+             (False, False, True)]
+
+
+def test_card_exp2_is_within_its_bound(dev):
+    """ex2.approx.ftz.bf16x2 on every bf16 input: within 2^-7 relative of
+    2^x where 2^x is normal, 1 at 0, 0 at -inf."""
+    e, differ = TA.card_exp2_error(str(dev))
+    print("card exp2 max relative error", e, "not rounded", differ)
+    assert e <= 2.0 ** -7
+    x = torch.tensor([0.0, float("-inf")], device=dev).bfloat16()
+    t = TA.card_exp2_table(str(dev))
+    got = t[x.view(torch.int16).long() & 0xffff].float().tolist()
+    assert got == [1.0, 0.0]
+
+
+def _max_abs(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("int8,int8_pv,exp_bf16", _VARIANTS)
+@pytest.mark.parametrize("mask,Sq,Skv", _CASES)
+def test_variant_kernel_matches_plain(dev, int8, int8_pv, exp_bf16, mask, Sq,
+                                      Skv):
+    """The int8_pv and exp_bf16 variants against their plain versions at
+    the kernel's tile (64) and V block (v_block_rows), with the base limits
+    widened by what each variant's arithmetic moves
+    (attention.variant_limits): the exp_bf16 ones both against the plain
+    version with the card's own exp2 and against the true 2^x."""
+    mf = _MASKS[mask]
+    q, k, v = _qkv(dev, 2, Sq, Skv, 3, seed=3)
+    name = TA.variant_name(int8, int8_pv, exp_bf16)
+    before = TA.LAUNCHES[name]
+    if int8:
+        out, lse = TA.flash_fwd_int8(q, k, v, mask_fn=mf, int8_pv=int8_pv,
+                                     exp_bf16=exp_bf16)
+        plain = lambda **kw: TA.flash_int8_plain(
+            q, k, v, mask_fn=mf, int8_pv=int8_pv, exp_bf16=exp_bf16, **kw)
+    else:
+        out, lse = TA.flash_fwd_exact(q, k, v, mask_fn=mf, exp_bf16=exp_bf16)
+        plain = lambda **kw: TA.flash_exact_plain(
+            q, k, v, mask_fn=mf, exp_bf16=exp_bf16, **kw)
+    torch.cuda.synchronize()
+    assert TA.LAUNCHES[name] == before + 1
+    ref, ref_lse = plain()
+    lim = TA.variant_limits(ref, v, int8_pv=int8_pv, exp_bf16=exp_bf16,
+                            tol_steps=_TOL_STEPS, tol_rms=_TOL_RMS,
+                            lse_tol=_LSE_TOL)
+    err, lse_err = _max_abs(out, ref), _max_abs(lse, ref_lse)
+    steps, rel_rms = TA.kernel_error(out, ref)
+    print(name, mask, Sq, Skv, "max", err, "steps", steps, "rms", rel_rms,
+          "lse", lse_err)
+    assert err <= lim["max_abs"] and rel_rms <= lim["rel_rms"], (err, rel_rms,
+                                                                 lim)
+    assert lse_err <= lim["lse"], (lse_err, lim)
+    if exp_bf16:
+        card, card_lse = plain(exp2_table=TA.card_exp2_table(str(dev)))
+        c_err, c_lse = _max_abs(out, card), _max_abs(lse, card_lse)
+        c_rms = TA.kernel_error(out, card)[1]
+        print(name, "vs card exp2: max", c_err, "rms", c_rms, "lse", c_lse)
+        c = lim["card"]
+        assert c_err <= c["max_abs"] and c_rms <= c["rel_rms"], (c_err, c_rms)
+        assert c_lse <= c["lse"], c_lse
+    if mask == "decoder" and Sq > _LAYOUT.seq_len:   # rows that see nothing
+        assert out[:, _LAYOUT.seq_len:].abs().max().item() == 0.0
+
+
+def test_w8a8_matmul_on_the_card(dev):
+    """The W8A8 product (torch._int_mm) on the card equals the same
+    arithmetic on the CPU bit for bit, for the column-major codes
+    dit.quantize_int8 makes and for row-major ones (bridged from JAX)."""
+    from landiff_tpu_torch.models import dit as TD
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    w = torch.randn((192, 320), generator=g, device=dev) * 0.05
+    leaf = TD.quantize_int8({"layers": [{"qkv_w": w}]})["layers"][0]["qkv_w"]
+    assert leaf["q"].stride() == (1, 192)
+    x = (torch.randn((2, 37, 192), generator=g, device=dev) * 2).bfloat16()
+    want = TD._w8a8_matmul(x.cpu(), leaf["q"].cpu(), leaf["s"].cpu())
+    for q in (leaf["q"], leaf["q"].contiguous()):
+        got = TD._w8a8_matmul(x, q, leaf["s"])
+        assert torch.equal(got.cpu(), want)
 
 
 _BWD_TOL_STEPS = 2.0
@@ -98,10 +189,10 @@ def test_bwd_kernel_matches_plain(dev, mask, Sq, Skv):
     do = torch.randn(out.shape, device=dev,
                      generator=torch.Generator(device=dev).manual_seed(2)
                      ).bfloat16()
-    before = TA.flash_bwd.launches
+    before = TA.LAUNCHES["flash_bwd"]
     got = TA.flash_bwd(q, k, v, out, lse, do, mask_fn=mf)
     torch.cuda.synchronize()
-    assert TA.flash_bwd.launches == before + 1
+    assert TA.LAUNCHES["flash_bwd"] == before + 1
     want = TA.flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mf)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and g.dtype == torch.bfloat16
@@ -123,10 +214,11 @@ def test_attention_under_grad_takes_the_exact_forward_and_the_bwd_kernel(
     TA.reset_launch_counts()
     out = TA.attention(q, k, v)
     assert out.grad_fn is not None
-    assert (TA.flash_fwd_exact.launches, TA.flash_fwd_int8.launches) == (1, 0)
+    assert (TA.LAUNCHES["flash_fwd_exact"],
+            TA.LAUNCHES["flash_fwd_int8"]) == (1, 0)
     out.float().square().sum().backward()
     torch.cuda.synchronize()
-    assert TA.flash_bwd.launches == 1
+    assert TA.LAUNCHES["flash_bwd"] == 1
     ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     TA.mha_reference(*ref).float().square().sum().backward()
     for t, r in zip((q, k, v), ref):
@@ -134,7 +226,7 @@ def test_attention_under_grad_takes_the_exact_forward_and_the_bwd_kernel(
         assert rel_rms <= 2e-2, (steps, rel_rms)     # bf16 p and ds
     with torch.no_grad():                            # today's selection
         TA.attention(q, k, v)
-    assert TA.flash_fwd_int8.launches == 1
+    assert TA.LAUNCHES["flash_fwd_int8"] == 1
 
 
 def test_bwd_knob_selects_the_plain_version(dev, monkeypatch):
@@ -142,7 +234,7 @@ def test_bwd_knob_selects_the_plain_version(dev, monkeypatch):
     q, k, v = (t.requires_grad_() for t in _qkv(dev, 1, 128, 128, 2))
     TA.reset_launch_counts()
     TA.attention(q, k, v, impl="pallas").float().sum().backward()
-    assert TA.flash_bwd.launches == 0 and q.grad is not None
+    assert TA.LAUNCHES["flash_bwd"] == 0 and q.grad is not None
 
 
 def test_kernel_refuses_what_it_does_not_take(dev):

@@ -100,17 +100,17 @@ def test_infer_batch_matches_single_calls_and_jax():
 
 
 def test_unported_options_are_refused(monkeypatch):
+    """What is not ported raises, naming its ROADMAP item. The fast
+    configuration's options (int8_decode, int4_decode, LANDIFF_FAST) are
+    ported and build quantized wrappers instead."""
     _, t1 = stage1_params()
-    for kw in (dict(int8_decode=True), dict(int4_decode=True),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP item"):
-            tli.ArModelInferWrapper(t1, TC.llm, TC.t5, device="cpu", **kw)
-    monkeypatch.setenv("LANDIFF_FAST", "1")      # presets int8 decode
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        tli.ArModelInferWrapper(t1, TC.llm, TC.t5, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        tdi.CogModelInferWrapper({}, TC, device="cpu")
-    monkeypatch.delenv("LANDIFF_FAST")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        tli.ArModelInferWrapper(t1, TC.llm, TC.t5, device="cpu",
+                                mesh=object())
+    for kw, key in ((dict(int8_decode=True), "q"),
+                    (dict(int4_decode=True), "q4")):
+        w = tli.ArModelInferWrapper(t1, TC.llm, TC.t5, device="cpu", **kw)
+        assert key in w.params["lm"]["gpt"]["blocks"][0]["wo"]
     sc = tcfg.ARSampleConfig()
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         tiv.build_pipeline(TC, sc, ckpt_dir="/nowhere", device="cpu")

@@ -162,5 +162,13 @@ def test_cast_blocks_equals_cast_at_use():
 
 
 def test_quantized_leaves_are_refused():
-    with pytest.raises(NotImplementedError, match="fast serving"):
-        tgpt._dot(torch.zeros(1, 4), {"q": torch.zeros(4, 4), "s": None})
+    """The weight-only quantized leaves are no longer refused: `_dot`
+    reads int8 {"q", "s"} and int4 {"q4", "s"} leaves (held against JAX in
+    tests/test_torch_port_fast_quant.py)."""
+    x = torch.ones(1, 4)
+    q = torch.arange(16, dtype=torch.int8).reshape(4, 4) - 8
+    s = torch.full((4,), 0.5, dtype=torch.bfloat16)
+    assert torch.equal(tgpt._dot(x, {"q": q, "s": s}),
+                       (x @ q.float()) * 0.5)
+    q4 = tgpt.quantize_int4({"blocks": [{"wo": q.float()}]})["blocks"][0]
+    assert set(q4["wo"]) == {"q4", "s"} and q4["wo"]["q4"].shape == (4, 2)
