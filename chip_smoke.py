@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py              # 4 denoise steps per request
     python3 chip_smoke.py --steps 50   # the released sampler's 50 steps
+    python3 chip_smoke.py --only flash_bwd   # build, then that kernel's
+                                             # cases alone (flash_fwd,
+                                             # flash_bwd; no last line)
 
 Phases, in order; any failure exits nonzero before the last line:
   1. device:  the card's name and power limit; TF32 off for matmuls and
@@ -20,9 +23,12 @@ Phases, in order; any failure exits nonzero before the last line:
               path of the exp_bf16 variants, which the dispatcher never
               takes); the flash
               backward at the training shape (B=1) and the TiTok shape,
-              from the forward kernel's own out and lse, with the
-              run-to-run spread of dq and a small case whose masked rows
-              must give exactly 0; the fused adaLN
+              from the forward kernel's own out and lse, beside the SDPA
+              backward, with its prologue against the prologue's plain
+              version, the run-to-run spread of dq (dk, dv must not
+              move), ptxas's registers, spills and shared memory, and a
+              small case whose masked rows must give exactly 0; the fused
+              adaLN
               kernel against its plain version at the DiT shape
               (2, 17,776, 1,920) bf16 with text_len 226, at a ragged shape
               and with f32 I/O, with its time beside the unfused chain's.
@@ -105,12 +111,13 @@ LSE_TOL = 1e-5
 
 # Backward kernel vs plain (attention.kernel_error per tensor, dq / dk /
 # dv): p and scale*ds are rounded to bf16 in both from exp2 results and f32
-# sums that differ in their last bits, and dq is summed by atomics in an
-# order that changes from run to run. Readings on an H100 at the two cases
-# below: at most 1.0 bf16 steps at the largest |plain| value (dv at the
-# TiTok shape; 0.25 at the training shape) and a relative RMS error of
-# 3.9e-4; dq differs between two runs by at most 0.125 steps, in 2e-4 of
-# its elements. The limits are about twice the readings and more.
+# sums that differ in their last bits, and dq is summed by bulk reduce-adds
+# in an order that changes from run to run. Readings on an H100 at the two
+# cases below, unchanged from the mma.sync kernel to the wgmma one: at most
+# 1.0 bf16 steps at the largest |plain| value (dv at the TiTok shape; 0.25
+# at the training shape) and a relative RMS error of 3.9e-4; dq differs
+# between two runs by at most 0.125 steps, in 2e-4 of its elements. The
+# limits are about twice the readings and more.
 BWD_TOL_STEPS = 2.0
 BWD_TOL_RMS = 2e-3
 
@@ -327,7 +334,7 @@ def kernel_case(name, B, S, H, mask_fn, int8, seed, exp2_rate, int8_pv=False,
     return res
 
 
-def phase_kernels():
+def titok_decoder_mask():
     from landiff_tpu_torch.config import TiTokConfig
     from landiff_tpu_torch.ops import masks as M
 
@@ -337,8 +344,21 @@ def phase_kernels():
                                iframe_tokens=t.iframe_latent_tokens,
                                pframe_tokens=t.pframe_latent_tokens)
     check(layout.seq_len == 18768, f"TiTok sequence {layout.seq_len}")
-    dec = M.video_decoder_mask(layout)
+    return M.video_decoder_mask(layout)
+
+
+def phase_kernels():
+    dec = titok_decoder_mask()
     rates = exp2_rates()
+    results = phase_fwd_kernels(dec, rates)
+    results["flash_bwd"] = phase_bwd_kernel(dec, rates[False])
+    results["dec_mask"] = dec
+    return results
+
+
+def phase_fwd_kernels(dec, rates):
+    """Each variant of the flash forward against its plain version at the
+    DiT and the TiTok shapes."""
     results = {}
     for int8, int8_pv, exp_bf16 in FWD_VARIANTS:
         kw = dict(int8_pv=int8_pv, exp_bf16=exp_bf16,
@@ -350,8 +370,6 @@ def phase_kernels():
     faults = [f for dit, titok in results.values()
               for f in dit["faults"] + titok["faults"]]
     check(not faults, "kernel vs plain: " + "; ".join(faults))
-    results["flash_bwd"] = phase_bwd_kernel(dec, rates[False])
-    results["dec_mask"] = dec
     return results
 
 
@@ -450,6 +468,7 @@ def bwd_case(name, B, S, H, mask_fn, seed, exp2_rate):
     plain_ms = (time.perf_counter() - t0) * 1e3
 
     errs, faults = {}, []
+    prep_ms, prep_err = bwd_prep_check(name, q, out, lse, do, faults)
     for tname, gt, wt in zip(("dq", "dk", "dv"), got, want):
         steps, rel_rms = A.kernel_error(gt, wt)
         errs[tname] = {
@@ -461,7 +480,8 @@ def bwd_case(name, B, S, H, mask_fn, seed, exp2_rate):
                 (rel_rms <= BWD_TOL_RMS, f"relative RMS error {rel_rms}")):
             if not ok:
                 faults.append(f"flash_bwd {name} {tname}: {what}")
-    # run to run: dk, dv are deterministic, dq is summed by atomics
+    # run to run: dk, dv are deterministic, dq is summed by bulk
+    # reduce-adds in no fixed order
     for tname, a, b in zip(("dk", "dv"), got[1:], again[1:]):
         if not torch.equal(a, b):
             faults.append(f"flash_bwd {name}: {tname} differs between runs")
@@ -471,18 +491,22 @@ def bwd_case(name, B, S, H, mask_fn, seed, exp2_rate):
                   (again[0] != got[0]).float().mean().item()}
     del again, want
 
-    library_ms = None
-    if mask_fn is None:       # the backward of SDPA at the unmasked shape
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        try:   # a yardstick only: a backend that refuses the shape -> null
-            o = F.scaled_dot_product_attention(qt, kt, vt)
-            dot = do.transpose(1, 2)
-            library_ms = cuda_ms(lambda: torch.autograd.grad(
-                o, (qt, kt, vt), dot, retain_graph=True), 3)
-            del o
-        except (RuntimeError, torch.OutOfMemoryError) as e:
-            log(json.dumps({"library_refused": name, "error": str(e)[:200]}))
+    library_ms = None   # the backward of SDPA, with the dense mask
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    attn_mask = None
+    if mask_fn is not None:
+        i = torch.arange(S, device=dev)
+        attn_mask = mask_fn(i[:, None], i[None, :])
+    try:   # a yardstick only: a backend that refuses the shape -> null
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask)
+        dot = do.transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True), 3)
+        del o
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        log(json.dumps({"library_refused": name, "error": str(e)[:200]}))
+    del qt, kt, vt, attn_mask
 
     visible = M.visible_count(mask_fn, S, S, device="cuda")
     flops = 10.0 * B * H * visible * D
@@ -499,6 +523,7 @@ def bwd_case(name, B, S, H, mask_fn, seed, exp2_rate):
         "visible_pairs": visible, "errors": errs,
         "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
         "run_to_run": spread, "ms": ms, "plain_ms": plain_ms,
+        "prep_ms": prep_ms, "prep_delta_max_abs_err": prep_err,
         "library_ms": library_ms, "bound_ms": bound_s * 1e3,
         "bound_by": bound_by, "bound_unit": unit,
         "tflops": flops / (ms * 1e-3) / 1e12, "faults": faults}
@@ -506,6 +531,30 @@ def bwd_case(name, B, S, H, mask_fn, seed, exp2_rate):
     del q, k, v, do, out, lse, got
     torch.cuda.empty_cache()
     return res
+
+
+def bwd_prep_check(name, q, out, lse, do, faults):
+    """The backward's prologue (flash_bwd_prep) against its plain version:
+    q' and the padded lse exactly, delta within 1e-5 (the order of a
+    64-term f32 sum), the dq workspace all zeros. Returns (its ms, delta's
+    max |err|); a miss goes to `faults`."""
+    import torch
+
+    from landiff_tpu_torch.ops import attention as A
+
+    call = lambda: A.flash_bwd_prep(q, out, lse, do)
+    got = call()
+    want = A.flash_bwd_prep_plain(q, out, lse, do)
+    err = (got[2] - want[2]).abs().max().item()
+    for ok, what in ((torch.equal(got[0], want[0]), "q' differs"),
+                     (torch.equal(got[1], want[1]), "padded lse differs"),
+                     (err <= 1e-5 + 1e-5 * want[2].abs().max().item(),
+                      f"delta max |err| {err}"),
+                     (not bool(got[3].any()), "dq workspace not zeroed")):
+        if not ok:
+            faults.append(f"flash_bwd prologue {name}: {what}")
+    del got, want
+    return cuda_ms(call, 5), err
 
 
 def bwd_masked_rows_case():
@@ -1414,10 +1463,39 @@ def phase_train_lm(workdir):
 # ---------------------------------------------------------------------------
 
 
+def bwd_entry(bwd, launches):
+    """The flash backward's entry of the kernels line: its numbers at the
+    training shape, the TiTok case, and ptxas's report of the main kernel
+    with its shared memory per CTA."""
+    from landiff_tpu_torch.ops import kernels
+
+    ptxas = {"unmasked_or_causal": kernels.ptxas_report(
+                 "flash_bwd", "flash_bwd_kernelILb0"),
+             "video_mask": kernels.ptxas_report(
+                 "flash_bwd", "flash_bwd_kernelILb1"),
+             "smem_bytes": kernels.flash_bwd_library()
+             .landiff_flash_bwd_smem_bytes()}
+    return {
+        "name": "flash_bwd", "route": "cuda",
+        "source": "landiff_tpu_torch/ops/csrc/flash_bwd.cu",
+        "replaces": "landiff_tpu/ops/attention.py:658 "
+                    "_flash_bwd_fused_kernel",
+        "launches": launches,
+        "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
+        "tflops": bwd["tflops"], "prep_ms": bwd["prep_ms"], "ptxas": ptxas,
+        "shape": bwd["shape"], "errors": bwd["errors"],
+        "run_to_run": bwd["run_to_run"], "titok_dec": bwd["titok_dec"]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4,
                     help="denoise steps per request (the release uses 50)")
+    ap.add_argument("--only", choices=("flash_fwd", "flash_bwd"),
+                    help="build, then only this kernel's cases at the "
+                         "main-path shapes (no pipeline, no last line)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one denoise-step model call, without "
                          "and with the adaLN knob, and 20 decode steps")
@@ -1458,6 +1536,13 @@ def main():
                     "libraries": {k: v.name for k, v in libs.items()},
                     "ptxas": report}))
 
+    if args.only == "flash_fwd":
+        phase_fwd_kernels(titok_decoder_mask(), exp2_rates())
+        return
+    if args.only == "flash_bwd":
+        bwd = phase_bwd_kernel(titok_decoder_mask(), exp2_rates()[False])
+        log(json.dumps({"flash_bwd": bwd_entry(bwd, None)}))
+        return
     # 3. kernels
     measured = phase_kernels()
     direct_launches = phase_direct(measured.pop("dec_mask"))
@@ -1526,20 +1611,9 @@ def main():
         "unfused_ms": adaln["unfused_ms"], "shape": adaln["shape"],
         "max_bf16_steps": adaln["max_bf16_steps"],
         "ragged": adaln["ragged"], "f32": adaln["f32"]})
-    bwd = measured["flash_bwd"]
     check(train_launches["flash_bwd"] > 0,
           "flash_bwd never launched on the training path")
-    rows.append({
-        "name": "flash_bwd", "route": "cuda",
-        "source": "landiff_tpu_torch/ops/csrc/flash_bwd.cu",
-        "replaces": "landiff_tpu/ops/attention.py:658 "
-                    "_flash_bwd_fused_kernel",
-        "launches": train_launches["flash_bwd"],
-        "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
-        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
-        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
-        "shape": bwd["shape"], "errors": bwd["errors"],
-        "run_to_run": bwd["run_to_run"], "titok_dec": bwd["titok_dec"]})
+    rows.append(bwd_entry(measured["flash_bwd"], train_launches["flash_bwd"]))
     rows[0]["launches_train_dit"] = train_launches["flash_fwd_exact"]
     log(json.dumps({"phase": "done",
                     "seconds": time.perf_counter() - t_start}))

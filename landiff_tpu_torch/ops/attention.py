@@ -13,8 +13,10 @@ Layout: (batch, seq, heads, head_dim), BSHD, everywhere.
     PyTorch version (`flash_exact_plain` / `flash_int8_plain`), which
     repeats the kernel's arithmetic tile by tile.
   - `flash_bwd`: the flash backward (dq, dk, dv from the exact forward's
-    out and log2 lse). CUDA tensors launch csrc/flash_bwd.cu and count the
-    launch in `LAUNCHES["flash_bwd"]`; CPU tensors run `flash_bwd_plain`.
+    out and log2 lse). CUDA tensors launch csrc/flash_bwd.cu (its
+    prologue, `flash_bwd_prep`, then the main kernel) and count the
+    launch in `LAUNCHES["flash_bwd"]`; CPU tensors run `flash_bwd_plain`
+    (on `flash_bwd_prep_plain`).
   - `flash_attention`: the direct forward, counterpart of JAX's
     `flash_attention` (:485-604), which reads LANDIFF_ATTN_INT8,
     LANDIFF_ATTN_EXP_BF16 and LANDIFF_ATTN_INT8_PV itself.
@@ -56,6 +58,11 @@ LOG2E = 1.4426950408889634
 KERNEL_BLOCK_Q = 64
 KERNEL_BLOCK_KV = 64
 KERNEL_HEAD_DIM = 64
+# the backward kernel's tiles (csrc/flash_bwd.cu kBQ / kBwdKV): one CTA per
+# 128-row kv tile walks 64-row q tiles; its tables and the plain
+# backward's default kv block follow them
+BWD_BLOCK_Q = 64
+BWD_BLOCK_KV = 128
 # JAX's default kv block (flash_attention block_kv=1024), which is also the
 # int8_pv V-scale block: one scale per (b, h, block of this many rows)
 JAX_BLOCK_KV = 1024
@@ -299,9 +306,37 @@ def flash_int8_plain(q, k, v, *, mask_fn=None, scale=None,
                         exp2_table=exp2_table)
 
 
+def flash_bwd_prep_plain(q, out, lse, do, *, scale=None):
+    """Plain version of the backward's prologue (csrc/flash_bwd.cu
+    landiff_flash_bwd_prep): returns (q' = q * scale*log2e rounded to
+    q.dtype, BSHD; lse padded to (B, H, Sq_pad) with +inf past Sq, where
+    p = exp2(s - lse) = 0; delta = rowsum(do * out) in f32, (B, H, Sq_pad),
+    0 past Sq; the zeroed dq workspace (B, H, Sq_pad, D) f32). Sq_pad
+    rounds Sq up to BWD_BLOCK_Q."""
+    B, Sq, H, D = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    sq_pad = masks_lib.round_up(Sq, BWD_BLOCK_Q)
+    qs = (q.float() * _f32(scale * LOG2E, dev)).to(q.dtype)
+    lse_pad = torch.full((B, H, sq_pad), math.inf, dtype=torch.float32,
+                         device=dev)
+    lse_pad[:, :, :Sq] = lse
+    delta = torch.zeros((B, H, sq_pad), dtype=torch.float32, device=dev)
+    delta[:, :, :Sq] = (do.float() * out.float()).sum(-1).permute(0, 2, 1)
+    ws = torch.zeros((B, H, sq_pad, D), dtype=torch.float32, device=dev)
+    return qs, lse_pad, delta, ws
+
+
+def dq_from_workspace(ws, q_len: int, dtype):
+    """dq (B, Sq, H, D) in `dtype` from the f32 workspace (B, H, Sq_pad,
+    D) the backward adds into: rows past Sq dropped, cast, permuted."""
+    return ws[:, :, :q_len].permute(0, 2, 1, 3).to(dtype).contiguous()
+
+
 def flash_bwd_plain(q, k, v, out, lse, do, *, mask_fn=None, scale=None,
                     block_q: int | None = None,
-                    block_kv: int = KERNEL_BLOCK_KV):
+                    block_kv: int = BWD_BLOCK_KV):
     """Plain version of the backward kernel (_flash_bwd_fused_kernel),
     tile by tile in the kernel's arithmetic: q' = q * scale*log2e rounded
     to q.dtype, s = q'.k^T (masked: -1e30), p = exp2(s - lse) * keep, dp =
@@ -309,8 +344,10 @@ def flash_bwd_plain(q, k, v, out, lse, do, *, mask_fn=None, scale=None,
     scale*ds rounded to q.dtype before dv += p^T.do, dk += (scale*ds)^T.q,
     dq += (scale*ds).k; every sum in f32. The roundings are per element,
     so the tiles (block_q None: all q rows at once) change only the order
-    of the f32 sums. lse: (B, H, Sq) log2, from the exact forward. Returns
-    (dq, dk, dv) in the inputs' dtypes."""
+    of the f32 sums. q', delta and the padded lse come from the prologue's
+    plain version, and dq is summed in its workspace, as the kernel does.
+    lse: (B, H, Sq) log2, from the exact forward. Returns (dq, dk, dv) in
+    the inputs' dtypes."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     if scale is None:
@@ -318,12 +355,11 @@ def flash_bwd_plain(q, k, v, out, lse, do, *, mask_fn=None, scale=None,
     dev, dt = q.device, q.dtype
     bq = Sq if block_q is None else block_q
     bhsd = lambda x: x.float().permute(0, 2, 1, 3)
-    qs = bhsd((q.float() * _f32(scale * LOG2E, dev)).to(dt))
+    qs, lse, delta, dq = flash_bwd_prep_plain(q, out, lse, do, scale=scale)
+    qs = bhsd(qs)
     qf, kf, vf, dof = bhsd(q), bhsd(k), bhsd(v), bhsd(do.to(dt))
-    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None]
-    lse = lse[..., None]                                # (B, H, Sq, 1)
+    delta, lse = delta[..., None], lse[..., None]       # (B, H, Sq_pad, 1)
     sc = _f32(scale, dev)
-    dq = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
     dk = torch.zeros((B, H, Skv, D), dtype=torch.float32, device=dev)
     dv = torch.zeros((B, H, Skv, D), dtype=torch.float32, device=dev)
     for j0 in range(0, Skv, block_kv):
@@ -348,7 +384,7 @@ def flash_bwd_plain(q, k, v, out, lse, do, *, mask_fn=None, scale=None,
             dk[:, :, j] += dsb.transpose(-1, -2) @ qf[:, :, i]
             dq[:, :, i] += dsb @ kj
     bshd = lambda x, like: x.permute(0, 2, 1, 3).to(like.dtype).contiguous()
-    return bshd(dq, q), bshd(dk, k), bshd(dv, v)
+    return dq_from_workspace(dq, Sq, q.dtype), bshd(dk, k), bshd(dv, v)
 
 
 def kernel_error(out: torch.Tensor, ref: torch.Tensor):
@@ -436,11 +472,14 @@ def variant_limits(ref, v, *, int8_pv: bool, exp_bf16: bool,
 @functools.lru_cache(maxsize=32)
 def visibility_tables(mask_fn, q_len: int, kv_len: int, device: str,
                       kv_major: bool = False):
-    """(count, order, kind) int32 tables on `device` at the kernels' tiles
-    (masks.tile_tables): per q tile its visible kv tiles (the forwards),
-    or with kv_major per kv tile the q tiles that see it (the backward)."""
-    vis = masks_lib.block_visibility(mask_fn, q_len, kv_len, KERNEL_BLOCK_Q,
-                                     KERNEL_BLOCK_KV, device=device)
+    """(count, order, kind) int32 tables on `device` (masks.tile_tables):
+    per q tile its visible kv tiles at the forwards' 64 x 64 tiles, or
+    with kv_major per kv tile the q tiles that see it at the backward's
+    64 x 128 tiles (BWD_BLOCK_Q x BWD_BLOCK_KV)."""
+    bq, bkv = ((BWD_BLOCK_Q, BWD_BLOCK_KV) if kv_major
+               else (KERNEL_BLOCK_Q, KERNEL_BLOCK_KV))
+    vis = masks_lib.block_visibility(mask_fn, q_len, kv_len, bq, bkv,
+                                     device=device)
     tables = masks_lib.tile_tables(vis.T if kv_major else vis)
     return tuple(torch.from_numpy(a).to(device) for a in tables)
 
@@ -568,23 +607,8 @@ def flash_fwd_int8(q, k, v, *, mask_fn=None, scale=None,
     return _launch(q, k, v, mask_fn, scale, True, int8_pv, exp_bf16)
 
 
-def flash_bwd(q, k, v, out, lse, do, *, mask_fn=None, scale=None):
-    """Flash backward: (dq, dk, dv) in the inputs' dtypes from the exact
-    forward's out and log2 lse (B, H, Sq). CUDA tensors launch the kernel
-    (csrc/flash_bwd.cu); CPU tensors run flash_bwd_plain. delta =
-    rowsum(do * out) is taken here in torch operations, as
-    `_flash_bwd_pallas` takes it outside its kernel (:799). The kernel adds dq with f32
-    atomics into a zeroed (B, Sq, H, D) workspace that is cast at the end,
-    so the last bits of dq vary from run to run; dk and dv do not."""
-    if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mask_fn,
-                               scale=scale)
-    from landiff_tpu_torch.ops import kernels
-
-    do = do.to(q.dtype).contiguous()
-    _check_inputs(q, k, v)
-    B, Sq, H, D = q.shape
-    Skv = k.shape[1]
+def _check_bwd_inputs(q, out, lse, do):
+    B, Sq, H, _ = q.shape
     for name, t in (("out", out), ("do", do)):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
                 or not t.is_contiguous() or t.data_ptr() % 16):
@@ -594,24 +618,86 @@ def flash_bwd(q, k, v, out, lse, do, *, mask_fn=None, scale=None):
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"lse must be a contiguous f32 (B, H, Sq) tensor, "
                          f"got {tuple(lse.shape)} {lse.dtype}")
+
+
+def _launch_bwd_prep(q, out, lse, do, scale):
+    from landiff_tpu_torch.ops import kernels
+
+    B, Sq, H, D = q.shape
+    dev = q.device
+    sq_pad = masks_lib.round_up(Sq, BWD_BLOCK_Q)
+    qs = torch.empty_like(q)
+    lse_pad = torch.empty((B, H, sq_pad), dtype=torch.float32, device=dev)
+    delta = torch.empty_like(lse_pad)
+    ws = torch.empty((B, H, sq_pad, D), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kernels.flash_bwd_library().landiff_flash_bwd_prep(
+            q.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            qs.data_ptr(), lse_pad.data_ptr(), delta.data_ptr(),
+            ws.data_ptr(), B, H, Sq, sq_pad,
+            float(np.float32(scale * LOG2E)),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash backward prologue launch failed: "
+                           f"cudaError {rc}")
+    return qs, lse_pad, delta, ws
+
+
+def flash_bwd_prep(q, out, lse, do, *, scale=None):
+    """The backward's prologue alone: (q', padded lse, delta, zeroed dq
+    workspace), as flash_bwd_prep_plain returns them. CUDA tensors launch
+    landiff_flash_bwd_prep (csrc/flash_bwd.cu), which flash_bwd launches
+    before its main kernel and counts with it; CPU tensors run the plain
+    version."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_bwd_prep_plain(q, out, lse, do, scale=scale)
+    do = do.to(q.dtype).contiguous()
+    _check_inputs(q, q, q)
+    _check_bwd_inputs(q, out, lse, do)
+    return _launch_bwd_prep(q, out, lse, do, scale)
+
+
+def flash_bwd(q, k, v, out, lse, do, *, mask_fn=None, scale=None):
+    """Flash backward: (dq, dk, dv) in the inputs' dtypes from the exact
+    forward's out and log2 lse (B, H, Sq). CUDA tensors launch the
+    prologue (delta, padded lse, q', zeroed dq workspace: the work
+    `_flash_bwd_pallas` does outside its kernel, :799) and the main kernel
+    (csrc/flash_bwd.cu), counted once in `LAUNCHES["flash_bwd"]`; CPU
+    tensors run flash_bwd_plain. The kernel adds dq by bulk reduce-adds
+    into the f32 (B, H, Sq_pad, D) workspace, which dq_from_workspace
+    casts at the end, so the last bits of dq vary from run to run; dk and
+    dv do not."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mask_fn,
+                               scale=scale)
+    from landiff_tpu_torch.ops import kernels
+
+    do = do.to(q.dtype).contiguous()
+    _check_inputs(q, k, v)
+    _check_bwd_inputs(q, out, lse, do)
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     dev = q.device
     tables, nq_table, desc = _mask_args(mask_fn, Sq, Skv, dev, True)
-    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-    dq32 = torch.zeros((B, Sq, H, D), dtype=torch.float32, device=dev)
+    qs, lse_pad, delta, ws = _launch_bwd_prep(q, out, lse, do, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(dev):
         rc = kernels.flash_bwd_library().landiff_flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq32.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *tables, B, H, Sq, Skv, nq_table,
-            float(np.float32(scale * LOG2E)), float(np.float32(scale)),
+            q.data_ptr(), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse_pad.data_ptr(), delta.data_ptr(),
+            ws.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tables, B, H, Sq,
+            Skv, lse_pad.shape[-1], nq_table, float(np.float32(scale)),
             *desc, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash backward launch failed: cudaError {rc}")
+        raise RuntimeError(f"flash backward launch failed: error {rc} "
+                           "(a cudaError; 1000 + a CUresult where a TMA "
+                           "tensor map could not be encoded)")
     LAUNCHES["flash_bwd"] += 1
-    return dq32.to(q.dtype), dk, dv
+    return dq_from_workspace(ws, Sq, q.dtype), dk, dv
 
 
 class _FlashDiff(torch.autograd.Function):

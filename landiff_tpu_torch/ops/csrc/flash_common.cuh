@@ -59,6 +59,41 @@ __device__ __forceinline__ bool mask_keep(const P& p, int q, int kv) {
          (q >= fe && q < iqe && sees) || (q >= iqe && q < sl && pq);
 }
 
+// mask_keep's video branches (mask_kind kMaskVideoEncoder or
+// kMaskVideoDecoder) with the frame indices given: q_frame = floor(q / tpf),
+// p_frame = floor((q - iqe) / pft) + 1, kv_frame = floor(kv / tpf), iqe =
+// nf * tpf + iqt, so that a kernel may divide once per row and column of a
+// tile and not per score (the flash backward). The same algebra as
+// mask_keep's, kept beside it and not called by it: with mask_keep built on
+// it the forward kernels, at 128 registers, were allocated otherwise and
+// some variants ran 2-15 % slower (PERF.md). To be unified when the
+// forwards are rewritten (ROADMAP).
+template <class P>
+__device__ __forceinline__ bool keep_frames(const P& p, int q, int q_frame,
+                                            int p_frame, int kv,
+                                            int kv_frame) {
+  const int tpf = p.tpf, pft = p.pft;
+  const int fe = p.nf * tpf;
+  const int iqe = fe + p.iqt;
+  const int sl = iqe + pft * (p.nf - 1);
+  if (p.mask_kind == kMaskVideoEncoder) {
+    const bool in_frames = kv_frame <= q_frame;
+    const bool kv_in_iq = kv >= fe && kv < iqe;
+    const bool iq = kv < tpf || (kv_in_iq && kv <= q);
+    const bool pq = kv < (p_frame + 1) * tpf || (kv >= fe && kv <= q);
+    return (q < fe && in_frames) || (q >= fe && q < iqe && iq) ||
+           (q >= iqe && q < sl && pq);
+  }
+  // kMaskVideoDecoder
+  const bool sees = kv < tpf || (kv >= fe && kv < iqe);
+  const bool pfp = (kv < fe && kv_frame <= q_frame) ||
+                   (kv >= fe && kv < iqe + q_frame * pft);
+  const bool pq = kv < (p_frame + 1) * tpf ||
+                  (kv >= fe && kv < iqe + p_frame * pft);
+  return (q < tpf && sees) || (q >= tpf && q < fe && pfp) ||
+         (q >= fe && q < iqe && sees) || (q >= iqe && q < sl && pq);
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }

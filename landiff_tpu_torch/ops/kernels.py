@@ -100,13 +100,44 @@ def flash_library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def flash_bwd_library() -> ctypes.CDLL:
-    """The flash-backward library with its C signature declared."""
-    lib = ctypes.CDLL(str(build(["flash_bwd"])["flash_bwd"]))
+    """The flash-backward library (prologue and main kernel) with its C
+    signatures declared."""
+    return bind_flash_bwd(build(["flash_bwd"])["flash_bwd"])
+
+
+def bind_flash_bwd(path: Path) -> ctypes.CDLL:
+    """A library built from flash_bwd.cu, at `path`, with its C signatures
+    declared."""
+    lib = ctypes.CDLL(str(path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.landiff_flash_bwd_prep.argtypes = [ptr] * 8 + [i32] * 4 + [f32, ptr]
+    lib.landiff_flash_bwd_prep.restype = i32
     lib.landiff_flash_bwd.argtypes = (
-        [ptr] * 12 + [i32] * 5 + [f32] * 2 + [i32] * 5 + [ptr])
+        [ptr] * 13 + [i32] * 6 + [f32] + [i32] * 5 + [ptr])
     lib.landiff_flash_bwd.restype = i32
+    lib.landiff_flash_bwd_smem_bytes.argtypes = []
+    lib.landiff_flash_bwd_smem_bytes.restype = i32
     return lib
+
+
+def ptxas_report(name: str, entry: str) -> dict:
+    """Registers, spill bytes and barriers of the kernel whose mangled
+    name contains `entry`, from the -Xptxas -v log of library `name`."""
+    import re
+
+    text = library_path(name).with_suffix(".log").read_text()
+    block = text.split("Compiling entry function")
+    found = [b for b in block[1:] if entry in b.split("\n", 1)[0]]
+    if not found:
+        raise RuntimeError(f"no ptxas report for {entry} in {name}")
+    b = found[0]
+    num = lambda pat: int(re.search(pat, b).group(1))
+    return {"registers": num(r"Used (\d+) registers"),
+            "spill_stores": num(r"(\d+) bytes spill stores"),
+            "spill_loads": num(r"(\d+) bytes spill loads"),
+            "barriers": num(r"used (\d+) barriers"),
+            "warnings": [line.strip() for line in b.splitlines()
+                         if "arning" in line or "Performance Loss" in line]}
 
 
 @functools.lru_cache(maxsize=None)

@@ -14,8 +14,10 @@ The backward kernel takes the forward kernel's own out and lse; dq, dk and
 dv are each held to its plain version within two bf16 steps at the largest
 |plain| value and a relative RMS error of 2e-3: p and scale*ds are rounded
 to bf16 in both, from exp2 results and f32 sums that differ in their last
-bits, and dq is summed by atomics in an order that changes from run to
-run. Rows that see nothing give exactly 0.
+bits, and dq is summed by bulk reduce-adds in an order that changes from
+run to run. Rows that see nothing give exactly 0; dk and dv are the same
+from call to call. Its prologue gives q' and the padded lse exactly and
+delta within 1e-5 (the order of a 64-term f32 sum).
 
 The int8_pv and exp_bf16 variants of the forward are held to their plain
 versions with the forward's limits widened by what each variant's
@@ -180,9 +182,14 @@ _BWD_TOL_STEPS = 2.0
 _BWD_TOL_RMS = 2e-3
 
 
-@pytest.mark.parametrize("mask,Sq,Skv", _CASES + [(None, 64, 64),
-                                                  (None, 1, 130)])
+# beside the forward's cases: kv lengths at the backward's 128-row kv tile
+# (Skv mod 128 = 0, 64, 112, 1), Sq != Skv both ways, one q row
+@pytest.mark.parametrize("mask,Sq,Skv", _CASES + [
+    (None, 64, 64), (None, 1, 130), (None, 192, 192), (None, 240, 240),
+    (None, 129, 129), (None, 100, 369), (None, 512, 384)])
 def test_bwd_kernel_matches_plain(dev, mask, Sq, Skv):
+    """dq, dk, dv against the plain version (at the kernel's 64 x 128
+    tiles), B * H = 6; dk and dv bit-identical from a second call."""
     mf = _MASKS[mask]
     q, k, v = _qkv(dev, 2, Sq, Skv, 3, seed=1)
     out, lse = TA.flash_fwd_exact(q, k, v, mask_fn=mf)
@@ -200,11 +207,34 @@ def test_bwd_kernel_matches_plain(dev, mask, Sq, Skv):
         steps, rel_rms = TA.kernel_error(g, w)
         assert steps <= _BWD_TOL_STEPS and rel_rms <= _BWD_TOL_RMS, \
             (name, steps, rel_rms)
+    again = TA.flash_bwd(q, k, v, out, lse, do, mask_fn=mf)
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
     if mask == "decoder" and Sq > _LAYOUT.seq_len:   # rows that see nothing
         assert got[0][:, _LAYOUT.seq_len:].abs().max().item() == 0.0
         # and no row sees the kv positions past the layout
         assert got[1][:, _LAYOUT.seq_len:].abs().max().item() == 0.0
         assert got[2][:, _LAYOUT.seq_len:].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("Sq", [1, 187, 256])
+def test_bwd_prologue_matches_plain(dev, Sq):
+    """q' and the padded lse exactly, delta within the order of its f32
+    sums, the dq workspace zeroed (rows past Sq too)."""
+    q, k, v = _qkv(dev, 2, Sq, Sq, 3, seed=5)
+    out, lse = TA.flash_fwd_exact(q, k, v)
+    do = (torch.randn(out.shape, device=dev) * 0.5).bfloat16()
+    # NaN in the memory the allocator hands out next: the zeros are written
+    junk = torch.full((2, 3, -(-Sq // 64) * 64, 64), float("nan"), device=dev)
+    del junk
+    got = TA.flash_bwd_prep(q, out, lse, do)
+    torch.cuda.synchronize()
+    want = TA.flash_bwd_prep_plain(q, out, lse, do)
+    names = ("qs", "lse_pad", "delta", "ws")
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], atol=1e-5, rtol=1e-5)
+    assert torch.equal(got[3], want[3])
 
 
 def test_attention_under_grad_takes_the_exact_forward_and_the_bwd_kernel(

@@ -13,6 +13,8 @@ the XLA oracle, which neither pre-rounds q nor takes the saved lse: 3e-2
 of the largest gradient. Rows that see nothing give exactly 0."""
 
 import functools
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -83,13 +85,13 @@ def _jax_case(name, Sq, Skv, dtype):
             [f32(a) for a in pallas], [f32(a) for a in xla])
 
 
-def _port_bwd(name, Sq, Skv, dtype):
+def _port_bwd(name, Sq, Skv, dtype, block_kv=16):
     tm = _MASKS[name][1]
     tdt = _DTYPES[dtype][1]
     (q, k, v, do, out), lse, pallas, xla = _jax_case(name, Sq, Skv, dtype)
     q, k, v, do, out = (T(a).to(tdt) for a in (q, k, v, do, out))
     got = TA.flash_bwd_plain(q, k, v, out, T(lse), do, mask_fn=tm,
-                             block_q=16, block_kv=16)
+                             block_q=16, block_kv=block_kv)
     assert [g.dtype for g in got] == [tdt] * 3
     return got, pallas, xla
 
@@ -97,7 +99,20 @@ def _port_bwd(name, Sq, Skv, dtype):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("name,Sq,Skv", _CASES)
 def test_plain_bwd_matches_jax_pallas_interpret(name, Sq, Skv, dtype):
-    got, want, _ = _port_bwd(name, Sq, Skv, dtype)
+    _check_against_pallas(name, Sq, Skv, dtype, block_kv=16)
+
+
+# at the CUDA kernel's kv tile (BWD_BLOCK_KV, the plain version's default),
+# which changes only the order of the f32 sums
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name,Sq,Skv", _CASES)
+def test_plain_bwd_at_the_kernel_tile_matches_jax_pallas_interpret(
+        name, Sq, Skv, dtype):
+    _check_against_pallas(name, Sq, Skv, dtype, block_kv=TA.BWD_BLOCK_KV)
+
+
+def _check_against_pallas(name, Sq, Skv, dtype, block_kv):
+    got, want, _ = _port_bwd(name, Sq, Skv, dtype, block_kv)
     atol, rtol = (2e-5, 2e-5) if dtype == "f32" else (2e-3, 2 ** -8)
     for g, w in zip(got, want):
         assert float(np.abs(w).max()) > 1e-2          # not vacuous
@@ -153,6 +168,45 @@ def test_tile_tables_match_the_jax_construction(name, kv_major):
     else:
         vis = JM.block_visibility(jm, S, S, 8, 8)
         tvis = TM.block_visibility(tm, S, S, 8, 8)
+    _check_tile_tables(vis, tvis, kv_major)
+
+
+# a layout large enough for partial and skipped tiles at the backward
+# kernel's 64 x 128 tiles (seq_len 560, S = 600: 10 q x 5 kv tiles)
+J_BIG = JM.VideoMaskLayout(num_frames=3, tokens_per_frame=150,
+                           iframe_tokens=70, pframe_tokens=20)
+T_BIG = TM.VideoMaskLayout(num_frames=3, tokens_per_frame=150,
+                           iframe_tokens=70, pframe_tokens=20)
+_BIG_MASKS = {"none": (None, None), "causal": (JM.causal, TM.causal),
+              "decoder": (JM.video_decoder_mask(J_BIG),
+                          TM.video_decoder_mask(T_BIG)),
+              "encoder": (JM.video_encoder_mask(J_BIG),
+                          TM.video_encoder_mask(T_BIG))}
+
+
+@pytest.mark.parametrize("name", ["none", "causal", "decoder", "encoder"])
+@pytest.mark.parametrize("kv_major", [False, True])
+def test_tile_tables_at_the_bwd_tile_match_the_jax_construction(name,
+                                                                 kv_major):
+    """The same at the backward kernel's BWD_BLOCK_Q x BWD_BLOCK_KV tiles,
+    and kv-major, attention.visibility_tables as it builds them for the
+    kernel."""
+    jm, tm = _BIG_MASKS[name]
+    S, bq, bkv = T_BIG.seq_len + 40, TA.BWD_BLOCK_Q, TA.BWD_BLOCK_KV
+    if name == "none":
+        vis = tvis = np.full((-(-S // bq), -(-S // bkv)), 2, np.int8)
+    else:
+        vis = JM.block_visibility(jm, S, S, bq, bkv)
+        tvis = TM.block_visibility(tm, S, S, bq, bkv)
+        assert {0, 1, 2} <= set(np.unique(vis)) or name == "causal"
+    tables = _check_tile_tables(vis, tvis, kv_major)
+    if kv_major and name != "none":
+        built = TA.visibility_tables(tm, S, S, "cpu", kv_major=True)
+        for a, b in zip(built, tables):
+            np.testing.assert_array_equal(a.numpy(), b)
+
+
+def _check_tile_tables(vis, tvis, kv_major):
     if kv_major:
         vis, tvis = vis.T, tvis.T
     count, order, kind = TM.tile_tables(tvis)
@@ -162,6 +216,76 @@ def test_tile_tables_match_the_jax_construction(name, kv_major):
         np.testing.assert_array_equal(order[r, :len(ids)], ids)
         np.testing.assert_array_equal(kind[r, :len(ids)], vis[r, ids])
     assert count.dtype == order.dtype == kind.dtype == np.int32
+    return count, order, kind
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("Sq", [40, 64, 100])
+def test_bwd_prologue_plain_matches_numpy(Sq, dtype):
+    """flash_bwd_prep_plain against numpy from a seed: q' = q * scale*log2e
+    rounded to the dtype, lse padded with +inf to Sq rounded up to 64,
+    delta = rowsum(do * out) in f32 (0 past Sq), a zeroed (B, H, Sq_pad, D)
+    dq workspace."""
+    B, H, D = 2, 3, 16
+    tdt = _DTYPES[dtype][1]
+    q, out, do = (T(randn(60 + i, B, Sq, H, D)).to(tdt) for i in range(3))
+    lse = T(randn(63, B, H, Sq))
+    qs, lse_pad, delta, ws = TA.flash_bwd_prep_plain(q, out, lse, do)
+    sq_pad = -(-Sq // 64) * 64
+    assert lse_pad.shape == delta.shape == (B, H, sq_pad)
+    assert ws.shape == (B, H, sq_pad, D) and not bool(ws.any())
+    qscale = np.float32(TA.LOG2E / np.sqrt(D))
+    want_qs = torch.from_numpy(q.float().numpy() * qscale).to(tdt)
+    assert qs.dtype == tdt and torch.equal(qs, want_qs)
+    assert np.array_equal(lse_pad[:, :, :Sq].numpy(), lse.numpy())
+    assert bool(torch.isinf(lse_pad[:, :, Sq:]).all())
+    assert bool((lse_pad[:, :, Sq:] > 0).all())
+    want = np.einsum("bshd,bshd->bhs", do.float().numpy().astype(np.float64),
+                     out.float().numpy().astype(np.float64))
+    np.testing.assert_allclose(delta[:, :, :Sq].numpy(), want, rtol=1e-5,
+                               atol=1e-5)
+    assert not bool(delta[:, :, Sq:].any())
+
+
+@pytest.mark.parametrize("Sq", [1, 64, 100])
+def test_dq_workspace_cast_is_the_identity(Sq):
+    """dq_from_workspace, the cast and permute of the (B, H, Sq_pad, D)
+    workspace to BSHD that the CUDA route and the plain route share:
+    exactly the first Sq rows, transposed, whatever the padding rows
+    hold."""
+    B, H, D = 2, 3, 8
+    sq_pad = -(-Sq // 64) * 64
+    ws = T(randn(70, B, H, sq_pad, D))
+    want = np.ascontiguousarray(ws.numpy()[:, :, :Sq].transpose(0, 2, 1, 3))
+    got = TA.dq_from_workspace(ws, Sq, torch.float32)
+    assert got.is_contiguous() and np.array_equal(got.numpy(), want)
+    got16 = TA.dq_from_workspace(ws, Sq, torch.bfloat16)
+    assert torch.equal(got16, T(want).bfloat16())
+
+
+def _ablation_tool():
+    path = Path(__file__).resolve().parents[1] / "chip_bwd_ablation.py"
+    spec = importlib.util.spec_from_file_location("chip_bwd_ablation", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_ABLATIONS = ["exp2f", "no_exp2", "no_reduce", "no_dq_product",
+              "no_ds_store", "no_video_mask"]
+
+
+@pytest.mark.parametrize("variant", _ABLATIONS)
+def test_ablation_variants_still_apply_to_the_kernel_source(variant):
+    """chip_bwd_ablation.py edits flash_bwd.cu's text: each of its edits
+    matches the source exactly once, so an edit of the kernel that breaks
+    a variant shows here and not first on the card."""
+    tool = _ablation_tool()
+    src = (tool.CSRC / "flash_bwd.cu").read_text()
+    edits = tool.VARIANTS[variant]
+    assert edits and all(src.count(old) == 1 for old, _ in edits)
+    assert tool.variant_source(variant) != tool.variant_source("base")
+    assert set(tool.VARIANTS) == {"base", *_ABLATIONS}
 
 
 # ---------------------------------------------------------------------------
