@@ -4,16 +4,23 @@
     python3 chip_smoke.py              # 4 denoise steps per request
     python3 chip_smoke.py --steps 50   # the released sampler's 50 steps
     python3 chip_smoke.py --only flash_bwd   # build, then that kernel's
-                                             # cases alone (flash_fwd,
+                                             # cases alone (flash_fwd:
+                                             # with the drift gates;
                                              # flash_bwd; no last line)
+    python3 chip_smoke.py --only stage1_batch  # batched decoding against
+                                               # single calls at full
+                                               # width, bf16 and f32
 
 Phases, in order; any failure exits nonzero before the last line:
   1. device:  the card's name and power limit; TF32 off for matmuls and
               convolutions, printed.
   2. build:   nvcc builds every kernel from the checkout's sources, one
               process per source, started together.
-  3. kernels: the SFU's exp2 rate in f32 and bf16x2 (a probe, for the
-              bounds); each flash kernel against its plain PyTorch version
+  3. kernels: ptxas's report of every forward instance (no spills but
+              int8_pv's, no serialized wgmma); the SFU's exp2 rate in f32
+              and bf16x2 (a probe, for the bounds); each flash kernel
+              against its plain PyTorch version (the int8 forms' K
+              quantization prologue too, exactly)
               at the two main-path shapes (DiT: B=2 S=17,776 H=30 D=64 unmasked;
               TiTok decoder: B=1 S=18,768 H=12 D=64, video-decoder mask),
               with times, bounds and the SDPA yardstick, and so each
@@ -32,6 +39,13 @@ Phases, in order; any failure exits nonzero before the last line:
               kernel against its plain version at the DiT shape
               (2, 17,776, 1,920) bf16 with text_len 226, at a ragged shape
               and with f32 I/O, with its time beside the unfused chain's.
+  3b. drift:  the compound-drift gates of the quantized DiT paths
+              (diffusion/drift.py: three chained steps of the JAX gates'
+              mid configuration, S = 776) in bf16 through the kernels: int8
+              scores and int8_pv against the exact forward, W8A8 against
+              the bf16 weights, at JAX's thresholds and, for attention,
+              under 5 % of attention's own contribution; each quantized run
+              launches only its variant, 9 times.
   4. build the pipeline: infer_video.build_pipeline at the full width of
               LanDiffConfig() (random weights from a seed, zero leaves
               filled, depth not cut), both stages on the card.
@@ -286,6 +300,16 @@ def kernel_case(name, B, S, H, mask_fn, int8, seed, exp2_rate, int8_pv=False,
              f"vs card exp2: lse error {card['lse_max_abs_err']}")]
         del card_out, card_lse
 
+    prologue = None
+    if int8:   # the K quantization kernel against its plain version
+        got, want = A.quantize_k(k), A.quantize_k_plain(k)
+        exact = all(torch.equal(g, w) for g, w in zip(got, want))
+        checks.append((exact, "K quantization prologue differs"))
+        prologue = {"ms": cuda_ms(lambda: A.quantize_k(k), 5),
+                    "plain_ms": cuda_ms(lambda: A.quantize_k_plain(k), 3),
+                    "exact": exact}
+        del got, want
+
     library_ms = None
     if not int8:   # SDPA computes the exact function (exp_bf16: close to it)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -320,6 +344,7 @@ def kernel_case(name, B, S, H, mask_fn, int8, seed, exp2_rate, int8_pv=False,
             k: lim[k] for k in ("max_abs", "rel_rms", "lse", "exp2_rel_err",
                                 "exp2_not_rounded_share") if k in lim},
         "vs_card_exp2": card, "ms": ms, "plain_ms": plain_ms,
+        "k_quantization": prologue,
         "library_ms": library_ms, "bound_ms": bound_s * 1e3,
         "bound_by": bound_by, "bound_unit": unit,
         "tflops": flops / (ms * 1e-3) / 1e12,
@@ -370,6 +395,63 @@ def phase_fwd_kernels(dec, rates):
     faults = [f for dit, titok in results.values()
               for f in dit["faults"] + titok["faults"]]
     check(not faults, "kernel vs plain: " + "; ".join(faults))
+    return results
+
+
+def fwd_ptxas(int8, int8_pv, exp_bf16):
+    """ptxas's report of one forward kernel instance, with its shared
+    memory per CTA."""
+    from landiff_tpu_torch.ops import kernels
+
+    rep = kernels.ptxas_report(
+        "flash_fwd", "flash_fwd_kernelILb%dELb%dELb%dE"
+        % (int8, int8_pv, exp_bf16))
+    rep["smem_bytes"] = kernels.flash_library().landiff_flash_fwd_smem_bytes(
+        int(int8), int(int8_pv))
+    return rep
+
+
+def check_fwd_ptxas():
+    """No forward instance has a wgmma that ptxas serialized ("Potential
+    Performance Loss"), and the exact and int8 forms, with and without
+    exp_bf16, no spills (int8_pv, whose int32 p.v sums sit beside the f32
+    accumulator, spills some 100 bytes at 160 registers a thread; PERF.md).
+    Returns the reports by variant name."""
+    from landiff_tpu_torch.ops.attention import variant_name
+
+    reports = {variant_name(*v): fwd_ptxas(*v) for v in FWD_VARIANTS}
+    log(json.dumps({"phase": "flash_fwd_ptxas", "reports": reports}))
+    for (int8, int8_pv, exp_bf16), (name, rep) in zip(FWD_VARIANTS,
+                                                      reports.items()):
+        spills = rep["spill_stores"] + rep["spill_loads"]
+        check(not rep["warnings"] and (int8_pv or spills == 0),
+              f"{name} ptxas: {rep}")
+    return reports
+
+
+# quantized launches of each drift gate's quantized run: 3 steps x (2 main
+# + 1 control layers), one attention call each
+DRIFT_LAUNCHES = {"int8": {"flash_fwd_int8": 9},
+                  "int8_pv": {"flash_fwd_int8_pv": 9}, "w8a8": {}}
+
+
+def phase_drift():
+    """The compound-drift gates (diffusion/drift.py) in bf16 on the card,
+    through the kernels: each must pass and its quantized run launch only
+    its variant."""
+    import torch
+
+    from landiff_tpu_torch.diffusion import drift
+
+    results = {}
+    for gate in drift.GATES:
+        res = drift.run_gate(gate, device="cuda", dtype=torch.bfloat16)
+        log(json.dumps({"phase": "drift", "gate": gate, **res}))
+        check(res["passed"], f"drift gate {gate}: {res}")
+        check(res["launches"] == DRIFT_LAUNCHES[gate],
+              f"drift gate {gate} launches {res['launches']}")
+        results[gate] = res
+    torch.cuda.empty_cache()
     return results
 
 
@@ -873,6 +955,116 @@ def phase_video(cfg, llm, dif, steps):
                         decode_steps / llm.phase_seconds["sample"],
                     "vs_single_calls_bf16": agree}))
     return launches
+
+
+def _forced_logit_gaps(llm, prompts, steps: int, seed: int = 7):
+    """The first prompt's logits batched against alone, both fed the same
+    random visual tokens for `steps` decode steps, with the KV cache in
+    the compute dtype: per step, max |difference| of the guidance-combined
+    logits (what a draw sees) over their standard deviation."""
+    import torch
+    import torch.nn.functional as F
+
+    from landiff_tpu_torch.models import gpt, lm
+
+    cfg, sc, dt = llm.llm_cfg, llm.sample_cfg, llm.compute_dtype
+    params, dev = llm.params["lm"], llm.device
+    rows = [torch.stack(llm._prompt_rows(p)) for p in prompts]
+    lens = [r.shape[1] for r in rows]
+    P = -(-max(lens) // 16) * 16
+    pad = torch.as_tensor(np.repeat(P - np.asarray(lens), 2), device=dev)
+    batched = torch.cat([F.pad(r, (0, 0, P - r.shape[1], 0)) for r in rows])
+    cos, sin = lm._rope_tables(cfg, P + steps + 1, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fed = torch.randint(0, cfg.codebook_size, (steps,), device=dev,
+                        generator=gen)
+    emb = params["tok_emb"]
+    L = lens[0]
+    # guidance and temperature only: the same for both prefixes
+    st = lm._static(cfg, lm.build_schedule(cfg, L, sc.num_frames), sc)
+    one = gpt.KVCache.create(cfg, 2, L + steps + 1, dt, dev)
+    many = gpt.KVCache.create(cfg, len(batched), P + steps + 1, dt, dev)
+    pos = torch.arange(P + steps + 1, device=dev)
+    ppos = (pos[None, :P] - pad[:, None]).clamp_min(0)
+    with torch.inference_mode():
+        lo, one = gpt.prefill(params["gpt"], rows[0], one, cfg, cos[:L],
+                              sin[:L], compute_dtype=dt)
+        lb, many = gpt.prefill(params["gpt"], batched, many, cfg, cos[ppos],
+                               sin[ppos], compute_dtype=dt, pad=pad)
+        gaps = []
+        for k in range(steps + 1):
+            co = lm._combined_logits(lo, st)
+            cb = lm._combined_logits(lb[:2], st)
+            gaps.append(float((co - cb).abs().max() / co.std()))
+            if k == steps:
+                break
+            feat = emb[fed[k]][None, None]
+            at = slice(L + k, L + k + 1)
+            lo, one = gpt.decode_step(
+                params["gpt"], feat.expand(2, 1, -1), one, pos[at], cfg,
+                cos[at], sin[at], compute_dtype=dt)
+            dpos = (pos[P + k] - pad).clamp_min(0)[:, None]
+            lb, many = gpt.decode_step(
+                params["gpt"], feat.expand(len(batched), 1, -1), many,
+                pos[P + k:P + k + 1], cfg, cos[dpos], sin[dpos],
+                compute_dtype=dt, pad=pad)
+    return gaps
+
+
+def phase_stage1_batch():
+    """Where batched decoding parts from the single calls at full width:
+    stage 1 alone (LanDiffConfig's LM and T5, random weights from seed 0,
+    zero leaves filled) in bf16, then in f32. One infer_batch of two
+    prompts against their single calls under one seed (the first
+    differing code and the share of equal codes per prompt), and the
+    first prompt's combined logits batched against alone over 64
+    teacher-forced decode steps with the cache in the compute dtype
+    (_forced_logit_gaps)."""
+    import torch
+
+    from landiff_tpu_torch.config import ARSampleConfig, LanDiffConfig
+    from landiff_tpu_torch.pipeline import llm_infer
+    from landiff_tpu_torch.utils import fill_zero_leaves
+
+    cfg = LanDiffConfig()
+    prompts = ("a corgi running along a beach at sunset",
+               "a paper boat drifting down a rainy street")
+    agree = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        llm = llm_infer.ArModelInferWrapper(
+            llm_infer.init_params(gen, cfg.llm, cfg.t5), cfg.llm, cfg.t5,
+            ARSampleConfig(seed=1), compute_dtype=dtype, device="cuda")
+        llm.params = fill_zero_leaves(
+            llm.params, torch.Generator(device="cuda").manual_seed(123))
+        tasks = [llm_infer.CodeTask(f"{i}.npy", p)
+                 for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        batch = llm.infer_batch(tasks)
+        rows = []
+        for task, got in zip(tasks, batch):
+            single = llm(task).result
+            check_codes(single, cfg, f"{dtype} single call")
+            check_codes(got.result, cfg, f"{dtype} batched call")
+            same = got.result == single
+            rows.append({"equal": bool(same.all()),
+                         "first_difference": None if same.all()
+                         else int(np.argmin(same)),
+                         "share_equal": float(same.mean())})
+        gaps = _forced_logit_gaps(llm, prompts, 64)
+        check(all(np.isfinite(gaps)), f"{dtype}: logits not finite")
+        agree[str(dtype).removeprefix("torch.")] = rows
+        log(json.dumps({"phase": "stage1_batch", "dtype": str(dtype),
+                        "seconds": time.perf_counter() - t0,
+                        "vs_single_calls": rows,
+                        "forced_logit_gap_over_std": {
+                            "first": gaps[0], "max": max(gaps),
+                            "median": float(np.median(gaps)),
+                            "last": gaps[-1]}}))
+        del llm, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return agree
 
 
 def phase_batch_f32():
@@ -1493,9 +1685,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4,
                     help="denoise steps per request (the release uses 50)")
-    ap.add_argument("--only", choices=("flash_fwd", "flash_bwd"),
+    ap.add_argument("--only", choices=("flash_fwd", "flash_bwd",
+                                       "stage1_batch"),
                     help="build, then only this kernel's cases at the "
-                         "main-path shapes (no pipeline, no last line)")
+                         "main-path shapes, or only the batched decoding "
+                         "check at full width (no pipeline, no last "
+                         "line)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one denoise-step model call, without "
                          "and with the adaLN knob, and 20 decode steps")
@@ -1537,16 +1732,24 @@ def main():
                     "ptxas": report}))
 
     if args.only == "flash_fwd":
+        check_fwd_ptxas()
         phase_fwd_kernels(titok_decoder_mask(), exp2_rates())
+        phase_drift()
+        return
+    if args.only == "stage1_batch":
+        phase_stage1_batch()
         return
     if args.only == "flash_bwd":
         bwd = phase_bwd_kernel(titok_decoder_mask(), exp2_rates()[False])
         log(json.dumps({"flash_bwd": bwd_entry(bwd, None)}))
         return
     # 3. kernels
+    fwd_reports = check_fwd_ptxas()
     measured = phase_kernels()
     direct_launches = phase_direct(measured.pop("dec_mask"))
     adaln = phase_adaln()
+    # 3b. the drift gates
+    drift = phase_drift()
     # 4. the pipeline; 5. prompt -> codes -> video; 6. stage 2 alone
     cfg, llm, dif = build_full(args.steps)
     video_launches = phase_video(cfg, llm, dif, args.steps)
@@ -1596,8 +1799,13 @@ def main():
             "max_abs_err": dit["max_abs_err"], "ms": dit["ms"],
             "plain_ms": dit["plain_ms"], "bound_ms": dit["bound_ms"],
             "bound_by": dit["bound_by"], "library_ms": dit["library_ms"],
-            "bound_unit": dit["bound_unit"], "shape": dit["shape"],
+            "bound_unit": dit["bound_unit"], "tflops": dit["tflops"],
+            "ptxas": fwd_reports[kname], "shape": dit["shape"],
             "titok_dec": titok})
+        gate = "int8_pv" if int8_pv else "int8"
+        if int8 and not exp_bf16:
+            rows[-1]["drift"] = {k: drift[gate][k] for k in (
+                "corr", "rel", "share_of_attention", "limits")}
     rows[1]["launches_stage2_alone"] = stage2_launches["flash_fwd_int8"]
     check(video_launches["adaln"] > 0, "adaln never launched on its path")
     rows.append({

@@ -149,7 +149,9 @@ def quantize_int8(params):
 
 
 def _layer(p, x, emb, cfg: DiTConfig, attn_impl="auto"):
-    """One AdaLN DiT layer over the concatenated [text|video] sequence."""
+    """One AdaLN DiT layer over the concatenated [text|video] sequence.
+    attn_impl: a route of `attention`, or a callable (q, k, v) -> out in
+    its place."""
     B, S, D = x.shape
     tl = cfg.text_length
     H, Dk = cfg.num_heads, cfg.head_dim
@@ -186,7 +188,8 @@ def _layer(p, x, emb, cfg: DiTConfig, attn_impl="auto"):
     if cfg.qk_ln:
         q = layer_norm(q, p["q_ln_w"], p["q_ln_b"], 1e-6)
         k = layer_norm(k, p["k_ln_w"], p["k_ln_b"], 1e-6)
-    attn = attention(q, k, v, impl=attn_impl).reshape(B, S, D)
+    attn = (attn_impl(q, k, v) if callable(attn_impl)
+            else attention(q, k, v, impl=attn_impl)).reshape(B, S, D)
     x = x + gate_msa * _linear(p, "attn_out", attn)
 
     h = modulate(x, "ln2", 3, 4)

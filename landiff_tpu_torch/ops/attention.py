@@ -8,8 +8,9 @@ Layout: (batch, seq, heads, head_dim), BSHD, everywhere.
     with an `exp_bf16` variant (p = exp2 in bf16) and the int8 one with an
     `int8_pv` variant (p.v in int8 against per-block V codes from
     `quantize_v_blocks`). On a CUDA tensor each launches its hand-written
-    kernel (csrc/flash_fwd.cu) and counts the launch in `LAUNCHES` under
-    the variant's name (`variant_name`); on a CPU tensor it runs its plain
+    kernel (csrc/flash_fwd.cu; the int8 one after its K quantization
+    prologue, `quantize_k`) and counts the launch in `LAUNCHES` under the
+    variant's name (`variant_name`); on a CPU tensor it runs its plain
     PyTorch version (`flash_exact_plain` / `flash_int8_plain`), which
     repeats the kernel's arithmetic tile by tile.
   - `flash_bwd`: the flash backward (dq, dk, dv from the exact forward's
@@ -53,10 +54,12 @@ from landiff_tpu_torch.ops import masks as masks_lib
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 
-# the CUDA kernel's tiles (csrc/flash_fwd.cu kBQ / kBKV / kD); the plain
-# versions use the same kv tile so both round p at the same running max
-KERNEL_BLOCK_Q = 64
-KERNEL_BLOCK_KV = 64
+# the forward kernel's tiles (csrc/flash_fwd.cu kFwdBQ / kFwdBKV / kD); the
+# plain versions use the same kv tile so both round p at the same running
+# max. The kv tile divides 128, so it lies inside one int8_pv V block
+# (v_block_rows, a multiple of 128)
+KERNEL_BLOCK_Q = 192
+KERNEL_BLOCK_KV = 128
 KERNEL_HEAD_DIM = 64
 # the backward kernel's tiles (csrc/flash_bwd.cu kBQ / kBwdKV): one CTA per
 # 128-row kv tile walks 64-row q tiles; its tables and the plain
@@ -134,6 +137,42 @@ def quantize_k_positions(k: torch.Tensor):
     kf = k.float()
     sk = _absmax_scale(kf, keepdim=False)
     return torch.round(kf / sk[..., None]).to(torch.int8), sk
+
+
+def quantize_k_plain(k: torch.Tensor):
+    """K codes and scales as the int8 forward kernel reads them: (int8
+    (B, S, H, D), f32 scales (B*H, S_pad) with S_pad = S rounded up to
+    the kernel's kv tile, zeros past S). The plain version of the kernel's
+    prologue (csrc/flash_fwd.cu landiff_flash_quantize_k), on
+    quantize_k_positions."""
+    B, S, H, _ = k.shape
+    k8, sk = quantize_k_positions(k)
+    pad = masks_lib.round_up(S, KERNEL_BLOCK_KV) - S
+    sk = torch.nn.functional.pad(sk.permute(0, 2, 1), (0, pad))
+    return k8, sk.reshape(B * H, S + pad).contiguous()
+
+
+def quantize_k(k: torch.Tensor):
+    """quantize_k_plain's result: on a CUDA tensor (contiguous bf16 BSHD,
+    head dim 64) by one launch of the int8 forward's prologue kernel,
+    which flash_fwd_int8 launches before its main kernel and counts with
+    it; on a CPU tensor by the plain version."""
+    if k.device.type == "cpu":
+        return quantize_k_plain(k)
+    from landiff_tpu_torch.ops import kernels
+
+    _check_inputs(k, k, k)
+    B, S, H, _ = k.shape
+    skv_pad = masks_lib.round_up(S, KERNEL_BLOCK_KV)
+    k8 = torch.empty(k.shape, dtype=torch.int8, device=k.device)
+    sk = torch.empty((B * H, skv_pad), dtype=torch.float32, device=k.device)
+    with torch.cuda.device(k.device):
+        rc = kernels.flash_library().landiff_flash_quantize_k(
+            k.data_ptr(), k8.data_ptr(), sk.data_ptr(), B, S, H, skv_pad,
+            torch.cuda.current_stream(k.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K quantization launch failed: cudaError {rc}")
+    return k8, sk
 
 
 def v_block_rows(kv_len: int) -> int:
@@ -473,9 +512,10 @@ def variant_limits(ref, v, *, int8_pv: bool, exp_bf16: bool,
 def visibility_tables(mask_fn, q_len: int, kv_len: int, device: str,
                       kv_major: bool = False):
     """(count, order, kind) int32 tables on `device` (masks.tile_tables):
-    per q tile its visible kv tiles at the forwards' 64 x 64 tiles, or
-    with kv_major per kv tile the q tiles that see it at the backward's
-    64 x 128 tiles (BWD_BLOCK_Q x BWD_BLOCK_KV)."""
+    per q tile its visible kv tiles at the forwards' 192 x 128 tiles
+    (KERNEL_BLOCK_Q x KERNEL_BLOCK_KV), or with kv_major per kv tile the
+    q tiles that see it at the backward's 64 x 128 tiles (BWD_BLOCK_Q x
+    BWD_BLOCK_KV)."""
     bq, bkv = ((BWD_BLOCK_Q, BWD_BLOCK_KV) if kv_major
                else (KERNEL_BLOCK_Q, KERNEL_BLOCK_KV))
     vis = masks_lib.block_visibility(mask_fn, q_len, kv_len, bq, bkv,
@@ -563,8 +603,7 @@ def _launch(q, k, v, mask_fn, scale, int8: bool, int8_pv: bool,
     # this stream
     with torch.cuda.device(dev):
         if int8:
-            k8, sk = quantize_k_positions(k)     # (B, Skv, H, D), (B, Skv, H)
-            sk = sk.contiguous()
+            k8, sk = quantize_k(k)      # (B, Skv, H, D), (B*H, Skv_pad)
             v_in, vsc, v_block, skv_p = v, None, 0, 0
             if int8_pv:
                 v_block = v_block_rows(Skv)
@@ -581,7 +620,9 @@ def _launch(q, k, v, mask_fn, scale, int8: bool, int8_pv: bool,
                 lse.data_ptr(), *tables, B, H, Sq, Skv, nk_table, qscale,
                 *desc, int(exp_bf16), stream)
     if rc != 0:
-        raise RuntimeError(f"flash kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"flash kernel launch failed: error {rc} (a "
+                           "cudaError; 1000 + a CUresult where a TMA tensor "
+                           "map could not be encoded)")
     LAUNCHES[variant_name(int8, int8_pv, exp_bf16)] += 1
     return out, lse
 

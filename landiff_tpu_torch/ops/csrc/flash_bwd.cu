@@ -181,26 +181,6 @@ __device__ __forceinline__ void reduce_dq_half(unsigned char* box,
   }
 }
 
-// floor(a / b) for b >= 1 and |a| < 2^24, through the f32 reciprocal
-// `inv` = 1/b and one exact integer correction (an integer division costs
-// several times as much).
-__device__ __forceinline__ int floordiv_fast(int a, int b, float inv) {
-  int f = __float2int_rd(__int2float_rn(a) * inv);
-  const int r = a - f * b;
-  f += (r < 0) ? -1 : (r >= b ? 1 : 0);
-  return f;
-}
-
-// exp2 on the SFU (ex2.approx.ftz.f32: about 2 ulp; inputs and results
-// below 2^-126 flushed to 0), as p is rounded to bf16 right after. The
-// accurate exp2f makes the kernel 5 % slower at the training shape and
-// 16 % at the TiTok shape (chip_bwd_ablation.py).
-__device__ __forceinline__ float exp2_sfu(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // kVideo: the video masks' algebra on partial tiles; else only the bounds
 // and causal, which keeps the masked path out of the unmasked loop's way
 // (with the frame arithmetic in it the unmasked shape ran slower).

@@ -13,6 +13,12 @@
 //   MN-major (the contraction runs down the rows; imm-trans set):
 //     8-row groups 1024 B apart (SBO); the next k16 slice is +2048 B; a
 //     sub-tile starting n columns in is +2n B within the 128-byte row.
+// int8 tiles of 128-byte rows (the int8_pv V codes, kv contiguous) use
+// the same layout, K-major, the next k32 slice +32 B. int8 K tiles have
+// 64-byte rows (64 codes of one kv position) and take the 64-byte swizzle
+// (CU_TENSOR_MAP_SWIZZLE_64B): chunk c of row r at r * 64 + ((c ^ ((r / 2)
+// % 4)) * 16) from a 512-byte-aligned base; K-major, 8-row groups 512 B
+// apart (SBO), the next k32 slice +32 B (wgmma_desc_sw64).
 
 #pragma once
 
@@ -65,6 +71,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---- TMA and bulk copies
 
+// a 3-D box of a tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // a 4-D box of a tensor map into shared memory, completing on `bar`
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
@@ -98,6 +116,20 @@ __device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map,
       ".bulk_group [%0, {%2, %3}], [%1];\n"
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
          "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// a shared-memory box into the 4-D tensor map's box at (c0 .. c3), in the
+// bulk-async group of the issuing thread; rows out of bounds are not
+// written
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -152,6 +184,14 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
   return d;
 }
 
+// the same for the 64-byte swizzle (int8 K tiles of 64-byte rows)
+__device__ __forceinline__ uint64_t wgmma_desc_sw64(uint32_t addr,
+                                                    uint32_t lbo,
+                                                    uint32_t sbo) {
+  return (wgmma_desc(addr, lbo, sbo) & ~(static_cast<uint64_t>(3) << 62)) |
+         (static_cast<uint64_t>(2) << 62);      // SWIZZLE_64B
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -169,6 +209,11 @@ template <int N>
 __device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 #define LANDIFF_D8(i)                                                   \
@@ -221,6 +266,63 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TransA), "n"(TransB));
 }
 
+// d (64 x 128 f32, 64 per thread) (+)= A (64 x 16, shared) . B (16 x
+// 128, shared); scale_d = 0 overwrites d
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : LANDIFF_D8(0), LANDIFF_D8(8), LANDIFF_D8(16), LANDIFF_D8(24),
+        LANDIFF_D8(32), LANDIFF_D8(40), LANDIFF_D8(48), LANDIFF_D8(56)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
+#define LANDIFF_R8(i)                                                   \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),           \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d (64 x 128 s32) (+)= A (64 x 32 s8, shared, K-major) . B (32 x 128 s8,
+// shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n128_s8(uint32_t (&d)[64],
+                                                 uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : LANDIFF_R8(0), LANDIFF_R8(8), LANDIFF_R8(16), LANDIFF_R8(24),
+        LANDIFF_R8(32), LANDIFF_R8(40), LANDIFF_R8(48), LANDIFF_R8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64 s32) (+)= A (64 x 32 s8 in registers) . B (32 x 64 s8,
+// shared, K-major)
+__device__ __forceinline__ void wgmma_rs_n64_s8(uint32_t (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : LANDIFF_R8(0), LANDIFF_R8(8), LANDIFF_R8(16), LANDIFF_R8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+#undef LANDIFF_R8
 #undef LANDIFF_D8
 
 }  // namespace
@@ -249,20 +351,20 @@ static inline landiff_encode_tiled_fn landiff_encode_tiled() {
   return fn;
 }
 
-// A tensor map with the 128-byte swizzle; dims innermost first, strides
-// in bytes of dims 1.. . Rows out of bounds read as zeros. Returns 0 or
-// the CUresult of the encoding (-1: no entry point).
-static inline int landiff_tensor_map(CUtensorMap* map,
-                                     CUtensorMapDataType type, int rank,
-                                     const void* base, const cuuint64_t* dims,
-                                     const cuuint64_t* strides,
-                                     const cuuint32_t* box) {
+// A tensor map with the given swizzle (by default 128 bytes); dims
+// innermost first, strides in bytes of dims 1.. . Rows out of bounds read
+// as zeros. Returns 0 or the CUresult of the encoding (-1: no entry
+// point).
+static inline int landiff_tensor_map(
+    CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   landiff_encode_tiled_fn encode = landiff_encode_tiled();
   if (encode == nullptr) return -1;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return static_cast<int>(encode(
       map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }

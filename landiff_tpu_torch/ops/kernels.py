@@ -83,7 +83,13 @@ def build(names=None) -> dict[str, Path]:
 @functools.lru_cache(maxsize=None)
 def flash_library() -> ctypes.CDLL:
     """The flash-forward library with its C signatures declared."""
-    lib = ctypes.CDLL(str(build(["flash_fwd"])["flash_fwd"]))
+    return bind_flash_fwd(build(["flash_fwd"])["flash_fwd"])
+
+
+def bind_flash_fwd(path: Path) -> ctypes.CDLL:
+    """A library built from flash_fwd.cu, at `path`, with its C signatures
+    declared."""
+    lib = ctypes.CDLL(str(path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.landiff_flash_fwd_bf16.argtypes = (
         [ptr] * 8 + [i32] * 5 + [f32] + [i32] * 6 + [ptr])
@@ -95,6 +101,10 @@ def flash_library() -> ctypes.CDLL:
     lib.landiff_ex2_bf16x2.restype = i32
     lib.landiff_ex2_rate.argtypes = [ptr, i32, i32, i32, ptr]
     lib.landiff_ex2_rate.restype = i32
+    lib.landiff_flash_quantize_k.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.landiff_flash_quantize_k.restype = i32
+    lib.landiff_flash_fwd_smem_bytes.argtypes = [i32, i32]
+    lib.landiff_flash_fwd_smem_bytes.restype = i32
     return lib
 
 
@@ -122,7 +132,11 @@ def bind_flash_bwd(path: Path) -> ctypes.CDLL:
 
 def ptxas_report(name: str, entry: str) -> dict:
     """Registers, spill bytes and barriers of the kernel whose mangled
-    name contains `entry`, from the -Xptxas -v log of library `name`."""
+    name contains `entry`, from the -Xptxas -v log of library `name`;
+    "notes": ptxas's other lines that name that kernel (such as C7519, a
+    wgmma fence it added), and "warnings": those of its lines, and of its
+    own report, that warn or say "Potential Performance Loss" (a wgmma
+    serialized)."""
     import re
 
     text = library_path(name).with_suffix(".log").read_text()
@@ -131,13 +145,19 @@ def ptxas_report(name: str, entry: str) -> dict:
     if not found:
         raise RuntimeError(f"no ptxas report for {entry} in {name}")
     b = found[0]
+    mangled = re.search(r"'([^']+)'", b.split("\n", 1)[0]).group(1)
+    notes = [line.strip() for line in text.splitlines()
+             if mangled in line and "Compiling entry" not in line
+             and "Function properties" not in line]
+    warns = lambda lines: [line.strip() for line in lines
+                           if "arning" in line or "Performance Loss" in line]
     num = lambda pat: int(re.search(pat, b).group(1))
     return {"registers": num(r"Used (\d+) registers"),
             "spill_stores": num(r"(\d+) bytes spill stores"),
             "spill_loads": num(r"(\d+) bytes spill loads"),
             "barriers": num(r"used (\d+) barriers"),
-            "warnings": [line.strip() for line in b.splitlines()
-                         if "arning" in line or "Performance Loss" in line]}
+            "notes": notes,
+            "warnings": warns(b.splitlines()) + warns(notes)}
 
 
 @functools.lru_cache(maxsize=None)

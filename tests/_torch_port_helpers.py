@@ -247,3 +247,24 @@ def assert_close(got: torch.Tensor, want, *, atol: float, rtol: float):
     np.testing.assert_allclose(got.detach().float().numpy(),
                                np.asarray(want, np.float32),
                                atol=atol, rtol=rtol)
+
+
+def check_ablation_variant(kernel: str, variant: str, names) -> None:
+    """chip_ablation.py edits a kernel source's text: the edits of
+    `variant` (of kernel "fwd" or "bwd") each match the source exactly
+    once and change it, and the tool's table for that kernel is `names`
+    and "base", so an edit of the kernel that breaks a variant shows on
+    the CPU and not first on the card."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_ablation.py"
+    spec = importlib.util.spec_from_file_location("chip_ablation", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (tool.CSRC / tool.SOURCES[kernel]).read_text()
+    edits = tool.VARIANTS[kernel][variant]
+    assert edits and all(src.count(old) == 1 for old, _ in edits)
+    assert (tool.variant_source(kernel, variant)
+            != tool.variant_source(kernel, "base"))
+    assert set(tool.VARIANTS[kernel]) == {"base", *names}

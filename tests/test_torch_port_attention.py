@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_helpers import assert_close, randn
+from _torch_port_helpers import (assert_close, check_ablation_variant,
+                                 randn)
 from landiff_tpu.ops import attention as JA
 from landiff_tpu.ops import masks as JM
 from landiff_tpu_torch.ops import attention as TA
@@ -209,3 +210,93 @@ def test_kernel_error_counts_bf16_steps_at_the_largest_value():
     assert steps == 2.0
     want = math.hypot(2 ** -9, 2 ** -8) / ref.float().norm().item()
     assert rel_rms == pytest.approx(want, rel=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# at the CUDA kernel's tiles (KERNEL_BLOCK_Q x KERNEL_BLOCK_KV = 192 x 128)
+
+# a layout whose masks make partial tiles at 128 rows (seq_len 160)
+J_MID = JM.VideoMaskLayout(num_frames=3, tokens_per_frame=40,
+                           iframe_tokens=24, pframe_tokens=8)
+T_MID = TM.VideoMaskLayout(num_frames=3, tokens_per_frame=40,
+                           iframe_tokens=24, pframe_tokens=8)
+_MID_MASKS = {"none": (None, None), "causal": (JM.causal, TM.causal),
+              "decoder": (JM.video_decoder_mask(J_MID),
+                          TM.video_decoder_mask(T_MID)),
+              "encoder": (JM.video_encoder_mask(J_MID),
+                          TM.video_encoder_mask(T_MID))}
+
+
+# (mask, Sq, Skv): Sq > 128, so JAX's int8 rule takes the int8 kernel at
+# block_q = 128; Skv 200 is a ragged second kv tile; decoder rows past the
+# layout's seq_len (160) see nothing
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("name,Sq,Skv", [("none", 130, 200),
+                                         ("causal", 160, 160),
+                                         ("decoder", 170, 170)])
+def test_plain_flash_at_the_kernel_tile_matches_jax_interpret(int8, name, Sq,
+                                                              Skv):
+    """The plain exact and int8 forwards at their default kv tile (the
+    kernel's, KERNEL_BLOCK_KV) against flash_attention with the Pallas
+    kernels in interpret mode at that tile (block_q 128), bf16: the
+    tolerances of the 16-row tests above."""
+    jm, tm = _MID_MASKS[name]
+    q, k, v = _qkv(8, Sq, Skv, D=64)
+    fn = jax.jit(functools.partial(
+        JA.flash_attention, mask_fn=jm, block_q=128,
+        block_kv=TA.KERNEL_BLOCK_KV, interpret=True, int8_scores=int8,
+        exp_bf16=False, int8_pv=False, return_lse=True))
+    want, want_lse = fn(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    plain = TA.flash_int8_plain if int8 else TA.flash_exact_plain
+    got, lse = plain(*(torch.from_numpy(a).to(torch.bfloat16)
+                       for a in (q, k, v)), mask_fn=tm)
+    assert_close(got.float(), np.asarray(want.astype(jnp.float32)),
+                 atol=1e-3, rtol=2 ** -8)
+    assert_close(lse, np.asarray(want_lse), atol=1e-4, rtol=1e-5)
+    if name == "decoder":                      # rows that see nothing
+        assert float(got[:, T_MID.seq_len:].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("name", ["none", "causal", "decoder", "encoder"])
+def test_tile_tables_at_the_kernel_tile_match_the_jax_construction(name):
+    """attention.visibility_tables as it builds them for the forward
+    kernel (192 x 128 tiles, q-major) against JAX's block_visibility at
+    those tiles and the loops of flash_attention (:537-545): per q tile
+    the visible kv tiles in ascending order and their kinds."""
+    big = dict(num_frames=3, tokens_per_frame=150, iframe_tokens=70,
+               pframe_tokens=20)
+    jm, tm = {"none": (None, None), "causal": (JM.causal, TM.causal),
+              "decoder": (JM.video_decoder_mask(JM.VideoMaskLayout(**big)),
+                          TM.video_decoder_mask(TM.VideoMaskLayout(**big))),
+              "encoder": (JM.video_encoder_mask(JM.VideoMaskLayout(**big)),
+                          TM.video_encoder_mask(TM.VideoMaskLayout(**big)))
+              }[name]
+    S, bq, bkv = 600, TA.KERNEL_BLOCK_Q, TA.KERNEL_BLOCK_KV
+    assert (bq, bkv) == (192, 128)
+    if name == "none":   # the kernel walks every tile, without tables
+        assert TA._mask_args(None, S, S, "cpu", False)[0] == (None,) * 3
+        return
+    vis = JM.block_visibility(jm, S, S, bq, bkv)
+    np.testing.assert_array_equal(TM.block_visibility(tm, S, S, bq, bkv),
+                                  vis)
+    if name != "causal":
+        assert {0, 1, 2} <= set(np.unique(vis))
+    count, order, kind = (t.numpy() for t in
+                          TA.visibility_tables(tm, S, S, "cpu"))
+    assert count.shape == (4,) and order.shape == kind.shape == (4, 5)
+    for r in range(vis.shape[0]):
+        ids = np.nonzero(vis[r])[0]
+        assert count[r] == len(ids)
+        np.testing.assert_array_equal(order[r, :len(ids)], ids)
+        np.testing.assert_array_equal(kind[r, :len(ids)], vis[r, ids])
+
+
+_FWD_ABLATIONS = ["exp2f", "no_exp2", "no_int8_scale", "no_overlap",
+                  "always_rescale", "stages_2", "stages_4", "no_mask"]
+
+
+@pytest.mark.parametrize("variant", _FWD_ABLATIONS)
+def test_fwd_ablation_variants_still_apply_to_the_kernel_source(variant):
+    """chip_ablation.py --kernel fwd: each edit of flash_fwd.cu's text
+    matches the source exactly once."""
+    check_ablation_variant("fwd", variant, _FWD_ABLATIONS)

@@ -69,10 +69,18 @@ _CASES = [(None, 256, 256), (None, 300, 187), ("causal", 333, 333),
 _MASKS = {None: None, "causal": TM.causal,
           "decoder": TM.video_decoder_mask(_LAYOUT),
           "encoder": TM.video_encoder_mask(_LAYOUT)}
+# beside them, shapes that straddle the forward's 192 x 128 tiles: Skv mod
+# 128 = 0, 64, 112, 1; Sq mod 128 = 0, 1, 127 and Sq mod 192 = 0, 1, 191;
+# Sq != Skv both ways; and two whole q tiles past the decoder layout,
+# which see no kv tile at all
+_FWD_CASES = _CASES + [
+    (None, 128, 384), (None, 129, 320), (None, 255, 240), (None, 384, 129),
+    (None, 1, 130), (None, 193, 192), (None, 383, 448), ("causal", 513, 513),
+    ("decoder", _LAYOUT.seq_len + 256, _LAYOUT.seq_len + 256)]
 
 
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("mask,Sq,Skv", _CASES)
+@pytest.mark.parametrize("mask,Sq,Skv", _FWD_CASES)
 def test_kernel_matches_plain(dev, int8, mask, Sq, Skv):
     mf = _MASKS[mask]
     q, k, v = _qkv(dev, 2, Sq, Skv, 3)
@@ -98,6 +106,43 @@ _VARIANTS = [(True, True, False), (True, True, True), (True, False, True),
              (False, False, True)]
 
 
+@pytest.mark.parametrize("int8", [False, True])
+def test_kernel_matches_plain_at_the_titok_encoder_mask(dev, int8):
+    """The video encoder mask at the full TiTok layout (18,768 positions),
+    B * H = 2: until now held only at small layouts."""
+    from landiff_tpu_torch.config import TiTokConfig
+
+    c = TiTokConfig()
+    layout = TM.VideoMaskLayout(num_frames=c.temporal_size,
+                                tokens_per_frame=c.frame_tokens,
+                                iframe_tokens=c.iframe_latent_tokens,
+                                pframe_tokens=c.pframe_latent_tokens)
+    mf = TM.video_encoder_mask(layout)
+    S = layout.seq_len
+    q, k, v = _qkv(dev, 1, S, S, 2, seed=7)
+    fn, plain = ((TA.flash_fwd_int8, TA.flash_int8_plain) if int8
+                 else (TA.flash_fwd_exact, TA.flash_exact_plain))
+    out, lse = fn(q, k, v, mask_fn=mf)
+    ref, ref_lse = plain(q, k, v, mask_fn=mf)
+    steps, rel_rms = TA.kernel_error(out, ref)
+    print("titok encoder", int8, "steps", steps, "rms", rel_rms)
+    assert steps <= _TOL_STEPS and rel_rms <= _TOL_RMS, (steps, rel_rms)
+    assert (lse - ref_lse).abs().max().item() <= _LSE_TOL
+
+
+@pytest.mark.parametrize("S", [1, 130, 256])
+def test_k_quantization_prologue_matches_plain(dev, S):
+    """The int8 forward's prologue kernel (attention.quantize_k): the K
+    codes and the padded (B*H, Skv_pad) scales exactly as the plain
+    version gives them, a row of zeros included."""
+    _, k, _ = _qkv(dev, 2, S, S, 3, seed=6)
+    k[1, 0, 2] = 0.0
+    got, want = TA.quantize_k(k), TA.quantize_k_plain(k)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
 def test_card_exp2_is_within_its_bound(dev):
     """ex2.approx.ftz.bf16x2 on every bf16 input: within 2^-7 relative of
     2^x where 2^x is normal, 1 at 0, 0 at -inf."""
@@ -115,11 +160,11 @@ def _max_abs(a, b):
 
 
 @pytest.mark.parametrize("int8,int8_pv,exp_bf16", _VARIANTS)
-@pytest.mark.parametrize("mask,Sq,Skv", _CASES)
+@pytest.mark.parametrize("mask,Sq,Skv", _FWD_CASES)
 def test_variant_kernel_matches_plain(dev, int8, int8_pv, exp_bf16, mask, Sq,
                                       Skv):
     """The int8_pv and exp_bf16 variants against their plain versions at
-    the kernel's tile (64) and V block (v_block_rows), with the base limits
+    the kernel's kv tile (128) and V block (v_block_rows), with the base limits
     widened by what each variant's arithmetic moves
     (attention.variant_limits): the exp_bf16 ones both against the plain
     version with the card's own exp2 and against the true 2^x."""
@@ -159,6 +204,22 @@ def test_variant_kernel_matches_plain(dev, int8, int8_pv, exp_bf16, mask, Sq,
         assert c_lse <= c["lse"], c_lse
     if mask == "decoder" and Sq > _LAYOUT.seq_len:   # rows that see nothing
         assert out[:, _LAYOUT.seq_len:].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("gate", ["int8", "int8_pv", "w8a8"])
+def test_quantized_dit_drift_on_the_card(dev, gate):
+    """The drift gates of tests/test_torch_port_drift.py in bf16 through
+    the kernels (diffusion/drift.py, JAX's thresholds and the share of
+    attention's contribution); each quantized run launches only its
+    variant, once per layer and step (3 steps x 3 layers)."""
+    from landiff_tpu_torch.diffusion import drift
+
+    res = drift.run_gate(gate, device="cuda", dtype=torch.bfloat16)
+    print(gate, res)
+    assert res["passed"], res
+    want = {"int8": {"flash_fwd_int8": 9},
+            "int8_pv": {"flash_fwd_int8_pv": 9}, "w8a8": {}}[gate]
+    assert res["launches"] == want, res["launches"]
 
 
 def test_w8a8_matmul_on_the_card(dev):

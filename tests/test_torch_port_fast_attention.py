@@ -248,3 +248,25 @@ def test_flash_attention_reads_the_three_knobs(monkeypatch):
     assert TA.variant_name(True, True, True) == "flash_fwd_int8_pv_exp_bf16"
     assert set(TA.LAUNCHES) == set(TA.FWD_VARIANTS) | {"flash_bwd"}
     assert len(TA.FWD_VARIANTS) == 6
+
+
+@pytest.mark.parametrize("kv_len", [1, 127, 128, 129, 1000, 1025, 17776,
+                                    18768])
+def test_v_block_holds_whole_kernel_tiles(kv_len):
+    """int8_pv's V scale is per block of v_block_rows (a multiple of 128,
+    JAX's at its default tile): every kernel kv tile (KERNEL_BLOCK_KV) lies
+    inside one V block, as the kernel's single scale per tile and
+    _flash_plain's check require."""
+    v_block = TA.v_block_rows(kv_len)
+    assert v_block % TA.KERNEL_BLOCK_KV == 0 and v_block % 128 == 0
+    assert 128 % TA.KERNEL_BLOCK_KV == 0
+    g = torch.Generator().manual_seed(kv_len)
+    q, k, v = (torch.randn((1, 3, 1, 64), generator=g) for _ in range(3))
+    if kv_len <= 1025:    # the plain version takes it at its default tile
+        k, v = (torch.randn((1, kv_len, 1, 64), generator=g)
+                for _ in range(2))
+        out, _ = TA.flash_int8_plain(q, k, v, int8_pv=True)
+        assert bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match="inside one V block"):
+        TA.flash_int8_plain(q, q, q, int8_pv=True, v_block=128,
+                            block_kv=256)

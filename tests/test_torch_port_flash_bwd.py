@@ -13,8 +13,6 @@ the XLA oracle, which neither pre-rounds q nor takes the saved lse: 3e-2
 of the largest gradient. Rows that see nothing give exactly 0."""
 
 import functools
-import importlib.util
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -22,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_helpers import (assert_close, fast_jit, randn,
-                                 stage2_params)
+from _torch_port_helpers import (assert_close, check_ablation_variant,
+                                 fast_jit, randn, stage2_params)
 from landiff_tpu.ops import attention as JA
 from landiff_tpu.ops import masks as JM
 from landiff_tpu_torch import config as tcfg
@@ -263,29 +261,15 @@ def test_dq_workspace_cast_is_the_identity(Sq):
     assert torch.equal(got16, T(want).bfloat16())
 
 
-def _ablation_tool():
-    path = Path(__file__).resolve().parents[1] / "chip_bwd_ablation.py"
-    spec = importlib.util.spec_from_file_location("chip_bwd_ablation", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 _ABLATIONS = ["exp2f", "no_exp2", "no_reduce", "no_dq_product",
               "no_ds_store", "no_video_mask"]
 
 
 @pytest.mark.parametrize("variant", _ABLATIONS)
 def test_ablation_variants_still_apply_to_the_kernel_source(variant):
-    """chip_bwd_ablation.py edits flash_bwd.cu's text: each of its edits
-    matches the source exactly once, so an edit of the kernel that breaks
-    a variant shows here and not first on the card."""
-    tool = _ablation_tool()
-    src = (tool.CSRC / "flash_bwd.cu").read_text()
-    edits = tool.VARIANTS[variant]
-    assert edits and all(src.count(old) == 1 for old, _ in edits)
-    assert tool.variant_source(variant) != tool.variant_source("base")
-    assert set(tool.VARIANTS) == {"base", *_ABLATIONS}
+    """chip_ablation.py --kernel bwd: each edit of flash_bwd.cu's text
+    matches the source exactly once."""
+    check_ablation_variant("bwd", variant, _ABLATIONS)
 
 
 # ---------------------------------------------------------------------------
