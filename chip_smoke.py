@@ -10,6 +10,8 @@
     python3 chip_smoke.py --only stage1_batch  # batched decoding against
                                                # single calls at full
                                                # width, bf16 and f32
+    python3 chip_smoke.py --only f32 | ckpt | long_video | train
+                                       # one of the phases 3c, 8d, 8c, 9
 
 Phases, in order; any failure exits nonzero before the last line:
   1. device:  the card's name and power limit; TF32 off for matmuls and
@@ -46,6 +48,12 @@ Phases, in order; any failure exits nonzero before the last line:
               the bf16 weights, at JAX's thresholds and, for attention,
               under 5 % of attention's own contribution; each quantized run
               launches only its variant, 9 times.
+  3c. f32:    the f32 kernels (csrc/flash_f32.cu: exact and int8-score
+              forwards, the backward with its prologue) against their
+              plain versions in f32 (attention.F32_TOL) at the training
+              shape (B=1 S=17,776 H=30) and the TiTok decoder shape, timed
+              beside SDPA in f32 with their bounds at the CUDA cores' f32
+              rate; ptxas's registers and spills (none allowed).
   4. build the pipeline: infer_video.build_pipeline at the full width of
               LanDiffConfig() (random weights from a seed, zero leaves
               filled, depth not cut), both stages on the card.
@@ -72,6 +80,18 @@ Phases, in order; any failure exits nonzero before the last line:
               at 50 steps: 1,218 valid codes, the video's shape and range,
               28 model calls (22 with two rows, 6 with one), 45 * 28 + 12
               int8_pv launches and no other forward.
+  8c. long video: a two-segment request (num_frames 26) through
+              infer_video.generate: 2 x 1,218 codes, 19 latent frames, 73
+              frames at 480 x 720, finite, in [0, 1]; seconds per phase and
+              per segment; 2 * (12 + 45 * steps) int8 launches.
+  8d. ckpt:   the pipelines are freed; a synthetic checkpoint tree of
+              LanDiffConfig() at full width, depth cut (CKPT_DEPTH), in the
+              release's layout and names (ckpt/synth.py), loaded through
+              build_pipeline(ckpt_dir=...) in f32: every loaded tensor
+              equal to the written one after the layout change, then one
+              request from it in f32 (the f32 int8 forward at the DiT
+              shape, the exact one at the TiTok shape); load seconds and
+              GB/s.
   9. train dit: the inference pipelines are freed; then the trainer's entry
               point (training.train.train) takes three steps of the
               stage-2 ControlNet step at full width in bf16 on synthesized
@@ -81,7 +101,16 @@ Phases, in order; any failure exits nonzero before the last line:
               parameters changed, the main and semantic parameters
               untouched; per step the backward kernel launches 44 times,
               the exact forward 88 (remat), the int8 forward 13. Then one
-              step by hand for the forward / backward / optimizer split.
+              step by hand for the forward / backward / optimizer split,
+              and the remat_save_attn comparison: the same step without
+              LANDIFF_REMAT_SAVE_ATTN twice and with it once: 88 -> 44
+              exact forwards, equal loss, gradients within ten times the
+              two plain runs' own spread (dq's reduce-adds) and 1e-2,
+              seconds and peak memory of each.
+  9b. train f32: the same trainer in f32 (its default, no --bf16): two
+              steps and a resumed third; per step 44 f32 backward, 100 f32
+              exact forward (88 + the TiTok decoder's 12) and one f32 int8
+              forward launches.
   10. train lm: two steps of the stage-1 step at full width (GPT 24 x
               2,048, f32); losses finite, parameters changed, no flash
               launch.
@@ -155,9 +184,12 @@ REPLACES_FWD = {
            "_flash_kernel_cached",
     True: "landiff_tpu/ops/attention.py:264 _flash_kernel_cached_i8"}
 
-# NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
+# NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit); PEAK_F32
+# is the CUDA cores' f32 rate, the rate of an f32-accurate product (the
+# f32 kernels are FFMA on the CUDA cores, not TF32)
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 # f32 exp2 on the SFUs: 16 results per SM per clock (CUDA C++ Programming
 # Guide, arithmetic instruction throughput, compute capability 9.0), 132
@@ -359,6 +391,230 @@ def kernel_case(name, B, S, H, mask_fn, int8, seed, exp2_rate, int8_pv=False,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 3c: the f32 kernels (csrc/flash_f32.cu) at the main-path shapes,
+# held to their plain versions in f32 within attention.F32_TOL
+
+
+def f32_fwd_case(name, B, S, H, mask_fn, int8, seed, exp2_rate):
+    import torch
+    import torch.nn.functional as F
+
+    from landiff_tpu_torch.ops import attention as A
+    from landiff_tpu_torch.ops import masks as M
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D = 64
+    q = torch.randn((B, S, H, D), generator=g, device=dev) * 1.5
+    k = torch.randn((B, S, H, D), generator=g, device=dev)
+    v = torch.randn((B, S, H, D), generator=g, device=dev)
+    fn = A.flash_fwd_int8 if int8 else A.flash_fwd_exact
+    plain = A.flash_int8_plain if int8 else A.flash_exact_plain
+    out, lse = fn(q, k, v, mask_fn=mask_fn)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: fn(q, k, v, mask_fn=mask_fn), 2, repeats=3)
+    t0 = time.perf_counter()
+    ref, ref_lse = plain(q, k, v, mask_fn=mask_fn)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    max_rel, rel_rms = A.kernel_error_rel(out, ref)
+    lse_err = (lse - ref_lse).abs().max().item()
+    tol = A.F32_TOL["fwd"]
+    faults = [f"{what}" for ok, what in (
+        (bool(torch.isfinite(out).all()), "output not finite"),
+        (max_rel <= tol["max_rel"], f"max |err| / max |plain| {max_rel}"),
+        (rel_rms <= tol["rel_rms"], f"relative RMS error {rel_rms}"),
+        (lse_err <= tol["lse"], f"lse error {lse_err}")) if not ok]
+    prologue = None
+    if int8:
+        got, want = A.quantize_k(k), A.quantize_k_plain(k)
+        exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        if not exact:
+            faults.append("K quantization prologue differs")
+        prologue = {"ms": cuda_ms(lambda: A.quantize_k(k), 5),
+                    "exact": exact}
+        del got, want
+    library_ms = None   # SDPA in f32 (the exact function; int8 has none)
+    if not int8:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        attn_mask = None
+        if mask_fn is not None:
+            i = torch.arange(S, device=dev)
+            attn_mask = mask_fn(i[:, None], i[None, :])
+        try:
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=attn_mask), 2, repeats=3)
+        except (RuntimeError, torch.OutOfMemoryError) as e:
+            log(json.dumps({"library_refused": name, "error": str(e)[:200]}))
+        del attn_mask
+    visible = M.visible_count(mask_fn, S, S, device="cuda")
+    flops = 4.0 * B * H * visible * D
+    times = {"f32 cores": flops / PEAK_F32,
+             "exp2": B * H * visible / exp2_rate,
+             "bytes": (4 * B * S * H * D * 4 + B * H * S * 4) / PEAK_BYTES}
+    if int8:   # q.k in int8 at the tensor cores' rate: a lower bound
+        times = {"f32 cores": flops / 2 / PEAK_F32,
+                 "tensor cores": flops / 2 / PEAK_INT8,
+                 "exp2": times["exp2"], "bytes": times["bytes"]}
+    bound_s, bound_by, unit = least_time(times)
+    kname = A.variant_name(int8, f32=True)
+    res = {"case": name, "shape": [B, S, H, D], "dtype": "float32",
+           "visible_pairs": visible, "max_abs_err": (out - ref).abs().max()
+           .item(), "max_rel_err": max_rel, "rel_rms_err": rel_rms,
+           "lse_max_abs_err": lse_err, "limits": tol, "ms": ms,
+           "plain_ms": plain_ms, "k_quantization": prologue,
+           "library_ms": library_ms, "bound_ms": bound_s * 1e3,
+           "bound_by": bound_by, "bound_unit": unit,
+           "bound_terms_ms": {u: t * 1e3 for u, t in times.items()},
+           "tflops": flops / (ms * 1e-3) / 1e12}
+    log(json.dumps({"kernel": kname, **res}))
+    res["name"] = kname
+    res["faults"] = [f"{kname} {name}: {f}" for f in faults]
+    del q, k, v, out, ref, lse, ref_lse
+    torch.cuda.empty_cache()
+    return res
+
+
+def f32_bwd_case(name, B, S, H, mask_fn, seed, exp2_rate):
+    import torch
+    import torch.nn.functional as F
+
+    from landiff_tpu_torch.ops import attention as A
+    from landiff_tpu_torch.ops import masks as M
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D = 64
+    r = lambda: torch.randn((B, S, H, D), generator=g, device=dev)
+    q, k, v, do = r() * 1.5, r(), r(), r()
+    out, lse = A.flash_fwd_exact(q, k, v, mask_fn=mask_fn)
+    call = lambda: A.flash_bwd(q, k, v, out, lse, do, mask_fn=mask_fn)
+    got = call()
+    torch.cuda.synchronize()
+    again = call()
+    ms = cuda_ms(call, 1, repeats=3)
+    t0 = time.perf_counter()
+    want = A.flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mask_fn)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    tol = A.F32_TOL["bwd"]
+    errs, faults = {}, []
+    prep_ms, prep_err = bwd_prep_check(name, q, out, lse, do, faults)
+    for tname, gt, wt in zip(("dq", "dk", "dv"), got, want):
+        max_rel, rel_rms = A.kernel_error_rel(gt, wt)
+        errs[tname] = {"max_abs_err": (gt - wt).abs().max().item(),
+                       "max_rel_err": max_rel, "rel_rms_err": rel_rms}
+        for ok, what in (
+                (bool(torch.isfinite(gt).all()), "not finite"),
+                (max_rel <= tol["max_rel"], f"max |err| / max {max_rel}"),
+                (rel_rms <= tol["rel_rms"], f"relative RMS {rel_rms}")):
+            if not ok:
+                faults.append(f"flash_bwd_f32 {name} {tname}: {what}")
+    for tname, a, b in zip(("dk", "dv"), got[1:], again[1:]):
+        if not torch.equal(a, b):
+            faults.append(f"flash_bwd_f32 {name}: {tname} differs "
+                          "between runs")
+    dq_rel, dq_rms = A.kernel_error_rel(again[0], got[0])
+    spread = {"dq_max_rel": dq_rel, "dq_rel_rms": dq_rms,
+              "dq_share_of_elements_differing":
+                  (again[0] != got[0]).float().mean().item()}
+    del again, want
+    library_ms = None
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    attn_mask = None
+    if mask_fn is not None:
+        i = torch.arange(S, device=dev)
+        attn_mask = mask_fn(i[:, None], i[None, :])
+    try:
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask)
+        dot = do.transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True), 1, repeats=3)
+        del o
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        log(json.dumps({"library_refused": name, "error": str(e)[:200]}))
+    del qt, kt, vt, attn_mask
+    visible = M.visible_count(mask_fn, S, S, device="cuda")
+    flops = 10.0 * B * H * visible * D
+    times = {"f32 cores": flops / PEAK_F32,
+             "exp2": B * H * visible / exp2_rate,
+             "bytes": (8 * B * S * H * D * 4 + B * H * S * 4) / PEAK_BYTES}
+    bound_s, bound_by, unit = least_time(times)
+    res = {"case": name, "shape": [B, S, H, D], "dtype": "float32",
+           "visible_pairs": visible, "errors": errs, "limits": tol,
+           "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "run_to_run": spread, "ms": ms, "plain_ms": plain_ms,
+           "prep_ms": prep_ms, "prep_delta_max_abs_err": prep_err,
+           "library_ms": library_ms, "bound_ms": bound_s * 1e3,
+           "bound_by": bound_by, "bound_unit": unit,
+           "bound_terms_ms": {u: t * 1e3 for u, t in times.items()},
+           "tflops": flops / (ms * 1e-3) / 1e12, "faults": faults}
+    log(json.dumps({"kernel": "flash_bwd_f32", **res}))
+    del q, k, v, do, out, lse, got
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_f32(dec, exp2_rate):
+    """Each f32 kernel against its plain version at the training shape
+    (B=1 S=17,776 H=30 D=64) and the TiTok decoder shape, timed beside
+    SDPA in f32 and its bound; ptxas's registers and spills."""
+    from landiff_tpu_torch.ops import kernels
+
+    results = {}
+    for int8 in (False, True):
+        dit = f32_fwd_case("dit_train", 1, 17776, 30, None, int8, seed=41,
+                           exp2_rate=exp2_rate)
+        titok = f32_fwd_case("titok_dec", 1, 18768, 12, dec, int8, seed=42,
+                             exp2_rate=exp2_rate)
+        results[dit["name"]] = (dit, titok)
+    train = f32_bwd_case("dit_train", 1, 17776, 30, None, seed=43,
+                         exp2_rate=exp2_rate)
+    titok = f32_bwd_case("titok_dec", 1, 18768, 12, dec, seed=44,
+                         exp2_rate=exp2_rate)
+    results["flash_bwd_f32"] = (train, titok)
+    faults = [f for a, b in results.values() for f in a["faults"]
+              + b["faults"]]
+    check(not faults, "f32 kernel vs plain: " + "; ".join(faults))
+    ptxas = {e: kernels.ptxas_report("flash_f32", e)
+             for entries in F32_PTXAS.values() for e in entries}
+    for e, rep_ in ptxas.items():
+        check(rep_["spill_stores"] == 0 and rep_["spill_loads"] == 0,
+              f"{e} spills: {rep_}")
+    log(json.dumps({"phase": "f32_ptxas", "ptxas": ptxas}))
+    results["ptxas"] = ptxas
+    return results
+
+
+F32_PTXAS = {"flash_fwd_exact_f32": ("flash_fwd_f32_kernelILb0",),
+             "flash_fwd_int8_f32": ("flash_fwd_f32_kernelILb1",
+                                    "quantize_k_f32"),
+             "flash_bwd_f32": ("flash_bwd_f32_kernel", "bwd_prep_f32")}
+
+
+def f32_entry(name, dit, titok, launches, ptxas):
+    """A row of the kernels line for an f32 kernel."""
+    ptxas = {e: ptxas[e] for e in F32_PTXAS[name]}
+    replaces = {"flash_fwd_exact_f32": REPLACES_FWD[False] + " (f32 refs)",
+                "flash_fwd_int8_f32": REPLACES_FWD[True] + " (f32 refs)",
+                "flash_bwd_f32": "landiff_tpu/ops/attention.py:658 "
+                                 "_flash_bwd_fused_kernel (f32 refs)"}[name]
+    return {"name": name, "route": "cuda",
+            "source": "landiff_tpu_torch/ops/csrc/flash_f32.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": dit["max_abs_err"], "ms": dit["ms"],
+            "plain_ms": dit["plain_ms"], "bound_ms": dit["bound_ms"],
+            "bound_by": dit["bound_by"], "library_ms": dit["library_ms"],
+            "bound_unit": dit["bound_unit"],
+            "bound_terms_ms": dit["bound_terms_ms"], "tflops": dit["tflops"],
+            "ptxas": ptxas, "shape": dit["shape"], "dtype": "float32",
+            "titok_dec": {k: titok[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err")}}
+
+
 def titok_decoder_mask():
     from landiff_tpu_torch.config import TiTokConfig
     from landiff_tpu_torch.ops import masks as M
@@ -378,6 +634,7 @@ def phase_kernels():
     results = phase_fwd_kernels(dec, rates)
     results["flash_bwd"] = phase_bwd_kernel(dec, rates[False])
     results["dec_mask"] = dec
+    results["rates"] = rates
     return results
 
 
@@ -461,7 +718,7 @@ ROUTE_KNOBS = ("LANDIFF_FAST", "LANDIFF_ATTN_INT8", "LANDIFF_ATTN_INT8_PV",
                "LANDIFF_ATTN_EXP_BF16", "LANDIFF_FUSED_ADALN",
                "LANDIFF_DIT_INT8", "LANDIFF_DECODE_INT8",
                "LANDIFF_DECODE_INT4", "LANDIFF_STEP_REUSE",
-               "LANDIFF_CFG_WINDOW")
+               "LANDIFF_CFG_WINDOW", "LANDIFF_REMAT_SAVE_ATTN")
 
 
 class knobs:
@@ -473,7 +730,8 @@ class knobs:
 
     def __enter__(self):
         self.saved = {k: os.environ.pop(k, None) for k in ROUTE_KNOBS}
-        os.environ.update(self.env)
+        os.environ.update({k: v for k, v in self.env.items()
+                           if v is not None})
 
     def __exit__(self, *exc):
         for k, v in self.saved.items():
@@ -1201,6 +1459,179 @@ FAST_STEPS = 50
 FAST_PV_LAUNCHES = 45 * 28 + 12
 
 
+def phase_long_video(cfg, llm, dif, steps):
+    """A two-segment request (num_frames 26) through infer_video.generate
+    at full width and depth: 2 x 1,218 valid codes, 19 latent frames (13 +
+    (13 - 7)), one streaming decode to 73 frames at 480 x 720, finite, in
+    [0, 1]; seconds per phase and per segment. Per segment the int8
+    forward launches 45 * steps times, and 12 more for its TiTok decode."""
+    import torch
+
+    from landiff_tpu_torch.pipeline import infer_video
+
+    saved = llm.sample_cfg
+    llm.sample_cfg = dataclasses.replace(saved, num_frames=26, seed=3)
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = infer_video.generate(llm, dif, "a kite over a windy hill",
+                                   seed=5)
+        launches = read_counts()
+    finally:
+        llm.sample_cfg = saved
+    codes, video, latent = res["codes"], res["video"], res["latent"]
+    seg = cfg.tokenizer.titok.latent_tokens
+    check(codes.shape == (2 * seg,), f"codes {codes.shape}")
+    check_codes(codes[:seg], cfg, "long video, segment 0")
+    check_codes(codes[seg:], cfg, "long video, segment 1")
+    check(latent.shape == (1, 19, 16, 60, 90), f"latent {latent.shape}")
+    check(bool(np.isfinite(latent).all()), "latent not finite")
+    check(video.shape == (1, 3, 73, 480, 720), f"video {video.shape}")
+    check(bool(np.isfinite(video).all()), "video not finite")
+    check(video.min() >= 0.0 and video.max() <= 1.0, "video range")
+    want = 2 * (12 + 45 * steps)
+    check(launches["flash_fwd_int8"] == want,
+          f"int8 launches {launches['flash_fwd_int8']}, want {want}")
+    check_no_variant(launches)
+    log(json.dumps({
+        "phase": "long_video", "segments": 2, "codes": list(codes.shape),
+        "latent": list(latent.shape), "video": list(video.shape),
+        "stage1_s": res["stage1_s"], "stage2_s": res["stage2_s"],
+        "stage1_phase_seconds": llm.phase_seconds,
+        "stage2_phase_seconds": res["stage2_phases"],
+        "launches": launches,
+        "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "video_mean": float(video.mean()), "video_std": float(video.std())}))
+    return launches
+
+
+# the depth a synthetic checkpoint tree is cut to, at full width (it is
+# written to disk and read back)
+CKPT_DEPTH = {"gpt_layers": 2, "dit_main_layers": 2,
+              "dit_control_layers": 1, "titok_layers": 1, "t5_layers": 2}
+
+
+def phase_ckpt(workdir, steps):
+    """A synthetic checkpoint tree of LanDiffConfig() at full width (depth
+    cut to CKPT_DEPTH), written in the release's layout and names by the
+    port's own writers (ckpt/synth.py: f32 safetensors, SAT / Lightning
+    .pt, the T5 as two bf16 safetensors shards with the HF index), loaded
+    through infer_video.build_pipeline(ckpt_dir=...) onto the card in f32:
+    every loaded tensor equal to the written one after the layout change
+    (converted on the host, put through the bridge), with spot checks of
+    the layouts and of the control override; then one request of `steps`
+    steps from it in f32, the path of the f32 forwards (int8 at the DiT
+    shape, exact at the TiTok shape). Load seconds and GB/s."""
+    import torch
+
+    from landiff_tpu_torch import bridge
+    from landiff_tpu_torch.ckpt import convert, synth
+    from landiff_tpu_torch.config import ARSampleConfig, LanDiffConfig
+    from landiff_tpu_torch.pipeline import infer_video
+    from landiff_tpu_torch.utils import tree_leaves
+
+    full = LanDiffConfig()
+    r = dataclasses.replace
+    cfg = r(full,
+            llm=r(full.llm, num_layers=CKPT_DEPTH["gpt_layers"]),
+            dit=r(full.dit, num_layers=CKPT_DEPTH["dit_main_layers"],
+                  control_layers=CKPT_DEPTH["dit_control_layers"]),
+            tokenizer=r(full.tokenizer, titok=r(
+                full.tokenizer.titok,
+                num_layers=CKPT_DEPTH["titok_layers"])),
+            t5=r(full.t5, num_layers=CKPT_DEPTH["t5_layers"]),
+            sampler=r(full.sampler, num_steps=steps))
+    root = workdir / "LanDiff"
+    t0 = time.perf_counter()
+    written = synth.write_tree(root, cfg, seed=9)
+    write_s = time.perf_counter() - t0
+    file_bytes = sum(written["files"].values())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    llm, dif = infer_video.build_pipeline(
+        cfg, ARSampleConfig(seed=4), ckpt_dir=str(root),
+        compute_dtype=torch.float32, device="cuda",
+        require_real_tokenizer=False)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loaded_bytes = sum(t.numel() * t.element_size() for t in
+                       tree_leaves(dif.params) + tree_leaves(llm.params))
+
+    # every tensor against the written state dicts, converted here
+    sds = written["state_dicts"]
+    base = {k[6:]: v for k, v in sds[synth.BASE_DIT].items()}
+    parts = convert.split_engine_state(sds[synth.ENGINE])
+    main_sd = {**base, **parts["main"]}
+    ctrl_sd = {**base, **{k: v for k, v in parts["control"].items()
+                          if not k.startswith("semantic_conditioner.")}}
+    want = {
+        "main": convert.convert_dit(main_sd, cfg.dit.num_layers),
+        "control": convert.convert_dit(ctrl_sd, cfg.dit.control_layers,
+                                       control=True),
+        "semantic": convert.convert_semantic_cond(
+            parts["semantic"], cfg.semantic_cond.num_res_blocks),
+        "vae": convert.convert_vae(sds[synth.VAE], cfg.vae.num_res_blocks,
+                                   len(cfg.vae.ch_mult)),
+        "lm": convert.convert_llm(sds["llm/model.safetensors"],
+                                  cfg.llm.num_layers)}
+    mismatched, compared = [], 0
+    for name, tree in want.items():
+        got = llm.params["lm"] if name == "lm" else dif.params[name]
+        exp = bridge.to_torch(tree, device="cpu")
+        for path, (a, b) in enumerate(zip(tree_leaves(got),
+                                          tree_leaves(exp))):
+            compared += 1
+            if name == "lm" and a.dtype != b.dtype:   # GPT blocks cast
+                b = b.to(a.dtype)
+            if a.shape != b.shape or not torch.equal(a.cpu(), b):
+                mismatched.append(f"{name}[{path}]")
+    t5_want = {k: torch.from_numpy(v) for k, v in sds[synth.T5_DIR].items()}
+    t5 = dif.params["t5"]
+    check(torch.equal(t5["blocks"][0]["attn"]["q"].cpu(),
+                      t5_want["block.0.layer.0.SelfAttention.q.weight"].T),
+          "stage-2 T5 q matrix (bf16 file) differs")
+    check(not mismatched, f"loaded tensors differ: {mismatched[:8]}")
+    # the layout changes themselves, against the written torch tensors
+    qkv = "transformer.layers.0.attention.query_key_value.weight"
+    check(torch.equal(dif.params["main"]["layers"][0]["qkv_w"].cpu(),
+                      torch.from_numpy(base[qkv]).T),
+          "main qkv is not the base checkpoint's, transposed")
+    ctrl_key = "model.diffusion_model.control_model." + qkv
+    check(torch.equal(dif.params["control"]["layers"][0]["qkv_w"].cpu(),
+                      torch.from_numpy(sds[synth.ENGINE][ctrl_key]).T),
+          "control qkv is not the LanDiff checkpoint's override")
+    vae_key = "decoder.conv_in.conv.weight"
+    check(torch.equal(dif.params["vae"]["decoder"]["conv_in"]["w"].cpu(),
+                      torch.from_numpy(sds[synth.VAE][vae_key])),
+          "VAE conv_in kernel is not the written OIDHW tensor")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = infer_video.generate(llm, dif, "a lighthouse in the fog", seed=6)
+    gen_s = time.perf_counter() - t0
+    launches = read_counts()
+    check_codes(res["codes"], cfg, "ckpt request")
+    check_video(res["video"], res["latent"])
+    want_i8 = (cfg.dit.num_layers + cfg.dit.control_layers) * steps
+    check(launches["flash_fwd_int8_f32"] == want_i8
+          and launches["flash_fwd_exact_f32"] == cfg.tokenizer.titok
+          .num_layers, f"f32 forward launches {launches}")
+    log(json.dumps({
+        "phase": "ckpt", "config": "LanDiffConfig() at full width",
+        "depth_cut_to": CKPT_DEPTH, "files": written["files"],
+        "file_bytes": file_bytes, "write_s": write_s, "load_s": load_s,
+        "loaded_bytes_f32": loaded_bytes,
+        "load_gb_per_s": file_bytes / load_s / 1e9,
+        "tensors_compared": compared, "request_s": gen_s,
+        "stage1_s": res["stage1_s"], "stage2_s": res["stage2_s"],
+        "compute_dtype": "float32", "launches": launches}))
+    del llm, dif, written, sds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_fast(cfg, llm, dif):
     """The fast serving configuration at full width: LANDIFF_FAST=2 (W8A8
     DiT linears, int8 stage-1 weights, step reuse, guidance window [2, 44))
@@ -1408,8 +1839,16 @@ def phase_profile(cfg, params, fused):
 # input that depends on the control branch): one exact forward, its
 # recompute and one backward each; main layer 0 and the 12 TiTok decoder
 # layers of the semantic conditioner take the int8 forward
-TRAIN_DIT_LAUNCHES = {"flash_bwd": 44, "flash_fwd_exact": 88,
-                      "flash_fwd_int8": 13, "adaln": 0}
+# launches per stage-2 training step (44 differentiated layers, remat: two
+# exact forwards each; main layer 0 and the TiTok decoder's 12 layers
+# without grad, which in bf16 take the int8 route, in f32 the int8 route
+# at the DiT shape and the exact one at the TiTok shape, whose K/V miss
+# the "cached" budget at 4 bytes)
+TRAIN_DIT_LAUNCHES = {
+    "bf16": {"flash_bwd": 44, "flash_fwd_exact": 88, "flash_fwd_int8": 13,
+             "adaln": 0},
+    "f32": {"flash_bwd_f32": 44, "flash_fwd_exact_f32": 88 + 12,
+            "flash_fwd_int8_f32": 1, "adaln": 0}}
 
 
 def step_seconds(rows):
@@ -1431,12 +1870,15 @@ def leaf_sums(tree):
     return sums.cpu()
 
 
-def phase_train_dit(workdir):
-    """training.train.train("dit") at full width, bf16, batch 1: three
-    steps and a checkpoint, then a resumed fourth. The parameter inits are
-    wrapped so that the zero-init leaves are filled (as for the inference
-    phases) and the trees can be inspected afterwards; the gradient
-    function is wrapped to inspect every step's gradients."""
+def phase_train_dit(workdir, dtype_name="bf16", steps=3):
+    """training.train.train("dit") at full width, batch 1, in bf16 (the
+    trainer's --bf16) or f32 (its default): `steps` steps and a
+    checkpoint, then a resumed one more. The parameter inits are wrapped
+    so that the zero-init leaves are filled (as for the inference phases)
+    and the trees can be inspected afterwards; the gradient function is
+    wrapped to inspect every step's gradients. In bf16 then one step by
+    hand for the forward / backward / optimizer split, and the
+    LANDIFF_REMAT_SAVE_ATTN comparison (phase_remat_save_attn)."""
     import torch
 
     from landiff_tpu_torch.config import LanDiffConfig
@@ -1448,8 +1890,11 @@ def phase_train_dit(workdir):
                                          tree_leaves)
 
     cfg = LanDiffConfig()
-    data, ckpt = workdir / "dit_data", workdir / "dit_ckpt"
-    metrics = workdir / "dit_metrics.jsonl"
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_name]
+    launches_per_step = TRAIN_DIT_LAUNCHES[dtype_name]
+    data = workdir / f"dit_data_{dtype_name}"
+    ckpt = workdir / f"dit_ckpt_{dtype_name}"
+    metrics = workdir / f"dit_metrics_{dtype_name}.jsonl"
     train_lib.synthesize("dit", cfg, 4, str(data), seed=0, shard_size=4)
 
     made, grad_reports = {}, []
@@ -1483,7 +1928,7 @@ def phase_train_dit(workdir):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, last = train_lib.train(
-            "dit", str(data), steps=3, batch_size=1, dtype=torch.bfloat16,
+            "dit", str(data), steps=steps, batch_size=1, dtype=dtype,
             ckpt_dir=str(ckpt), log_every=1, metrics_path=str(metrics),
             device="cuda")
         torch.cuda.synchronize()
@@ -1496,7 +1941,7 @@ def phase_train_dit(workdir):
         reset_counts()
         t0 = time.perf_counter()
         state2, last2 = train_lib.train(
-            "dit", str(data), steps=4, batch_size=1, dtype=torch.bfloat16,
+            "dit", str(data), steps=steps + 1, batch_size=1, dtype=dtype,
             ckpt_dir=str(ckpt), log_every=1, metrics_path=str(metrics),
             resume=True, device="cuda")
         torch.cuda.synchronize()
@@ -1508,11 +1953,12 @@ def phase_train_dit(workdir):
     all_rows = [json.loads(l) for l in metrics.read_text().splitlines()]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    check([r["step"] for r in all_rows] == [1, 2, 3, 4],
+    check([r["step"] for r in all_rows] == list(range(1, steps + 2)),
           f"logged steps {[r['step'] for r in all_rows]}")
     check(all(np.isfinite(r["loss"]) for r in all_rows),
           f"losses {[r['loss'] for r in all_rows]}")
-    check(len(grad_reports) == 4, f"{len(grad_reports)} gradient passes")
+    check(len(grad_reports) == steps + 1,
+          f"{len(grad_reports)} gradient passes")
     for i, rep in enumerate(grad_reports):
         check(rep["finite"] == rep["leaves"],
               f"step {i + 1}: a control gradient is not finite: {rep}")
@@ -1520,10 +1966,10 @@ def phase_train_dit(workdir):
         # control forward (it has no final head), in JAX as here
         check(rep["not_all_zero"] == rep["leaves"] - 2,
               f"step {i + 1}: a control gradient is all zero: {rep}")
-    for got, n in ((first_launches, 3), (resumed_launches, 1)):
-        want = {k: TRAIN_DIT_LAUNCHES.get(k, 0) * n for k in got}
+    for got, n in ((first_launches, steps), (resumed_launches, 1)):
+        want = {k: launches_per_step.get(k, 0) * n for k in got}
         check(got == want, f"launches over {n} steps {got}, want {want}")
-    # the frozen trees were not touched by three steps
+    # the frozen trees were not touched by the first steps
     for k in ("main", "sem"):
         check(torch.equal(leaf_sums(first[k]), before[k]),
               f"the {k} parameters changed")
@@ -1531,7 +1977,7 @@ def phase_train_dit(workdir):
     ctrl0, ctrl3 = tree_leaves(first["control"]), tree_leaves(state[0])
     changed = [not torch.equal(a, b) for a, b in zip(ctrl0, ctrl3)]
     matrices = [c for c, a in zip(changed, ctrl0) if a.dim() >= 2]
-    check(all(matrices), "a control matrix did not change in three steps")
+    check(all(matrices), "a control matrix did not change in the steps")
     ctrl4 = tree_leaves(state2[0])
     check(any(not torch.equal(a, b) for a, b in zip(ctrl3, ctrl4)),
           "the resumed step changed nothing")
@@ -1539,7 +1985,8 @@ def phase_train_dit(workdir):
           "a control parameter is not finite after four steps")
 
     log(json.dumps({
-        "phase": "train_dit", "dtype": "bf16", "batch_size": 1,
+        "phase": "train_dit" if dtype_name == "bf16" else "train_f32",
+        "dtype": dtype_name, "batch_size": 1,
         "params": {k: count_params(first[k]) for k in first},
         "losses": [r["loss"] for r in all_rows],
         "step_seconds": step_seconds(rows),
@@ -1547,10 +1994,12 @@ def phase_train_dit(workdir):
         "train_call_seconds": [first_s, resumed_s],
         "gradients": grad_reports,
         "control_leaves_changed": [sum(changed), len(changed)],
-        "launches_per_step": TRAIN_DIT_LAUNCHES,
-        "launches": {"three_steps": first_launches,
+        "launches_per_step": launches_per_step,
+        "launches": {"first_steps": first_launches,
                      "resumed_step": resumed_launches},
         "peak_gpu_mem_gb": peak_gb}))
+    if dtype_name != "bf16":
+        return first_launches
 
     # one more step by hand for the split: forward, backward (with the
     # recompute of 44 layers), optimizer update
@@ -1588,7 +2037,74 @@ def phase_train_dit(workdir):
         "backward_with_recompute_ms": ev[1].elapsed_time(ev[2]),
         "optimizer_ms": ev[2].elapsed_time(ev[3]),
         "loss": float(loss.detach())}))
+    del loss, grads, updates
+    phase_remat_save_attn(cfg, made2["main"], state2[0], made2["sem"], lat,
+                          ctx, tokens, orig_grad)
     return first_launches
+
+
+def phase_remat_save_attn(cfg, main, control, sem, lat, ctx, tokens, grad):
+    """One bf16 stage-2 step by hand (the same inputs and draws) without
+    LANDIFF_REMAT_SAVE_ATTN, again without it, then with it: the exact
+    forwards per step (88 -> 44), seconds and peak memory of each; the
+    loss must be equal, the gradients equal within the spread of two runs
+    without the knob (dq's reduce-adds in no fixed order move the last
+    bits of every gradient upstream of q), bounded."""
+    import torch
+
+    from landiff_tpu_torch.training import diffusion_loss, optim
+    from landiff_tpu_torch.utils import tree_leaves
+
+    def step(save_attn):
+        with knobs(LANDIFF_REMAT_SAVE_ATTN="1" if save_attn else None):
+            ctrl = optim.require_grad(control)
+            g = torch.Generator(device="cuda").manual_seed(37)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            loss = diffusion_loss.video_diffusion_loss(
+                main, ctrl, sem, lat, ctx, tokens, g, cfg.dit, cfg.sampler,
+                cfg.tokenizer, cfg.semantic_cond,
+                compute_dtype=torch.bfloat16, remat=True)
+            grads = grad(loss, ctrl)
+            torch.cuda.synchronize()
+            return {"loss": float(loss.detach()),
+                    "seconds": time.perf_counter() - t0,
+                    "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": read_counts()}, tree_leaves(grads)
+
+    def diff(a, b):
+        """||a - b|| / ||b|| over all control leaves together (a leaf whose
+        gradient is 0 but for rounding, such as k_ln_b's, has no relative
+        size of its own)."""
+        num = sum((x.double() - y.double()).square().sum() for x, y in
+                  zip(a, b))
+        den = sum(y.double().square().sum() for y in b)
+        return float((num / den).sqrt())
+
+    step(True)                      # warm both routes once
+    plain, g_plain = step(False)
+    again, g_again = step(False)
+    saved, g_saved = step(True)
+    spread, moved = diff(g_again, g_plain), diff(g_saved, g_plain)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(g_saved, g_plain))
+    check(plain["launches"]["flash_fwd_exact"] == 88
+          and saved["launches"]["flash_fwd_exact"] == 44,
+          f"exact forwards per step {plain['launches']} / "
+          f"{saved['launches']}")
+    check(saved["launches"]["flash_bwd"] == 44, "backward launches")
+    check(saved["loss"] == plain["loss"], "the loss moved with the knob")
+    # bound: ten times the two plain runs' own spread, and 1e-2 (bf16 ds)
+    check(moved <= max(10 * spread, 1e-6) and moved <= 1e-2,
+          f"gradients moved by {moved} with the knob (spread {spread})")
+    log(json.dumps({"phase": "remat_save_attn", "without": plain,
+                    "without_again": again, "with": saved,
+                    "grad_max_rel_diff_with_vs_without": moved,
+                    "grad_max_rel_diff_two_runs_without": spread,
+                    "grads_bit_equal": bit_equal,
+                    "residual_gb": saved["peak_gpu_mem_gb"]
+                    - plain["peak_gpu_mem_gb"]}))
 
 
 def phase_train_lm(workdir):
@@ -1685,8 +2201,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4,
                     help="denoise steps per request (the release uses 50)")
-    ap.add_argument("--only", choices=("flash_fwd", "flash_bwd",
-                                       "stage1_batch"),
+    ap.add_argument("--only", choices=("flash_fwd", "flash_bwd", "f32",
+                                       "stage1_batch", "long_video", "ckpt",
+                                       "train"),
                     help="build, then only this kernel's cases at the "
                          "main-path shapes, or only the batched decoding "
                          "check at full width (no pipeline, no last "
@@ -1736,6 +2253,21 @@ def main():
         phase_fwd_kernels(titok_decoder_mask(), exp2_rates())
         phase_drift()
         return
+    if args.only == "f32":
+        phase_f32(titok_decoder_mask(), exp2_rates()[False])
+        return
+    if args.only == "long_video":
+        cfg, llm, dif = build_full(args.steps)
+        phase_long_video(cfg, llm, dif, args.steps)
+        return
+    if args.only in ("ckpt", "train"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            if args.only == "ckpt":
+                phase_ckpt(Path(tmp), args.steps)
+            else:
+                phase_train_dit(Path(tmp))
+                phase_train_dit(Path(tmp), "f32", steps=2)
+        return
     if args.only == "stage1_batch":
         phase_stage1_batch()
         return
@@ -1746,10 +2278,12 @@ def main():
     # 3. kernels
     fwd_reports = check_fwd_ptxas()
     measured = phase_kernels()
-    direct_launches = phase_direct(measured.pop("dec_mask"))
+    dec_mask = measured.pop("dec_mask")
+    direct_launches = phase_direct(dec_mask)
     adaln = phase_adaln()
-    # 3b. the drift gates
+    # 3b. the drift gates; 3c. the f32 kernels
     drift = phase_drift()
+    f32 = phase_f32(dec_mask, measured.pop("rates")[False])
     # 4. the pipeline; 5. prompt -> codes -> video; 6. stage 2 alone
     cfg, llm, dif = build_full(args.steps)
     video_launches = phase_video(cfg, llm, dif, args.steps)
@@ -1762,14 +2296,21 @@ def main():
         phase_profile(cfg, dif.params, fused=False)
         phase_profile(cfg, dif.params, fused=True)
         phase_profile_decode(cfg, llm)
-    # 8b. the fast serving configuration
+    # 8b. the fast serving configuration; 8c. a two-segment video
     fast_launches = phase_fast(cfg, llm, dif)
+    phase_long_video(cfg, llm, dif, args.steps)
     del llm, dif
     gc.collect()
     torch.cuda.empty_cache()
-    # 9. the stage-2 trainer; 10. the stage-1 trainer
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # 8d. a synthetic checkpoint tree through build_pipeline, in f32
+        ckpt_launches = phase_ckpt(Path(tmp), args.steps)
+        # 9. the stage-2 trainer in bf16 (and LANDIFF_REMAT_SAVE_ATTN),
+        # 9b. in f32; 10. the stage-1 trainer
         train_launches = phase_train_dit(Path(tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        f32_train_launches = phase_train_dit(Path(tmp), "f32", steps=2)
         gc.collect()
         torch.cuda.empty_cache()
         phase_train_lm(Path(tmp))
@@ -1823,6 +2364,17 @@ def main():
           "flash_bwd never launched on the training path")
     rows.append(bwd_entry(measured["flash_bwd"], train_launches["flash_bwd"]))
     rows[0]["launches_train_dit"] = train_launches["flash_fwd_exact"]
+    # the f32 forms: the exact forward and the backward on the f32 trainer's
+    # steps, the int8 forward on the f32 request from the checkpoint tree
+    f32_launches = {
+        "flash_fwd_exact_f32": f32_train_launches["flash_fwd_exact_f32"],
+        "flash_fwd_int8_f32": ckpt_launches["flash_fwd_int8_f32"],
+        "flash_bwd_f32": f32_train_launches["flash_bwd_f32"]}
+    for name, n in f32_launches.items():
+        check(n > 0, f"{name} never launched on its path")
+        dit, titok = f32[name]
+        rows.append(f32_entry(name, dit, titok, n, f32["ptxas"]))
+    rows[-2]["launches_train_f32"] = f32_train_launches["flash_fwd_int8_f32"]
     log(json.dumps({"phase": "done",
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": rows}))

@@ -7,9 +7,11 @@ of landiff_tpu. Public functions keep the JAX layouts (BSHD attention,
 (B, T, C, H, W) latents, (B, 3, T, H, W) video). Entry points run on
 "cuda" unless the caller passes device="cpu".
 
-Ported so far: inference, prompt -> semantic tokens -> video
-(pipeline/infer_video.py), and training of the stage-2 control branch and
-the stage-1 LM (training/train.py). The flash-attention forwards and
-backward and the fused adaLN modulate run as CUDA kernels (ops/csrc/) on
-the card and as their plain PyTorch versions on the CPU.
+Ported so far: inference, prompt -> semantic tokens -> video, of one
+segment or several (pipeline/infer_video.py, long_video.py), from random
+weights or a converted checkpoint tree (ckpt/), and training of the
+stage-2 control branch and the stage-1 LM (training/train.py). The
+flash-attention forwards and backward (bf16 and f32) and the fused adaLN
+modulate run as CUDA kernels (ops/csrc/) on the card and as their plain
+PyTorch versions on the CPU.
 """

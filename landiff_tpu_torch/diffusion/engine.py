@@ -4,7 +4,9 @@ VPSDE-DPM++2M sampler + the VAE first stage.
 
 CFG batch order is [uncond, cond] (guiders.py prepare_inputs: cat(uc, c)).
 The semantic feature is computed once and captured by the denoise closure
-(the reference's InferValueRegistry cache).
+(the reference's InferValueRegistry cache); `update_bundle_tokens` makes
+the closure of the next long-video segment, for which only that feature
+changes.
 """
 
 from __future__ import annotations
@@ -47,13 +49,34 @@ def make_denoise_fn(main_params, control_params, sem_params,
     denoise_fn.cond_only(x, step): the cond row alone, batch B, no CFG
     combination (engine.py:125-145), for steps outside a guidance
     window."""
-    q_alpha = denoiser_quantized_alphas(sampler_cfg).astype(np.float32)
-    alpha_table = schedule.sampler_tables(sampler_cfg)["alpha"].astype(
-        np.float32)
-    ctx2 = torch.cat([uc_context, context], dim=0)          # [uc, c]
     sem = sc_lib.semantic_feature_from_tokens(
         sem_params, semantic_tokens, tok_cfg, sem_cfg,
         forward_t=dit_cfg.latent_frames, compute_dtype=compute_dtype)
+    ctx2 = torch.cat([uc_context, context], dim=0)          # [uc, c]
+    return _denoise_closure(main_params, control_params, dit_cfg,
+                            sampler_cfg, ctx2, sem, compute_dtype)
+
+
+def update_bundle_tokens(denoise_fn, sem_params, semantic_tokens,
+                         dit_cfg: DiTConfig, tok_cfg: TokenizerConfig,
+                         sem_cfg: SemanticCondConfig, *,
+                         compute_dtype=torch.bfloat16):
+    """The denoise closure of the next long-video segment (engine.py:73):
+    only the semantic feature is computed again, from that segment's
+    tokens; parameters, text context and schedule tables are shared."""
+    main_params, control_params, sampler_cfg, ctx2 = denoise_fn.shared
+    sem = sc_lib.semantic_feature_from_tokens(
+        sem_params, semantic_tokens, tok_cfg, sem_cfg,
+        forward_t=dit_cfg.latent_frames, compute_dtype=compute_dtype)
+    return _denoise_closure(main_params, control_params, dit_cfg,
+                            sampler_cfg, ctx2, sem, compute_dtype)
+
+
+def _denoise_closure(main_params, control_params, dit_cfg: DiTConfig,
+                     sampler_cfg: SamplerConfig, ctx2, sem, compute_dtype):
+    q_alpha = denoiser_quantized_alphas(sampler_cfg).astype(np.float32)
+    alpha_table = schedule.sampler_tables(sampler_cfg)["alpha"].astype(
+        np.float32)
     sem2 = torch.cat([sem, sem], dim=0)
 
     def scalings(step):
@@ -87,18 +110,23 @@ def make_denoise_fn(main_params, control_params, sem_params,
         return net_out.float() * c_out + x.float() * c_skip
 
     denoise_fn.cond_only = cond_only
+    denoise_fn.shared = (main_params, control_params, sampler_cfg, ctx2)
     return denoise_fn
 
 
 def sample_latents(denoise_fn, sampler_cfg: SamplerConfig,
                    dit_cfg: DiTConfig, *, generator: torch.Generator,
-                   init_noise=None, step_noise=None,
+                   init_noise=None, step_noise=None, prefix=None,
+                   sdedit: bool = False, prefix_noise=None,
                    reuse_every: int | None = None,
                    cfg_window: tuple[int, int] | None = None) -> torch.Tensor:
     """Engine.sample (diffusion_video.py:255-315), VPSDE branch: randn
     latents -> sampler loop. Returns (1, T, C, H, W) f32 on the
     generator's device. init_noise / step_noise: optional initial latents
-    and per-step noises replacing the generator's draws.
+    and per-step noises replacing the generator's draws. prefix: clean
+    latents (1, f, C, H, W) spliced over the first f frames and held there
+    (the long-video prefix, diffusion_video.py:287-288), re-noised per step
+    with sdedit (prefix_noise: its per-step draws).
 
     reuse_every (default LANDIFF_STEP_REUSE, off) and cfg_window (default
     LANDIFF_CFG_WINDOW "lo,hi", off), as JAX reads them (engine.py:
@@ -126,9 +154,15 @@ def sample_latents(denoise_fn, sampler_cfg: SamplerConfig,
         shape = (1, dit_cfg.latent_frames, dit_cfg.in_channels,
                  dit_cfg.latent_height, dit_cfg.latent_width)
         x = torch.randn(shape, generator=generator, device=device)
+    fixed = 0
+    if prefix is not None:
+        fixed = prefix.shape[1]
+        x = torch.cat([prefix.float().to(device), x[:, fixed:]], dim=1)
     return samplers.vpsde_dpmpp2m_sample(denoise_fn, x, sampler_cfg,
                                          generator=generator,
                                          noises=step_noise,
+                                         fixed_frames=fixed, sdedit=sdedit,
+                                         prefix_noises=prefix_noise,
                                          reuse_every=reuse_every,
                                          cfg_window=cfg_window)
 

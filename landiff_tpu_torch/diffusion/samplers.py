@@ -12,8 +12,10 @@ denoise_fn contract (provided by the engine):
 with `step` a dict of per-step host scalars
     {"alpha": f32, "timestep": int, "idx": int, "cfg_scale": f32}.
 With a guidance window the sampler calls `denoise_fn.cond_only(x, step)`
-(the cond row alone) outside it. Not ported yet: sdedit and the
-deterministic samplers.
+(the cond row alone) outside it. With a clean prefix (`fixed_frames`) and
+`sdedit`, the prefix is re-noised to each step's alpha from its own draw
+(`prefix_noises`, the seam for the JAX key chain's k_prefix draws, as
+`noises` is for k_noise). Not ported yet: the deterministic samplers.
 """
 
 from __future__ import annotations
@@ -107,6 +109,7 @@ def vpsde_dpmpp2m_sample(denoise_fn: Callable, x: torch.Tensor,
                          cfg: SamplerConfig, *,
                          generator: torch.Generator | None = None,
                          noises=None, fixed_frames: int = 0,
+                         sdedit: bool = False, prefix_noises=None,
                          reuse_every: int = 0,
                          reuse_head: int = REUSE_HEAD_DEFAULT,
                          reuse_tail: int = REUSE_TAIL_DEFAULT,
@@ -115,9 +118,13 @@ def vpsde_dpmpp2m_sample(denoise_fn: Callable, x: torch.Tensor,
     """DPM-Solver++(2M) SDE in VP parameterization.
 
     x: (B, T, C, H, W) initial noise; if fixed_frames > 0, x[:, :f] are
-    clean prefix latents spliced back every step. noises: optional
-    per-step noise tensors like x (else drawn from `generator`, one draw
-    per step whether the model is called or not, samplers.py:166).
+    clean prefix latents spliced back every step, or with sdedit
+    (samplers.py:144-148) the prefix noised to the step's alpha, alpha *
+    prefix + rd * sqrt(1 - alpha^2), rd a fresh draw like the prefix
+    (prefix_noises[i], else from `generator` before the step's noise).
+    noises: optional per-step noise tensors like x (else drawn from
+    `generator`, one draw per step whether the model is called or not,
+    samplers.py:166).
 
     reuse_every > 1 (samplers.py:158-163): on the steps
     reuse_compute_schedule marks False the model is not called and the
@@ -136,12 +143,22 @@ def vpsde_dpmpp2m_sample(denoise_fn: Callable, x: torch.Tensor,
                 "cfg_window requested but denoise_fn has no .cond_only "
                 "variant (engine.make_denoise_fn provides one)")
         full = cfg_window_schedule(n, *cfg_window)
-    prefix = x[:, :fixed_frames] if fixed_frames > 0 else None
+    prefix = x[:, :fixed_frames].float() if fixed_frames > 0 else None
     x = x.float()
     old_d = torch.zeros_like(x)
     resid = None
     for i, step in enumerate(step_dicts(cfg)):
-        if prefix is not None:
+        if prefix is not None and sdedit:
+            if prefix_noises is not None:
+                rd = prefix_noises[i].to(x.device, torch.float32)
+            else:
+                rd = torch.randn(prefix.shape, generator=generator,
+                                 device=x.device, dtype=torch.float32)
+            a = torch.tensor(step["alpha"], dtype=torch.float32,
+                             device=x.device)
+            noised = a * prefix + rd * torch.sqrt(1.0 - a * a)
+            x = torch.cat([noised, x[:, fixed_frames:]], dim=1)
+        elif prefix is not None:
             x = torch.cat([prefix, x[:, fixed_frames:]], dim=1)
         if compute[i]:
             fn = denoise_fn if full[i] else denoise_fn.cond_only

@@ -18,8 +18,9 @@ backward (torch.utils.checkpoint, non-reentrant, so that the first
 forward and the recompute see the same grad mode and take the same
 attention route). `quantize_int8` turns the four per-layer matrices into
 W8A8 leaves ({"q": int8 (in, out), "s": f32 (out,)}), which `_linear`
-multiplies in int8 (LANDIFF_DIT_INT8, pipeline/dif_infer.py). Not ported
-yet: TP/SP variants, rotary3d and the LANDIFF_REMAT_SAVE_ATTN policy.
+multiplies in int8 (LANDIFF_DIT_INT8, pipeline/dif_infer.py). With
+LANDIFF_REMAT_SAVE_ATTN=1 the layer checkpoint keeps the flash out / lse
+(`_remat_policy`). Not ported yet: TP/SP variants and rotary3d.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from landiff_tpu_torch.config import DiTConfig
 from landiff_tpu_torch.ops.adaln import adaln_modulate
-from landiff_tpu_torch.ops.attention import attention
+from landiff_tpu_torch.ops.attention import attention, \
+    save_flash_residuals_context
 from landiff_tpu_torch.ops.embeddings import timestep_embedding
 from landiff_tpu_torch.ops.norms import layer_norm
 from landiff_tpu_torch.utils import env_flag
@@ -217,16 +219,13 @@ def _embed_inputs(params, x, timesteps, context, cfg: DiTConfig,
 
 
 def _remat_policy():
-    """The per-layer checkpoint's policy (JAX dit.py:469): by default
-    everything in a layer is recomputed. LANDIFF_REMAT_SAVE_ATTN=1 asks to
-    keep the flash kernel's out / lse across the checkpoint; the kernels
-    are launched outside PyTorch's operator set, which its selective
-    checkpointing does not see, so the knob is refused until the port
-    keeps them by its own means (ROADMAP queue 2)."""
+    """The per-layer checkpoint's policy (JAX dit.py:469), as the
+    checkpoint's context_fn: by default (None) everything in a layer is
+    recomputed; LANDIFF_REMAT_SAVE_ATTN=1 keeps the flash forward's out /
+    lse across the checkpoint and recomputes the rest
+    (attention.save_flash_residuals_context)."""
     if os.environ.get("LANDIFF_REMAT_SAVE_ATTN") == "1":
-        raise NotImplementedError(
-            "LANDIFF_REMAT_SAVE_ATTN=1 (save the flash out / lse across "
-            "the layer checkpoint) is not ported yet: ROADMAP queue 2")
+        return save_flash_residuals_context
     return None
 
 
@@ -237,8 +236,11 @@ def _layer_fn(remat: bool):
     where it takes the exact one: loss and gradient from two forwards."""
     if not remat:
         return _layer
-    _remat_policy()
-    return functools.partial(checkpoint, _layer, use_reentrant=False)
+    policy = _remat_policy()
+    if policy is None:
+        return functools.partial(checkpoint, _layer, use_reentrant=False)
+    return functools.partial(checkpoint, _layer, use_reentrant=False,
+                             context_fn=policy)
 
 
 def forward(params, x, timesteps, context, cfg: DiTConfig, *,

@@ -140,3 +140,52 @@ def init(gen: torch.Generator, cfg: T5Config, dtype=torch.float32):
         blocks.append(blk)
     return {"embed": nrm((cfg.vocab_size, D), 1.0), "blocks": blocks,
             "final_ln": o(D)}
+
+
+def params_from_hf_state_dict(sd, cfg: T5Config, dtype=torch.float32,
+                              device="cpu"):
+    """A HF T5EncoderModel state_dict (numpy arrays) -> the parameter tree
+    above, tensors on `device` in `dtype` (JAX t5.py:151).
+
+    Accepts keys with or without the leading 'encoder.' prefix; linear
+    weights are transposed torch (out,in) -> (in,out)."""
+
+    def get(name):
+        for k in (name, "encoder." + name):
+            if k in sd:
+                return np.asarray(sd[k])
+        raise KeyError(name)
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+    t = lambda name: tensor(get(name).T)
+    vec = lambda name: tensor(get(name))
+
+    blocks = []
+    for i in range(cfg.num_layers):
+        pre = f"block.{i}.layer."
+        blk = {
+            "attn": {c: t(pre + f"0.SelfAttention.{c}.weight")
+                     for c in ("q", "k", "v", "o")},
+            "ln0": vec(pre + "0.layer_norm.weight"),
+            "ff": {
+                "wi_0": t(pre + "1.DenseReluDense.wi_0.weight"),
+                "wi_1": t(pre + "1.DenseReluDense.wi_1.weight"),
+                "wo": t(pre + "1.DenseReluDense.wo.weight"),
+            },
+            "ln1": vec(pre + "1.layer_norm.weight"),
+        }
+        if i == 0:
+            blk["rel_bias"] = vec("block.0.layer.0.SelfAttention."
+                                  "relative_attention_bias.weight")
+        blocks.append(blk)
+    try:
+        embed = get("shared.weight")
+    except KeyError:
+        embed = get("embed_tokens.weight")
+    return {
+        "embed": tensor(embed),
+        "blocks": blocks,
+        "final_ln": vec("final_layer_norm.weight"),
+    }

@@ -37,14 +37,21 @@ The kernels replace the Pallas kernels `_flash_kernel` (:91),
 `_flash_kernel_cached` (:197), `_flash_kernel_cached_i8` (:264) and
 `_flash_bwd_fused_kernel` (:658) of landiff_tpu/ops/attention.py; see
 csrc/flash_fwd.cu and csrc/flash_bwd.cu for their bounds on the H100 and
-the design.
+the design. They take bf16 and f32 inputs: f32 ones go to the f32 forms
+in csrc/flash_f32.cu (the exact and int8-score forwards, the backward;
+counted under the names ending in _f32, `F32_KERNELS`), which keep p in
+f32 as the JAX kernels do given f32 refs. `save_flash_residuals_context`
+keeps `_FlashDiff`'s out / lse across a layer checkpoint
+(LANDIFF_REMAT_SAVE_ATTN).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import os
+import threading
 
 import numpy as np
 import torch
@@ -66,6 +73,9 @@ KERNEL_HEAD_DIM = 64
 # backward's default kv block follow them
 BWD_BLOCK_Q = 64
 BWD_BLOCK_KV = 128
+# the f32 kernels' tiles (csrc/flash_f32.cu kT): 64 q rows x 64 kv rows in
+# the forwards and the backward
+F32_BLOCK = 64
 # JAX's default kv block (flash_attention block_kv=1024), which is also the
 # int8_pv V-scale block: one scale per (b, h, block of this many rows)
 JAX_BLOCK_KV = 1024
@@ -153,10 +163,11 @@ def quantize_k_plain(k: torch.Tensor):
 
 
 def quantize_k(k: torch.Tensor):
-    """quantize_k_plain's result: on a CUDA tensor (contiguous bf16 BSHD,
-    head dim 64) by one launch of the int8 forward's prologue kernel,
-    which flash_fwd_int8 launches before its main kernel and counts with
-    it; on a CPU tensor by the plain version."""
+    """quantize_k_plain's result: on a CUDA tensor (contiguous bf16 or f32
+    BSHD, head dim 64) by one launch of the int8 forward's prologue kernel
+    (csrc/flash_fwd.cu, or csrc/flash_f32.cu for f32), which
+    flash_fwd_int8 launches before its main kernel and counts with it; on
+    a CPU tensor by the plain version."""
     if k.device.type == "cpu":
         return quantize_k_plain(k)
     from landiff_tpu_torch.ops import kernels
@@ -166,10 +177,12 @@ def quantize_k(k: torch.Tensor):
     skv_pad = masks_lib.round_up(S, KERNEL_BLOCK_KV)
     k8 = torch.empty(k.shape, dtype=torch.int8, device=k.device)
     sk = torch.empty((B * H, skv_pad), dtype=torch.float32, device=k.device)
+    quantize = (kernels.flash_f32_library().landiff_flash_quantize_k_f32
+                if k.dtype == torch.float32
+                else kernels.flash_library().landiff_flash_quantize_k)
     with torch.cuda.device(k.device):
-        rc = kernels.flash_library().landiff_flash_quantize_k(
-            k.data_ptr(), k8.data_ptr(), sk.data_ptr(), B, S, H, skv_pad,
-            torch.cuda.current_stream(k.device).cuda_stream)
+        rc = quantize(k.data_ptr(), k8.data_ptr(), sk.data_ptr(), B, S, H,
+                      skv_pad, torch.cuda.current_stream(k.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K quantization launch failed: cudaError {rc}")
     return k8, sk
@@ -438,6 +451,28 @@ def kernel_error(out: torch.Tensor, ref: torch.Tensor):
     return (diff.abs().max() / step).item(), rel_rms.item()
 
 
+def kernel_error_rel(out: torch.Tensor, ref: torch.Tensor):
+    """An f32 kernel's distance from its plain version: (max |out - ref|
+    over the largest |ref|, the relative RMS error ||out - ref|| /
+    ||ref||)."""
+    diff = out.double() - ref.double()
+    top = ref.double().abs().max().clamp_min(2.0 ** -126)
+    rel_rms = diff.norm() / ref.double().norm().clamp_min(2.0 ** -126)
+    return (diff.abs().max() / top).item(), rel_rms.item()
+
+
+# The f32 kernels against their plain versions (f32 sums in another order,
+# ex2.approx.ftz.f32 within 2 ulp): max |err| over the largest |plain|
+# output, relative RMS, lse in log2 units. A single-pass TF32 product
+# (10-bit mantissa, about 1e-3 relative) is far outside them.
+# Readings on an H100 at B=1 S=17,776 H=30 (randn inputs, q times 1.5)
+# and at the TiTok decoder's shape and mask: out 4.9e-6 / 2.4e-6, lse
+# 3.8e-6; dq / dk / dv at most 7.7e-7 / 4.2e-7 (dq). The limits are about
+# twice the readings.
+F32_TOL = {"fwd": {"max_rel": 1e-5, "rel_rms": 5e-6, "lse": 1e-5},
+           "bwd": {"max_rel": 2e-6, "rel_rms": 1e-6}}
+
+
 # A tile's row sum of the bf16 p, rounded to bf16 on both sides from f32
 # sums taken in another order, may round the other way: l moves by at most
 # this much, relative.
@@ -510,29 +545,39 @@ def variant_limits(ref, v, *, int8_pv: bool, exp_bf16: bool,
 
 @functools.lru_cache(maxsize=32)
 def visibility_tables(mask_fn, q_len: int, kv_len: int, device: str,
-                      kv_major: bool = False):
+                      kv_major: bool = False, f32: bool = False):
     """(count, order, kind) int32 tables on `device` (masks.tile_tables):
     per q tile its visible kv tiles at the forwards' 192 x 128 tiles
     (KERNEL_BLOCK_Q x KERNEL_BLOCK_KV), or with kv_major per kv tile the
     q tiles that see it at the backward's 64 x 128 tiles (BWD_BLOCK_Q x
-    BWD_BLOCK_KV)."""
-    bq, bkv = ((BWD_BLOCK_Q, BWD_BLOCK_KV) if kv_major
-               else (KERNEL_BLOCK_Q, KERNEL_BLOCK_KV))
+    BWD_BLOCK_KV); with f32, at the f32 kernels' 64 x 64 tiles
+    (F32_BLOCK)."""
+    if f32:
+        bq = bkv = F32_BLOCK
+    else:
+        bq, bkv = ((BWD_BLOCK_Q, BWD_BLOCK_KV) if kv_major
+                   else (KERNEL_BLOCK_Q, KERNEL_BLOCK_KV))
     vis = masks_lib.block_visibility(mask_fn, q_len, kv_len, bq, bkv,
                                      device=device)
     tables = masks_lib.tile_tables(vis.T if kv_major else vis)
     return tuple(torch.from_numpy(a).to(device) for a in tables)
 
 
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _check_inputs(q, k, v):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in KERNEL_DTYPES:
+            raise TypeError(
+                f"the flash kernels take bfloat16 or float32, {name} is "
+                f"{t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"q, k, v must share one dtype, {name} is "
+                            f"{t.dtype} and q {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(
-                f"the flash kernels take bfloat16, {name} is {t.dtype}: run "
-                "sequences of 2,048 positions or more in bf16 (the "
-                "trainer's --bf16)")
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous BSHD tensor")
         if t.data_ptr() % 16:
@@ -550,7 +595,8 @@ def _check_inputs(q, k, v):
         raise ValueError("B * H exceeds the kernel grid")
 
 
-def _mask_args(mask_fn, Sq: int, Skv: int, dev, kv_major: bool):
+def _mask_args(mask_fn, Sq: int, Skv: int, dev, kv_major: bool,
+               f32: bool = False):
     """((count, order, kind) pointers, table width, mask descriptor) as
     the kernels take them; no tables for no mask."""
     if mask_fn is None:
@@ -558,23 +604,27 @@ def _mask_args(mask_fn, Sq: int, Skv: int, dev, kv_major: bool):
     if not isinstance(mask_fn, masks_lib.MaskSpec):
         raise TypeError("the flash kernels take a MaskSpec (kernel "
                         f"descriptor) or None, got {mask_fn!r}")
-    tables = visibility_tables(mask_fn, Sq, Skv, str(dev), kv_major)
+    tables = visibility_tables(mask_fn, Sq, Skv, str(dev), kv_major, f32)
     return (tuple(t.data_ptr() for t in tables), tables[1].shape[1],
             mask_fn.descriptor())
 
 
 def variant_name(int8: bool, int8_pv: bool = False,
-                 exp_bf16: bool = False) -> str:
-    """The name a forward kernel variant is counted and reported under."""
+                 exp_bf16: bool = False, f32: bool = False) -> str:
+    """The name a forward kernel variant is counted and reported under;
+    the f32 forms' end in _f32."""
     return ("flash_fwd_int8" if int8 else "flash_fwd_exact") \
-        + ("_pv" if int8_pv else "") + ("_exp_bf16" if exp_bf16 else "")
+        + ("_pv" if int8_pv else "") + ("_exp_bf16" if exp_bf16 else "") \
+        + ("_f32" if f32 else "")
 
 
 # launches per kernel variant: each wrapper adds one where it launches
 FWD_VARIANTS = tuple(variant_name(i8, pv, e) for i8, pv in
                      ((False, False), (True, False), (True, True))
                      for e in (False, True))
-LAUNCHES = dict.fromkeys(FWD_VARIANTS + ("flash_bwd",), 0)
+F32_KERNELS = (variant_name(False, f32=True), variant_name(True, f32=True),
+               "flash_bwd_f32")
+LAUNCHES = dict.fromkeys(FWD_VARIANTS + ("flash_bwd",) + F32_KERNELS, 0)
 
 
 def reset_launch_counts():
@@ -587,6 +637,8 @@ def _launch(q, k, v, mask_fn, scale, int8: bool, int8_pv: bool,
     from landiff_tpu_torch.ops import kernels
 
     _check_inputs(q, k, v)
+    if q.dtype == torch.float32:
+        return _launch_f32(q, k, v, mask_fn, scale, int8, int8_pv, exp_bf16)
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     if scale is None:
@@ -624,6 +676,46 @@ def _launch(q, k, v, mask_fn, scale, int8: bool, int8_pv: bool,
                            "cudaError; 1000 + a CUresult where a TMA tensor "
                            "map could not be encoded)")
     LAUNCHES[variant_name(int8, int8_pv, exp_bf16)] += 1
+    return out, lse
+
+
+def _launch_f32(q, k, v, mask_fn, scale, int8: bool, int8_pv: bool,
+                exp_bf16: bool):
+    """The f32 forwards (csrc/flash_f32.cu): exact, or int8 scores after
+    the f32 K quantization prologue. int8_pv and exp_bf16 are options of
+    the bf16 fast path and have no f32 form."""
+    from landiff_tpu_torch.ops import kernels
+
+    if int8_pv or exp_bf16:
+        raise NotImplementedError(
+            "the int8_pv and exp_bf16 variants take bf16 inputs; their f32 "
+            "forms are not ported yet: ROADMAP queue 2 C")
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qscale = float(np.float32(scale * LOG2E))
+    dev = q.device
+    tables, nk_table, desc = _mask_args(mask_fn, Sq, Skv, dev, False, True)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = kernels.flash_f32_library()
+    with torch.cuda.device(dev):
+        if int8:
+            k8, sk = quantize_k(k)
+            rc = lib.landiff_flash_fwd_i8_f32(
+                q.data_ptr(), k8.data_ptr(), sk.data_ptr(), v.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), *tables, B, H, Sq, Skv,
+                nk_table, sk.shape[1], qscale, *desc, stream)
+        else:
+            rc = lib.landiff_flash_fwd_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *tables, B, H, Sq, Skv, nk_table, qscale,
+                *desc, stream)
+    if rc != 0:
+        raise RuntimeError(f"f32 flash kernel launch failed: cudaError {rc}")
+    LAUNCHES[variant_name(int8, f32=True)] += 1
     return out, lse
 
 
@@ -671,8 +763,11 @@ def _launch_bwd_prep(q, out, lse, do, scale):
     lse_pad = torch.empty((B, H, sq_pad), dtype=torch.float32, device=dev)
     delta = torch.empty_like(lse_pad)
     ws = torch.empty((B, H, sq_pad, D), dtype=torch.float32, device=dev)
+    prep = (kernels.flash_f32_library().landiff_flash_bwd_prep_f32
+            if q.dtype == torch.float32
+            else kernels.flash_bwd_library().landiff_flash_bwd_prep)
     with torch.cuda.device(dev):
-        rc = kernels.flash_bwd_library().landiff_flash_bwd_prep(
+        rc = prep(
             q.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
             qs.data_ptr(), lse_pad.data_ptr(), delta.data_ptr(),
             ws.data_ptr(), B, H, Sq, sq_pad,
@@ -705,11 +800,12 @@ def flash_bwd(q, k, v, out, lse, do, *, mask_fn=None, scale=None):
     forward's out and log2 lse (B, H, Sq). CUDA tensors launch the
     prologue (delta, padded lse, q', zeroed dq workspace: the work
     `_flash_bwd_pallas` does outside its kernel, :799) and the main kernel
-    (csrc/flash_bwd.cu), counted once in `LAUNCHES["flash_bwd"]`; CPU
-    tensors run flash_bwd_plain. The kernel adds dq by bulk reduce-adds
-    into the f32 (B, H, Sq_pad, D) workspace, which dq_from_workspace
-    casts at the end, so the last bits of dq vary from run to run; dk and
-    dv do not."""
+    (csrc/flash_bwd.cu, or csrc/flash_f32.cu for f32 inputs), counted once
+    in `LAUNCHES["flash_bwd"]` (`"flash_bwd_f32"`); CPU tensors run
+    flash_bwd_plain. The kernel adds dq by bulk reduce-adds (f32: float4
+    atomics) into the f32 (B, H, Sq_pad, D) workspace, which
+    dq_from_workspace casts at the end, so the last bits of dq vary from
+    run to run; dk and dv do not."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mask_fn,
                                scale=scale)
@@ -723,11 +819,14 @@ def flash_bwd(q, k, v, out, lse, do, *, mask_fn=None, scale=None):
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     dev = q.device
-    tables, nq_table, desc = _mask_args(mask_fn, Sq, Skv, dev, True)
+    f32 = q.dtype == torch.float32
+    tables, nq_table, desc = _mask_args(mask_fn, Sq, Skv, dev, True, f32)
     qs, lse_pad, delta, ws = _launch_bwd_prep(q, out, lse, do, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    bwd = (kernels.flash_f32_library().landiff_flash_bwd_f32 if f32
+           else kernels.flash_bwd_library().landiff_flash_bwd)
     with torch.cuda.device(dev):
-        rc = kernels.flash_bwd_library().landiff_flash_bwd(
+        rc = bwd(
             q.data_ptr(), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse_pad.data_ptr(), delta.data_ptr(),
             ws.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tables, B, H, Sq,
@@ -737,8 +836,37 @@ def flash_bwd(q, k, v, out, lse, do, *, mask_fn=None, scale=None):
         raise RuntimeError(f"flash backward launch failed: error {rc} "
                            "(a cudaError; 1000 + a CUresult where a TMA "
                            "tensor map could not be encoded)")
-    LAUNCHES["flash_bwd"] += 1
+    LAUNCHES["flash_bwd_f32" if f32 else "flash_bwd"] += 1
     return dq_from_workspace(ws, Sq, q.dtype), dk, dv
+
+
+# What a layer checkpoint asks of _FlashDiff.forward: nothing (mode None),
+# to keep each call's (out, lse) in a list ("record"), or to hand them back
+# in call order instead of launching the forward again ("replay")
+_REMAT = threading.local()
+
+
+@contextlib.contextmanager
+def _remat_mode(mode: str, store: list):
+    prev = getattr(_REMAT, "mode", None)
+    _REMAT.mode = (mode, store if mode == "record" else iter(store))
+    try:
+        yield
+    finally:
+        _REMAT.mode = prev
+
+
+def save_flash_residuals_context():
+    """A `context_fn` for torch.utils.checkpoint (non-reentrant) that keeps
+    the flash forward's out and lse across the checkpoint, JAX's
+    LANDIFF_REMAT_SAVE_ATTN policy (dit.py:469: save the tensors tagged
+    flash_out / flash_lse, attention.py:842-857; recompute the rest). The
+    forward context records each _FlashDiff.forward's (out, lse) in call
+    order; the recompute context hands them back instead of launching the
+    kernel. The launches are not PyTorch operators, which is why selective
+    checkpointing cannot keep them."""
+    store: list = []
+    return _remat_mode("record", store), _remat_mode("replay", store)
 
 
 class _FlashDiff(torch.autograd.Function):
@@ -752,7 +880,13 @@ class _FlashDiff(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask_fn, scale):
-        out, lse = flash_fwd_exact(q, k, v, mask_fn=mask_fn, scale=scale)
+        mode = getattr(_REMAT, "mode", None)
+        if mode is not None and mode[0] == "replay":
+            out, lse = (t.detach() for t in next(mode[1]))
+        else:
+            out, lse = flash_fwd_exact(q, k, v, mask_fn=mask_fn, scale=scale)
+            if mode is not None:
+                mode[1].append((out.detach(), lse))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask_fn, ctx.scale = mask_fn, scale
         return out

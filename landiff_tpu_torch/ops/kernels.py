@@ -1,6 +1,7 @@
 """Build and bind the port's CUDA kernels.
 
-Each source under csrc/ (flash_fwd.cu, flash_bwd.cu, adaln.cu) is compiled
+Each source under csrc/ (flash_fwd.cu, flash_bwd.cu, flash_f32.cu,
+adaln.cu) is compiled
 by nvcc for sm_90a into its own shared library with a plain C interface
 and loaded with ctypes. The build runs at first use, into a directory git
 ignores (ops/_build/), keyed by a hash of the source, the shared headers
@@ -22,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu",
-           "flash_bwd": CSRC / "flash_bwd.cu", "adaln": CSRC / "adaln.cu"}
+           "flash_bwd": CSRC / "flash_bwd.cu",
+           "flash_f32": CSRC / "flash_f32.cu", "adaln": CSRC / "adaln.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -127,6 +129,29 @@ def bind_flash_bwd(path: Path) -> ctypes.CDLL:
     lib.landiff_flash_bwd.restype = i32
     lib.landiff_flash_bwd_smem_bytes.argtypes = []
     lib.landiff_flash_bwd_smem_bytes.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def flash_f32_library() -> ctypes.CDLL:
+    """The f32 flash library (exact and int8-score forwards, the K
+    quantization prologue, the backward's prologue and main kernel) with
+    its C signatures declared."""
+    lib = ctypes.CDLL(str(build(["flash_f32"])["flash_f32"]))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.landiff_flash_fwd_f32.argtypes = (
+        [ptr] * 8 + [i32] * 5 + [f32] + [i32] * 5 + [ptr])
+    lib.landiff_flash_fwd_i8_f32.argtypes = (
+        [ptr] * 9 + [i32] * 6 + [f32] + [i32] * 5 + [ptr])
+    lib.landiff_flash_quantize_k_f32.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.landiff_flash_bwd_prep_f32.argtypes = (
+        [ptr] * 8 + [i32] * 4 + [f32, ptr])
+    lib.landiff_flash_bwd_f32.argtypes = (
+        [ptr] * 13 + [i32] * 6 + [f32] + [i32] * 5 + [ptr])
+    for fn in (lib.landiff_flash_fwd_f32, lib.landiff_flash_fwd_i8_f32,
+               lib.landiff_flash_quantize_k_f32,
+               lib.landiff_flash_bwd_prep_f32, lib.landiff_flash_bwd_f32):
+        fn.restype = i32
     return lib
 
 

@@ -50,7 +50,9 @@ class CogModelInferWrapper:
     on the device) of its phases: t5, semantic, denoise, vae."""
 
     def __init__(self, params, cfg: LanDiffConfig,
-                 compute_dtype=torch.bfloat16, device="cuda"):
+                 tokenizer_dir: str | None = None,
+                 compute_dtype=torch.bfloat16,
+                 require_real_tokenizer: bool = False, device="cuda"):
         self.params = params
         if env_flag("LANDIFF_DIT_INT8"):
             # W8A8 DiT linears (dif_infer.py:64-72): the quantized trees
@@ -64,9 +66,10 @@ class CogModelInferWrapper:
         self.phase_seconds: dict[str, float] = {}
         # stage-2 T5: max_length 226, padding to max, no attention mask
         # (encoders/modules.py:271-289)
-        self.text = T5Text(cfg.t5.model_name or None,
+        self.text = T5Text(tokenizer_dir or cfg.t5.model_name or None,
                            max_length=cfg.dit.text_length,
-                           padding_side="right")
+                           padding_side="right",
+                           require_real=require_real_tokenizer)
 
     def encode_text(self, prompt: str) -> torch.Tensor:
         ids, _ = self.text([prompt], pad_to_max=True)

@@ -60,6 +60,7 @@ class ArModelInferWrapper:
                  sample_cfg: ARSampleConfig | None = None,
                  tokenizer_dir: str | None = None,
                  compute_dtype=torch.bfloat16,
+                 require_real_tokenizer: bool = False,
                  int8_decode: bool | None = None,
                  int4_decode: bool | None = None,
                  mesh=None, device="cuda"):
@@ -88,7 +89,8 @@ class ArModelInferWrapper:
         self.device = torch.device(device)
         self.phase_seconds: dict[str, float] = {}
         self.text = T5Text(tokenizer_dir or t5_cfg.model_name or None,
-                           max_length=t5_cfg.max_length, padding_side="left")
+                           max_length=t5_cfg.max_length, padding_side="left",
+                           require_real=require_real_tokenizer)
 
     def encode_text(self, prompt: str):
         """T5 encode, unpadded features (conditioner.py:230-264 path)."""

@@ -14,8 +14,9 @@ one entry point for the trainable components:
 One process on one device (`--device`, default cuda); a mesh of more than
 one device is not ported yet. Checkpoint / resume through
 training/checkpoint.py, metrics as JSONL (observability.MetricsLogger).
-At full width on the card use --bf16: the flash kernels, which sequences
-of 2,048 positions or more go through, take bfloat16 only.
+Sequences of 2,048 positions or more go through the flash kernels, which
+take bfloat16 (--bf16) and float32 (the default; the f32 kernels of
+ops/csrc/flash_f32.cu, slower).
 
 Dataset format (data/loader.ShardedNpzDataset, directories of .npz shards):
   dit: latents (N,T,C,H,W) f32, context (N,text_len,text_dim) f32,

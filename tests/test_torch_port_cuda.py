@@ -330,15 +330,17 @@ def test_bwd_knob_selects_the_plain_version(dev, monkeypatch):
 
 def test_kernel_refuses_what_it_does_not_take(dev):
     q, k, v = _qkv(dev, 1, 128, 128, 2)
+    with pytest.raises(TypeError):      # bf16 and f32 only, one dtype
+        TA.flash_fwd_exact(q.half(), k.half(), v.half())
     with pytest.raises(TypeError):
-        TA.flash_fwd_exact(q.float(), k.float(), v.float())
+        TA.flash_fwd_exact(q.float(), k, v)
     with pytest.raises(ValueError):
         TA.flash_fwd_exact(q[..., :32].contiguous(), k[..., :32].contiguous(),
                            v[..., :32].contiguous())
     with pytest.raises(ValueError):
         TA.flash_fwd_int8(q.transpose(1, 2), k, v)
     out, lse = TA.flash_fwd_exact(q, k, v)
-    with pytest.raises(TypeError, match="--bf16"):
+    with pytest.raises(ValueError):     # out in another dtype than q
         TA.flash_bwd(q.float(), k.float(), v.float(), out, lse, out)
     with pytest.raises(ValueError):
         TA.flash_bwd(q, k, v, out, lse[:, :, :-1].contiguous(), out)
@@ -409,3 +411,172 @@ def test_adaln_kernel_backward_is_the_reference(dev):
     TN.adaln_reference(*ref, text_len=11).square().sum().backward()
     for a, r in zip(args, ref):
         torch.testing.assert_close(a.grad, r.grad, atol=2e-4, rtol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the f32 kernels (csrc/flash_f32.cu), held to their plain versions in f32
+# within attention.F32_TOL, which a TF32 product would miss by far
+
+
+def _qkv32(dev, B, Sq, Skv, H, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    return r(B, Sq, H, 64) * 2, r(B, Skv, H, 64), r(B, Skv, H, 64)
+
+
+_F32_CASES = [(None, 256, 256), (None, 300, 187), (None, 1, 130),
+              (None, 129, 65), ("causal", 333, 333),
+              ("decoder", _LAYOUT.seq_len, _LAYOUT.seq_len),
+              ("decoder", _LAYOUT.seq_len + 100, _LAYOUT.seq_len + 100),
+              ("encoder", _LAYOUT.seq_len, _LAYOUT.seq_len)]
+
+
+@pytest.fixture
+def f32_matmul(dev):
+    """the plain versions in f32 products, not TF32"""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("mask,Sq,Skv", _F32_CASES)
+def test_f32_kernel_matches_plain(dev, f32_matmul, int8, mask, Sq, Skv):
+    mf = _MASKS[mask]
+    q, k, v = _qkv32(dev, 2, Sq, Skv, 3)
+    fn, plain = ((TA.flash_fwd_int8, TA.flash_int8_plain) if int8
+                 else (TA.flash_fwd_exact, TA.flash_exact_plain))
+    name = TA.variant_name(int8, f32=True)
+    before = TA.LAUNCHES[name]
+    out, lse = fn(q, k, v, mask_fn=mf)
+    torch.cuda.synchronize()
+    assert TA.LAUNCHES[name] == before + 1 and out.dtype == torch.float32
+    ref, ref_lse = plain(q, k, v, mask_fn=mf)
+    tol = TA.F32_TOL["fwd"]
+    max_rel, rel_rms = TA.kernel_error_rel(out, ref)
+    assert max_rel <= tol["max_rel"] and rel_rms <= tol["rel_rms"], \
+        (max_rel, rel_rms)
+    assert (lse - ref_lse).abs().max().item() <= tol["lse"]
+    if mask == "decoder" and Sq > _LAYOUT.seq_len:   # rows that see nothing
+        assert out[:, _LAYOUT.seq_len:].abs().max().item() == 0.0
+
+
+def test_f32_k_quantization_prologue_matches_plain(dev):
+    k = _qkv32(dev, 2, 1, 300, 3)[1]
+    got, want = TA.quantize_k(k), TA.quantize_k_plain(k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_f32_variants_of_the_fast_path_are_refused(dev):
+    q, k, v = _qkv32(dev, 1, 64, 64, 1)
+    for kw in ({"int8_pv": True}, {"exp_bf16": True}):
+        with pytest.raises(NotImplementedError, match="queue 2 C"):
+            TA.flash_fwd_int8(q, k, v, **kw)
+    with pytest.raises(TypeError):
+        TA.flash_fwd_exact(q.half(), k.half(), v.half())
+
+
+@pytest.mark.parametrize("mask,Sq,Skv", _F32_CASES + [(None, 64, 64),
+                                                      (None, 100, 369)])
+def test_f32_bwd_kernel_matches_plain(dev, f32_matmul, mask, Sq, Skv):
+    """dq, dk, dv in f32 against the plain version; dk and dv bit-identical
+    from a second call (dq is summed by atomics in no fixed order)."""
+    mf = _MASKS[mask]
+    q, k, v = _qkv32(dev, 2, Sq, Skv, 3, seed=1)
+    out, lse = TA.flash_fwd_exact(q, k, v, mask_fn=mf)
+    do = torch.randn(out.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    before = TA.LAUNCHES["flash_bwd_f32"]
+    got = TA.flash_bwd(q, k, v, out, lse, do, mask_fn=mf)
+    torch.cuda.synchronize()
+    assert TA.LAUNCHES["flash_bwd_f32"] == before + 1
+    want = TA.flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mf)
+    tol = TA.F32_TOL["bwd"]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        max_rel, rel_rms = TA.kernel_error_rel(g, w)
+        assert max_rel <= tol["max_rel"] and rel_rms <= tol["rel_rms"], \
+            (name, max_rel, rel_rms)
+    again = TA.flash_bwd(q, k, v, out, lse, do, mask_fn=mf)
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+
+
+def test_f32_bwd_prologue_matches_plain(dev):
+    q, k, v = _qkv32(dev, 2, 187, 187, 3, seed=5)
+    out, lse = TA.flash_fwd_exact(q, k, v)
+    do = torch.randn(out.shape, device=dev) * 0.5
+    got = TA.flash_bwd_prep(q, out, lse, do)
+    want = TA.flash_bwd_prep_plain(q, out, lse, do)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], atol=1e-5, rtol=1e-5)
+    assert torch.equal(got[3], want[3])
+
+
+def test_remat_save_attn_on_the_card(dev, monkeypatch):
+    """LANDIFF_REMAT_SAVE_ATTN=1 on the card: the recompute launches no
+    exact forward and the gradients equal those without the knob (dq's
+    atomics aside: within the bf16 backward's own run-to-run spread)."""
+    from landiff_tpu_torch import config as tcfg
+    from landiff_tpu_torch.models import dit as tdit
+    from landiff_tpu_torch.pipeline import dif_infer as tdi
+    from landiff_tpu_torch.training import optim
+    from landiff_tpu_torch.utils import fill_zero_leaves, tree_map
+
+    import dataclasses
+
+    full = tcfg.tiny_test_config()   # one head of 64, the kernels' width
+    full = dataclasses.replace(full, dit=dataclasses.replace(full.dit,
+                                                              num_heads=1))
+    cfg = full.dit
+    gen = torch.Generator().manual_seed(0)
+    params = fill_zero_leaves(tdi.init_params(gen, full), gen)
+    params = tree_map(lambda t: t.to(dev), params)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((1, cfg.latent_frames, cfg.in_channels,
+                     cfg.latent_height, cfg.latent_width), generator=g,
+                    device=dev)
+    sem = torch.randn(x.shape, generator=g, device=dev)
+    ctx = torch.randn((1, cfg.text_length, cfg.text_dim), generator=g,
+                      device=dev)
+
+    def step():
+        ctrl = optim.require_grad(params["control"])
+        TA.reset_launch_counts()
+        out = tdit.control_warp_forward(
+            params["main"], ctrl, x, torch.tensor([321.0], device=dev), ctx,
+            cfg, sem, attn_impl="pallas", compute_dtype=torch.float32,
+            remat=True)
+        grads = optim.grad(out.square().mean(), ctrl)
+        torch.cuda.synchronize()
+        return dict(TA.LAUNCHES), grads
+
+    plain_counts, plain = step()
+    monkeypatch.setenv("LANDIFF_REMAT_SAVE_ATTN", "1")
+    saved_counts, saved = step()
+    exact = TA.variant_name(False, f32=True)
+    n_grad = cfg.control_layers + cfg.num_layers - 1
+    assert plain_counts[exact] - saved_counts[exact] == n_grad
+    for name in plain["layers"][0]:
+        a, b = plain["layers"][0][name], saved["layers"][0][name]
+        assert torch.allclose(a, b, rtol=1e-4, atol=1e-6), name
+
+
+def test_loader_on_the_card(dev, tmp_path):
+    """A synthetic tiny checkpoint tree loaded straight onto the card
+    (ckpt/load.py): every tensor on the device, equal to the CPU load."""
+    from landiff_tpu_torch import config as tcfg
+    from landiff_tpu_torch.ckpt import load as tload
+    from landiff_tpu_torch.ckpt import synth
+    from landiff_tpu_torch.utils import tree_leaves
+
+    cfg = tcfg.tiny_test_config()
+    synth.write_tree(tmp_path, cfg, seed=3)
+    for fn in (tload.load_stage1, tload.load_stage2):
+        on_card = tree_leaves(fn(tmp_path, cfg, device="cuda"))
+        on_cpu = tree_leaves(fn(tmp_path, cfg, device="cpu"))
+        assert on_card and all(t.is_cuda for t in on_card)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu))
+    half = tree_leaves(tload.load_vae(tmp_path, cfg, dtype=torch.bfloat16,
+                                      device="cuda"))
+    assert all(t.dtype == torch.bfloat16 and t.is_cuda for t in half)

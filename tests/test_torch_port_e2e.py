@@ -112,17 +112,20 @@ def test_unported_options_are_refused(monkeypatch):
         w = tli.ArModelInferWrapper(t1, TC.llm, TC.t5, device="cpu", **kw)
         assert key in w.params["lm"]["gpt"]["blocks"][0]["wo"]
     sc = tcfg.ARSampleConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    # checkpoints (item 10) are ported: a missing tree is a missing file
+    with pytest.raises(FileNotFoundError, match="nowhere"):
         tiv.build_pipeline(TC, sc, ckpt_dir="/nowhere", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         tiv.build_pipeline(TC, sc, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         tiv.run("x", tiny=True, mesh_spec="data=2", device="cpu")
-    # two segments of codes: the long-video path
+    # two segments of codes: the long-video path (item 11) is ported; its
+    # offload branch is not
     llm, dif = tiv.build_pipeline(
         TC, tcfg.ARSampleConfig(num_frames=2 * TC.llm.frames_per_segment),
         compute_dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    monkeypatch.setenv("LANDIFF_OFFLOAD", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
         tiv.generate(llm, dif, "x")
 
 

@@ -246,7 +246,8 @@ def test_flash_attention_reads_the_three_knobs(monkeypatch):
     assert torch.equal(TA.flash_attention(q, k, v, int8_pv=False),
                        TA.flash_int8_plain(q, k, v, exp_bf16=True)[0])
     assert TA.variant_name(True, True, True) == "flash_fwd_int8_pv_exp_bf16"
-    assert set(TA.LAUNCHES) == set(TA.FWD_VARIANTS) | {"flash_bwd"}
+    assert set(TA.LAUNCHES) == (set(TA.FWD_VARIANTS) | {"flash_bwd"}
+                                | set(TA.F32_KERNELS))
     assert len(TA.FWD_VARIANTS) == 6
 
 

@@ -419,7 +419,18 @@ def test_loss_and_grads_equal_with_and_without_remat_bit_for_bit(monkeypatch):
 
 
 def test_remat_save_attn_knob_is_refused(monkeypatch):
+    """The knob was refused until the port kept the flash out / lse across
+    the layer checkpoint itself; it is no longer refused: with it the remat
+    step's loss and gradients are those without it, bit for bit, and the
+    recompute launches no exact forward."""
+    rec = _Recorder(monkeypatch)
+    loss_plain, grads_plain = _dit_loss_and_grads(remat=True)
+    # three forwards (main layer 0 without grad), two recomputed
+    assert rec.calls == {"exact": 5, "int8": 0}
     monkeypatch.setenv("LANDIFF_REMAT_SAVE_ATTN", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _dit_loss_and_grads(remat=True)
+    loss_saved, grads_saved = _dit_loss_and_grads(remat=True)
+    assert rec.calls == {"exact": 5 + 3, "int8": 0}
+    assert torch.equal(loss_plain, loss_saved)
+    layer0, layer1 = grads_plain["layers"][0], grads_saved["layers"][0]
+    assert all(torch.equal(layer0[k], layer1[k]) for k in layer0)
     _dit_loss_and_grads(remat=False)          # the knob is about remat only
