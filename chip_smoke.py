@@ -48,12 +48,19 @@ Phases, in order; any failure exits nonzero before the last line:
               the bf16 weights, at JAX's thresholds and, for attention,
               under 5 % of attention's own contribution; each quantized run
               launches only its variant, 9 times.
-  3c. f32:    the f32 kernels (csrc/flash_f32.cu: exact and int8-score
-              forwards, the backward with its prologue) against their
-              plain versions in f32 (attention.F32_TOL) at the training
-              shape (B=1 S=17,776 H=30) and the TiTok decoder shape, timed
-              beside SDPA in f32 with their bounds at the CUDA cores' f32
-              rate; ptxas's registers and spills (none allowed).
+  3c. f32:    the f32 kernels (csrc/flash_f32.cu: the 3xTF32 exact
+              forward and backward with their split prologues, the
+              int8-score forward, and the int8_pv / exp_bf16 variants)
+              against their plain versions in f32 (attention.F32_TOL,
+              attention.f32_variant_limits; the prologues bit for bit)
+              at the training shape (B=1 S=17,776 H=30) and the TiTok
+              decoder shape, timed beside SDPA in f32 (and its own error
+              against the plain versions) with the bounds of both designs
+              (the CUDA cores' f32 rate, three TF32 passes on the tensor
+              cores); ptxas's registers, spills and serialized wgmma (none
+              allowed); then the f32 variants on their paths (the
+              dispatcher under LANDIFF_ATTN_INT8_PV=1, flash_attention
+              under the exp_bf16 knobs), one launch each.
   4. build the pipeline: infer_video.build_pipeline at the full width of
               LanDiffConfig() (random weights from a seed, zero leaves
               filled, depth not cut), both stages on the card.
@@ -185,11 +192,13 @@ REPLACES_FWD = {
     True: "landiff_tpu/ops/attention.py:264 _flash_kernel_cached_i8"}
 
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit); PEAK_F32
-# is the CUDA cores' f32 rate, the rate of an f32-accurate product (the
-# f32 kernels are FFMA on the CUDA cores, not TF32)
+# is the CUDA cores' f32 rate, PEAK_TF32 the tensor cores' TF32 rate (an
+# f32-accurate product there takes three passes, 3xTF32, as in the f32
+# exact forward and backward)
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 # f32 exp2 on the SFUs: 16 results per SM per clock (CUDA C++ Programming
 # Guide, arithmetic instruction throughput, compute capability 9.0), 132
@@ -393,12 +402,75 @@ def kernel_case(name, B, S, H, mask_fn, int8, seed, exp2_rate, int8_pv=False,
 
 # ---------------------------------------------------------------------------
 # phase 3c: the f32 kernels (csrc/flash_f32.cu) at the main-path shapes,
-# held to their plain versions in f32 within attention.F32_TOL
+# held to their plain versions in f32 within attention.F32_TOL (the
+# int8_pv / exp_bf16 variants within attention.variant_limits from those)
 
 
-def f32_fwd_case(name, B, S, H, mask_fn, int8, seed, exp2_rate):
+def least_time_designs(designs: dict) -> tuple[float, str, str, dict]:
+    """The bound of work that more than one design could do: `designs`
+    maps a design to its units' times (as least_time takes them). Each
+    design's bound is its largest term; the work's bound the least of
+    those. Returns (seconds, "bytes" or "operations", "design: unit", every
+    term in ms by design)."""
+    best = None
+    for name, times in designs.items():
+        t, by, unit = least_time(times)
+        if best is None or t < best[0]:
+            best = (t, by, f"{name}: {unit}")
+    terms = {name: {u: v * 1e3 for u, v in times.items()}
+             for name, times in designs.items()}
+    return best + (terms,)
+
+
+def f32_fwd_bounds(flops, pairs, nbytes, int8, int8_pv, exp_bf16,
+                   exp2_rate):
+    """Designs of an f32 forward: FFMA on the CUDA cores, or the products
+    on the tensor cores (3xTF32 for an f32 product, two passes for p.v
+    with a bf16 p, int8 for int8 scores and int8_pv); the exp2 on the SFUs
+    and the bytes beside each."""
+    side = {"exp2": pairs / exp2_rate, "bytes": nbytes / PEAK_BYTES}
+    half = flops / 2
+    if int8_pv:
+        return {"int8 tensor cores": {"tensor cores": flops / PEAK_INT8,
+                                      **side}}
+    pv_passes = 2 if exp_bf16 else 3
+    if int8:
+        return {"f32 cores": {"f32 cores": half / PEAK_F32,
+                              "tensor cores": half / PEAK_INT8, **side},
+                "tf32 tensor cores x3": {
+                    "tensor cores": half / PEAK_INT8
+                    + pv_passes * half / PEAK_TF32, **side}}
+    return {"f32 cores": {"f32 cores": flops / PEAK_F32, **side},
+            "tf32 tensor cores x3": {
+                "tensor cores": (3 * half + pv_passes * half) / PEAK_TF32,
+                **side}}
+
+
+def sdpa_f32(q, k, v, mask_fn):
+    """SDPA in f32 on BSHD inputs: (out, a callable that runs it); None
+    where the backend refuses the shape."""
     import torch
     import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    attn_mask = None
+    if mask_fn is not None:
+        i = torch.arange(q.shape[1], device=q.device)
+        attn_mask = mask_fn(i[:, None], i[None, :])
+    call = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=attn_mask)
+    try:
+        return call().transpose(1, 2), call
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        log(json.dumps({"library_refused": "sdpa f32", "error": str(e)[:200]}))
+        return None, None
+
+
+def f32_fwd_case(name, B, S, H, mask_fn, int8, seed, exp2_rates,
+                 int8_pv=False, exp_bf16=False):
+    import functools
+
+    import torch
 
     from landiff_tpu_torch.ops import attention as A
     from landiff_tpu_torch.ops import masks as M
@@ -409,8 +481,14 @@ def f32_fwd_case(name, B, S, H, mask_fn, int8, seed, exp2_rate):
     q = torch.randn((B, S, H, D), generator=g, device=dev) * 1.5
     k = torch.randn((B, S, H, D), generator=g, device=dev)
     v = torch.randn((B, S, H, D), generator=g, device=dev)
-    fn = A.flash_fwd_int8 if int8 else A.flash_fwd_exact
-    plain = A.flash_int8_plain if int8 else A.flash_exact_plain
+    opts = dict(exp_bf16=exp_bf16, **({"int8_pv": int8_pv} if int8 else {}))
+    fn = functools.partial(A.flash_fwd_int8 if int8 else A.flash_fwd_exact,
+                           **opts)
+    # the plain version at the f32 kernels' kv tile: a p rounded to bf16
+    # or int8 is rounded at the same running max
+    plain = functools.partial(
+        A.flash_int8_plain if int8 else A.flash_exact_plain,
+        block_kv=A.F32_BLOCK_KV, **opts)
     out, lse = fn(q, k, v, mask_fn=mask_fn)
     torch.cuda.synchronize()
     ms = cuda_ms(lambda: fn(q, k, v, mask_fn=mask_fn), 2, repeats=3)
@@ -418,65 +496,108 @@ def f32_fwd_case(name, B, S, H, mask_fn, int8, seed, exp2_rate):
     ref, ref_lse = plain(q, k, v, mask_fn=mask_fn)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_vs_f64 = None
+    if not int8:   # the 3xTF32 forms: held to the plain version in float64
+        f32_ref = ref
+        ref, ref_lse = A.f64_reference(plain, q, k, v, mask_fn=mask_fn)
+        plain_vs_f64 = A.kernel_error_rel(f32_ref, ref)
+        del f32_ref
     max_rel, rel_rms = A.kernel_error_rel(out, ref)
+    max_abs = (out - ref).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     tol = A.F32_TOL["fwd"]
-    faults = [f"{what}" for ok, what in (
-        (bool(torch.isfinite(out).all()), "output not finite"),
-        (max_rel <= tol["max_rel"], f"max |err| / max |plain| {max_rel}"),
-        (rel_rms <= tol["rel_rms"], f"relative RMS error {rel_rms}"),
-        (lse_err <= tol["lse"], f"lse error {lse_err}")) if not ok]
+    variant = int8_pv or exp_bf16
+    checks = [(bool(torch.isfinite(out).all()), "output not finite")]
+    card = None
+    if not variant:
+        limits = tol
+        checks += [(max_rel <= tol["max_rel"],
+                    f"max |err| / max |plain| {max_rel}"),
+                   (rel_rms <= tol["rel_rms"], f"relative RMS error {rel_rms}"),
+                   (lse_err <= tol["lse"], f"lse error {lse_err}")]
+    else:
+        limits = A.f32_variant_limits(ref, v, int8=int8, int8_pv=int8_pv,
+                                      exp_bf16=exp_bf16)
+        checks += [(max_abs <= limits["max_abs"], f"max |err| {max_abs}"),
+                   (rel_rms <= limits["rel_rms"],
+                    f"relative RMS error {rel_rms}"),
+                   (lse_err <= limits["lse"], f"lse error {lse_err}")]
+        if exp_bf16:   # the same plain version with the card's own exp2
+            c_out, c_lse = (plain if int8 else functools.partial(
+                A.f64_reference, plain))(
+                q, k, v, mask_fn=mask_fn,
+                exp2_table=A.card_exp2_table("cuda"))
+            card = {"max_abs_err": (out - c_out).abs().max().item(),
+                    "rel_rms_err": A.kernel_error_rel(out, c_out)[1],
+                    "lse_max_abs_err": (lse - c_lse).abs().max().item(),
+                    "limits": limits["card"]}
+            checks += [
+                (card["max_abs_err"] <= limits["card"]["max_abs"],
+                 f"vs card exp2: max |err| {card['max_abs_err']}"),
+                (card["rel_rms_err"] <= limits["card"]["rel_rms"],
+                 f"vs card exp2: relative RMS {card['rel_rms_err']}"),
+                (card["lse_max_abs_err"] <= limits["card"]["lse"],
+                 f"vs card exp2: lse error {card['lse_max_abs_err']}")]
+            limits = {k_: limits[k_] for k_ in limits if k_ != "card"}
+            del c_out, c_lse
     prologue = None
     if int8:
         got, want = A.quantize_k(k), A.quantize_k_plain(k)
         exact = all(torch.equal(a, b) for a, b in zip(got, want))
-        if not exact:
-            faults.append("K quantization prologue differs")
-        prologue = {"ms": cuda_ms(lambda: A.quantize_k(k), 5),
+        checks.append((exact, "K quantization prologue differs"))
+        prologue = {"k_quantization_ms": cuda_ms(lambda: A.quantize_k(k), 5),
                     "exact": exact}
         del got, want
-    library_ms = None   # SDPA in f32 (the exact function; int8 has none)
-    if not int8:
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        attn_mask = None
-        if mask_fn is not None:
-            i = torch.arange(S, device=dev)
-            attn_mask = mask_fn(i[:, None], i[None, :])
-        try:
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=attn_mask), 2, repeats=3)
-        except (RuntimeError, torch.OutOfMemoryError) as e:
-            log(json.dumps({"library_refused": name, "error": str(e)[:200]}))
-        del attn_mask
+    else:   # the split prologues against their plain versions, bit for bit
+        s_pad = M.round_up(S, A.F32_BLOCK_KV)
+        exact = all(torch.equal(a, b) for a, b in zip(
+            A.tf32_split(k), A.tf32_split_plain(k))) and all(
+            torch.equal(a, b) for a, b in zip(
+                A.tf32_split_t(v, s_pad), A.tf32_split_t_plain(v, s_pad)))
+        checks.append((exact, "tf32 split prologues differ"))
+        prologue = {"split_ms": cuda_ms(lambda: A.tf32_split(k), 5),
+                    "split_t_ms": cuda_ms(lambda: A.tf32_split_t(v, s_pad), 5),
+                    "exact": exact}
+    library_ms = sdpa_err = sdpa_kernels = None   # SDPA in f32: the exact
+    if not int8 and not exp_bf16:                  # function only
+        sd, call = sdpa_f32(q, k, v, mask_fn)
+        if sd is not None:
+            sdpa_err = A.kernel_error_rel(sd, ref)
+            library_ms = cuda_ms(call, 2, repeats=3)
+            sdpa_kernels = device_kernels(call)
+        del sd, call
     visible = M.visible_count(mask_fn, S, S, device="cuda")
     flops = 4.0 * B * H * visible * D
-    times = {"f32 cores": flops / PEAK_F32,
-             "exp2": B * H * visible / exp2_rate,
-             "bytes": (4 * B * S * H * D * 4 + B * H * S * 4) / PEAK_BYTES}
-    if int8:   # q.k in int8 at the tensor cores' rate: a lower bound
-        times = {"f32 cores": flops / 2 / PEAK_F32,
-                 "tensor cores": flops / 2 / PEAK_INT8,
-                 "exp2": times["exp2"], "bytes": times["bytes"]}
-    bound_s, bound_by, unit = least_time(times)
-    kname = A.variant_name(int8, f32=True)
+    nbytes = 4 * B * S * H * D * 4 + B * H * S * 4
+    designs = f32_fwd_bounds(flops, B * H * visible, nbytes, int8, int8_pv,
+                             exp_bf16, exp2_rates[exp_bf16])
+    bound_s, bound_by, unit, terms = least_time_designs(designs)
+    kname = A.variant_name(int8, int8_pv, exp_bf16, f32=True)
     res = {"case": name, "shape": [B, S, H, D], "dtype": "float32",
-           "visible_pairs": visible, "max_abs_err": (out - ref).abs().max()
-           .item(), "max_rel_err": max_rel, "rel_rms_err": rel_rms,
-           "lse_max_abs_err": lse_err, "limits": tol, "ms": ms,
-           "plain_ms": plain_ms, "k_quantization": prologue,
-           "library_ms": library_ms, "bound_ms": bound_s * 1e3,
+           "visible_pairs": visible, "max_abs_err": max_abs,
+           "max_rel_err": max_rel, "rel_rms_err": rel_rms,
+           "lse_max_abs_err": lse_err, "limits": limits,
+           "vs_card_exp2": card, "plain_f32_vs_f64": plain_vs_f64,
+           "ms": ms, "plain_ms": plain_ms,
+           "prologue": prologue, "library_ms": library_ms,
+           "sdpa_vs_plain": sdpa_err, "sdpa_kernels": sdpa_kernels,
+           "bound_ms": bound_s * 1e3,
            "bound_by": bound_by, "bound_unit": unit,
-           "bound_terms_ms": {u: t * 1e3 for u, t in times.items()},
-           "tflops": flops / (ms * 1e-3) / 1e12}
+           "bound_terms_ms": terms, "tflops": flops / (ms * 1e-3) / 1e12}
     log(json.dumps({"kernel": kname, **res}))
     res["name"] = kname
-    res["faults"] = [f"{kname} {name}: {f}" for f in faults]
+    res["faults"] = [f"{kname} {name}: {what}" for ok, what in checks
+                     if not ok]
     del q, k, v, out, ref, lse, ref_lse
     torch.cuda.empty_cache()
     return res
 
 
-def f32_bwd_case(name, B, S, H, mask_fn, seed, exp2_rate):
+def f32_bwd_case(name, B, S, H, mask_fn, seeds, exp2_rate):
+    """The f32 backward against the plain version in float64 on inputs
+    from each of `seeds` (its largest errors over them are the case's);
+    timed, with the prologue, SDPA and the run-to-run check, on the
+    first."""
     import torch
     import torch.nn.functional as F
 
@@ -484,33 +605,49 @@ def f32_bwd_case(name, B, S, H, mask_fn, seed, exp2_rate):
     from landiff_tpu_torch.ops import masks as M
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed)
     D = 64
-    r = lambda: torch.randn((B, S, H, D), generator=g, device=dev)
-    q, k, v, do = r() * 1.5, r(), r(), r()
-    out, lse = A.flash_fwd_exact(q, k, v, mask_fn=mask_fn)
-    call = lambda: A.flash_bwd(q, k, v, out, lse, do, mask_fn=mask_fn)
-    got = call()
-    torch.cuda.synchronize()
+    tol = A.F32_TOL["bwd"]
+    by_seed, faults = {}, []
+    for seed in reversed(seeds):   # the first seed's tensors stay
+        g = torch.Generator(device=dev).manual_seed(seed)
+        r = lambda: torch.randn((B, S, H, D), generator=g, device=dev)
+        q, k, v, do = r() * 1.5, r(), r(), r()
+        out, lse = A.flash_fwd_exact(q, k, v, mask_fn=mask_fn)
+        call = lambda: A.flash_bwd(q, k, v, out, lse, do, mask_fn=mask_fn)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = call()
+        torch.cuda.synchronize()
+        temp_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        want = A.f64_reference(A.flash_bwd_plain, q, k, v, out, lse, do,
+                               mask_fn=mask_fn)
+        errs = {}
+        for tname, gt, wt in zip(("dq", "dk", "dv"), got, want):
+            max_rel, rel_rms = A.kernel_error_rel(gt, wt)
+            errs[tname] = {"max_abs_err": (gt - wt).abs().max().item(),
+                           "max_rel_err": max_rel, "rel_rms_err": rel_rms}
+            for ok, what in (
+                    (bool(torch.isfinite(gt).all()), "not finite"),
+                    (max_rel <= tol["max_rel"], f"max |err| / max {max_rel}"),
+                    (rel_rms <= tol["rel_rms"], f"relative RMS {rel_rms}")):
+                if not ok:
+                    faults.append(f"flash_bwd_f32 {name} seed {seed} "
+                                  f"{tname}: {what}")
+        by_seed[seed] = errs
+        if seed != seeds[0]:
+            del q, k, v, do, out, lse, got, want
+    errs = {t: {m: max(e[t][m] for e in by_seed.values())
+                for m in by_seed[seeds[0]][t]} for t in ("dq", "dk", "dv")}
     again = call()
     ms = cuda_ms(call, 1, repeats=3)
     t0 = time.perf_counter()
-    want = A.flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mask_fn)
+    plain = A.flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mask_fn)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    tol = A.F32_TOL["bwd"]
-    errs, faults = {}, []
+    plain_vs_f64 = {tname: A.kernel_error_rel(x, y) for tname, x, y in
+                    zip(("dq", "dk", "dv"), plain, want)}
+    del plain
     prep_ms, prep_err = bwd_prep_check(name, q, out, lse, do, faults)
-    for tname, gt, wt in zip(("dq", "dk", "dv"), got, want):
-        max_rel, rel_rms = A.kernel_error_rel(gt, wt)
-        errs[tname] = {"max_abs_err": (gt - wt).abs().max().item(),
-                       "max_rel_err": max_rel, "rel_rms_err": rel_rms}
-        for ok, what in (
-                (bool(torch.isfinite(gt).all()), "not finite"),
-                (max_rel <= tol["max_rel"], f"max |err| / max {max_rel}"),
-                (rel_rms <= tol["rel_rms"], f"relative RMS {rel_rms}")):
-            if not ok:
-                faults.append(f"flash_bwd_f32 {name} {tname}: {what}")
     for tname, a, b in zip(("dk", "dv"), got[1:], again[1:]):
         if not torch.equal(a, b):
             faults.append(f"flash_bwd_f32 {name}: {tname} differs "
@@ -519,8 +656,8 @@ def f32_bwd_case(name, B, S, H, mask_fn, seed, exp2_rate):
     spread = {"dq_max_rel": dq_rel, "dq_rel_rms": dq_rms,
               "dq_share_of_elements_differing":
                   (again[0] != got[0]).float().mean().item()}
-    del again, want
-    library_ms = None
+    del again
+    library_ms = sdpa_err = sdpa_kernels = None
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     attn_mask = None
@@ -530,50 +667,66 @@ def f32_bwd_case(name, B, S, H, mask_fn, seed, exp2_rate):
     try:
         o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask)
         dot = do.transpose(1, 2)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(
-            o, (qt, kt, vt), dot, retain_graph=True), 1, repeats=3)
-        del o
+        grads = torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+        sdpa_err = {tname: A.kernel_error_rel(gr.transpose(1, 2), wt)
+                    for tname, gr, wt in zip(("dq", "dk", "dv"), grads,
+                                             want)}
+        del grads
+        sdpa_bwd = lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                               retain_graph=True)
+        library_ms = cuda_ms(sdpa_bwd, 1, repeats=3)
+        sdpa_kernels = device_kernels(sdpa_bwd)
+        del o, sdpa_bwd
     except (RuntimeError, torch.OutOfMemoryError) as e:
         log(json.dumps({"library_refused": name, "error": str(e)[:200]}))
-    del qt, kt, vt, attn_mask
+    del qt, kt, vt, attn_mask, want
     visible = M.visible_count(mask_fn, S, S, device="cuda")
     flops = 10.0 * B * H * visible * D
-    times = {"f32 cores": flops / PEAK_F32,
-             "exp2": B * H * visible / exp2_rate,
-             "bytes": (8 * B * S * H * D * 4 + B * H * S * 4) / PEAK_BYTES}
-    bound_s, bound_by, unit = least_time(times)
+    side = {"exp2": B * H * visible / exp2_rate,
+            "bytes": (8 * B * S * H * D * 4 + B * H * S * 4) / PEAK_BYTES}
+    bound_s, bound_by, unit, terms = least_time_designs({
+        "f32 cores": {"f32 cores": flops / PEAK_F32, **side},
+        "tf32 tensor cores x3": {"tensor cores": 3 * flops / PEAK_TF32,
+                                 **side}})
     res = {"case": name, "shape": [B, S, H, D], "dtype": "float32",
-           "visible_pairs": visible, "errors": errs, "limits": tol,
+           "visible_pairs": visible, "seeds": list(seeds), "errors": errs,
+           "errors_by_seed": by_seed, "limits": tol,
            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "plain_f32_vs_f64": plain_vs_f64,
            "run_to_run": spread, "ms": ms, "plain_ms": plain_ms,
            "prep_ms": prep_ms, "prep_delta_max_abs_err": prep_err,
-           "library_ms": library_ms, "bound_ms": bound_s * 1e3,
+           "temporaries_gb": temp_gb, "library_ms": library_ms,
+           "sdpa_vs_plain": sdpa_err, "sdpa_kernels": sdpa_kernels,
+           "bound_ms": bound_s * 1e3,
            "bound_by": bound_by, "bound_unit": unit,
-           "bound_terms_ms": {u: t * 1e3 for u, t in times.items()},
-           "tflops": flops / (ms * 1e-3) / 1e12, "faults": faults}
+           "bound_terms_ms": terms, "tflops": flops / (ms * 1e-3) / 1e12,
+           "faults": faults}
     log(json.dumps({"kernel": "flash_bwd_f32", **res}))
     del q, k, v, do, out, lse, got
     torch.cuda.empty_cache()
     return res
 
 
-def phase_f32(dec, exp2_rate):
-    """Each f32 kernel against its plain version at the training shape
-    (B=1 S=17,776 H=30 D=64) and the TiTok decoder shape, timed beside
-    SDPA in f32 and its bound; ptxas's registers and spills."""
+def phase_f32(dec, exp2_rates):
+    """Each f32 kernel and variant against its plain version at the
+    training shape (B=1 S=17,776 H=30 D=64) and the TiTok decoder shape,
+    timed beside SDPA in f32 (and its error) and the bounds of both
+    designs; ptxas's registers, spills and serialized wgmma (none
+    allowed)."""
     from landiff_tpu_torch.ops import kernels
 
     results = {}
-    for int8 in (False, True):
+    for int8, int8_pv, exp_bf16 in FWD_VARIANTS:
+        kw = dict(int8_pv=int8_pv, exp_bf16=exp_bf16, exp2_rates=exp2_rates)
         dit = f32_fwd_case("dit_train", 1, 17776, 30, None, int8, seed=41,
-                           exp2_rate=exp2_rate)
+                           **kw)
         titok = f32_fwd_case("titok_dec", 1, 18768, 12, dec, int8, seed=42,
-                             exp2_rate=exp2_rate)
+                             **kw)
         results[dit["name"]] = (dit, titok)
-    train = f32_bwd_case("dit_train", 1, 17776, 30, None, seed=43,
-                         exp2_rate=exp2_rate)
-    titok = f32_bwd_case("titok_dec", 1, 18768, 12, dec, seed=44,
-                         exp2_rate=exp2_rate)
+    train = f32_bwd_case("dit_train", 1, 17776, 30, None, F32_BWD_SEEDS[0],
+                         exp2_rate=exp2_rates[False])
+    titok = f32_bwd_case("titok_dec", 1, 18768, 12, dec, F32_BWD_SEEDS[1],
+                         exp2_rate=exp2_rates[False])
     results["flash_bwd_f32"] = (train, titok)
     faults = [f for a, b in results.values() for f in a["faults"]
               + b["faults"]]
@@ -581,26 +734,51 @@ def phase_f32(dec, exp2_rate):
     ptxas = {e: kernels.ptxas_report("flash_f32", e)
              for entries in F32_PTXAS.values() for e in entries}
     for e, rep_ in ptxas.items():
-        check(rep_["spill_stores"] == 0 and rep_["spill_loads"] == 0,
-              f"{e} spills: {rep_}")
-    log(json.dumps({"phase": "f32_ptxas", "ptxas": ptxas}))
+        check(rep_["spill_stores"] == 0 and rep_["spill_loads"] == 0
+              and not rep_["warnings"], f"{e} ptxas: {rep_}")
+    lib = kernels.flash_f32_library()
+    smem = {"flash_fwd_tf32_kernel": lib.landiff_flash_f32_smem_bytes(0),
+            "flash_bwd_tf32_kernel": lib.landiff_flash_f32_smem_bytes(1)}
+    log(json.dumps({"phase": "f32_ptxas", "ptxas": ptxas,
+                    "smem_bytes": smem}))
     results["ptxas"] = ptxas
     return results
 
 
-F32_PTXAS = {"flash_fwd_exact_f32": ("flash_fwd_f32_kernelILb0",),
-             "flash_fwd_int8_f32": ("flash_fwd_f32_kernelILb1",
-                                    "quantize_k_f32"),
-             "flash_bwd_f32": ("flash_bwd_f32_kernel", "bwd_prep_f32")}
+# the f32 backward's inputs at the DiT and the TiTok shape: four seeds
+# each, its limits held on every one
+F32_BWD_SEEDS = ((43, 45, 47, 49), (44, 46, 48, 50))
+
+# ptxas entries of each f32 kernel: the main kernel's instances and the
+# prologues counted with it
+_SPLITS = ("tf32_split_kernel", "tf32_split_t_kernel")
+F32_PTXAS = {
+    "flash_fwd_exact_f32": ("flash_fwd_tf32_kernelILb0ELb0E",
+                            "flash_fwd_tf32_kernelILb0ELb1E") + _SPLITS,
+    "flash_fwd_exact_exp_bf16_f32": ("flash_fwd_tf32_kernelILb1ELb0E",
+                                     "flash_fwd_tf32_kernelILb1ELb1E"),
+    "flash_fwd_int8_f32": ("flash_fwd_i8_f32_kernelILb0ELb0E",
+                           "quantize_k_f32"),
+    "flash_fwd_int8_pv_f32": ("flash_fwd_i8_f32_kernelILb1ELb0E",),
+    "flash_fwd_int8_pv_exp_bf16_f32": ("flash_fwd_i8_f32_kernelILb1ELb1E",),
+    "flash_fwd_int8_exp_bf16_f32": ("flash_fwd_i8_f32_kernelILb0ELb1E",),
+    "flash_bwd_f32": ("flash_bwd_tf32_kernelILb0E",
+                      "flash_bwd_tf32_kernelILb1E", "bwd_prep_f32") + _SPLITS}
 
 
 def f32_entry(name, dit, titok, launches, ptxas):
-    """A row of the kernels line for an f32 kernel."""
+    """A row of the kernels line for an f32 kernel or variant."""
     ptxas = {e: ptxas[e] for e in F32_PTXAS[name]}
-    replaces = {"flash_fwd_exact_f32": REPLACES_FWD[False] + " (f32 refs)",
-                "flash_fwd_int8_f32": REPLACES_FWD[True] + " (f32 refs)",
-                "flash_bwd_f32": "landiff_tpu/ops/attention.py:658 "
-                                 "_flash_bwd_fused_kernel (f32 refs)"}[name]
+    if name == "flash_bwd_f32":
+        replaces = ("landiff_tpu/ops/attention.py:658 "
+                    "_flash_bwd_fused_kernel (f32 refs)")
+    else:
+        int8, pv, eb = ("int8" in name, "_pv" in name, "exp_bf16" in name)
+        replaces = REPLACES_FWD[int8] + (
+            ", int8_pv :338-348" if pv else "") + (
+            ", exp_bf16 _softmax_tile :37-57" if eb else "") + " (f32 refs)"
+    redesigned = name in ("flash_fwd_exact_f32", "flash_fwd_exact_exp_bf16_f32",
+                          "flash_bwd_f32")
     return {"name": name, "route": "cuda",
             "source": "landiff_tpu_torch/ops/csrc/flash_f32.cu",
             "replaces": replaces, "launches": launches,
@@ -609,10 +787,54 @@ def f32_entry(name, dit, titok, launches, ptxas):
             "bound_by": dit["bound_by"], "library_ms": dit["library_ms"],
             "bound_unit": dit["bound_unit"],
             "bound_terms_ms": dit["bound_terms_ms"], "tflops": dit["tflops"],
+            "sdpa_vs_plain": dit["sdpa_vs_plain"],
+            "design": ("redesigned: wgmma 3xTF32, TMA" if redesigned
+                       else "SIMT (FFMA / DP4A)"),
             "ptxas": ptxas, "shape": dit["shape"], "dtype": "float32",
             "titok_dec": {k: titok[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "max_abs_err")}}
+
+
+def phase_direct_f32():
+    """The f32 variants on their paths, at the DiT shape in f32: the
+    dispatcher attention() under LANDIFF_ATTN_INT8_PV=1 (its int8 route:
+    int8_pv), and flash_attention under the knobs of each exp_bf16
+    variant. Counts reset just before and read just after: one launch of
+    each, none of anything else."""
+    import torch
+
+    from landiff_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (torch.randn((1, 17776, 30, 64), generator=g, device="cuda")
+               for _ in range(3))
+    settings = {
+        "flash_fwd_int8_pv_f32": ("attention", {"LANDIFF_ATTN_INT8_PV": "1"}),
+        "flash_fwd_exact_exp_bf16_f32": (
+            "flash_attention", {"LANDIFF_ATTN_EXP_BF16": "1"}),
+        "flash_fwd_int8_exp_bf16_f32": (
+            "flash_attention", {"LANDIFF_ATTN_INT8": "1",
+                                "LANDIFF_ATTN_EXP_BF16": "1"}),
+        "flash_fwd_int8_pv_exp_bf16_f32": (
+            "flash_attention", {"LANDIFF_ATTN_INT8": "1",
+                                "LANDIFF_ATTN_EXP_BF16": "1",
+                                "LANDIFF_ATTN_INT8_PV": "1"})}
+    reset_counts()
+    for entry, env in settings.values():
+        with knobs(**env):
+            out = getattr(A, entry)(q, k, v)
+            check(out.shape == q.shape and bool(torch.isfinite(out).all()),
+                  f"{entry} in f32 under {env}: {tuple(out.shape)}")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {k_: 1 if k_ in settings else 0 for k_ in launches}
+    check(launches == want, f"f32 direct launches {launches}, want {want}")
+    log(json.dumps({"phase": "direct_f32", "settings": settings,
+                    "launches": launches}))
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return launches
 
 
 def titok_decoder_mask():
@@ -875,9 +1097,10 @@ def bwd_case(name, B, S, H, mask_fn, seed, exp2_rate):
 
 def bwd_prep_check(name, q, out, lse, do, faults):
     """The backward's prologue (flash_bwd_prep) against its plain version:
-    q' and the padded lse exactly, delta within 1e-5 (the order of a
-    64-term f32 sum), the dq workspace all zeros. Returns (its ms, delta's
-    max |err|); a miss goes to `faults`."""
+    q' (bf16; the f32 kernel makes it itself) and the padded lse exactly,
+    delta within 1e-5 (the order of a 64-term f32 sum), the dq workspace
+    all zeros. Returns (its ms, delta's max |err|); a miss goes to
+    `faults`."""
     import torch
 
     from landiff_tpu_torch.ops import attention as A
@@ -886,7 +1109,9 @@ def bwd_prep_check(name, q, out, lse, do, faults):
     got = call()
     want = A.flash_bwd_prep_plain(q, out, lse, do)
     err = (got[2] - want[2]).abs().max().item()
-    for ok, what in ((torch.equal(got[0], want[0]), "q' differs"),
+    qs_ok = (got[0] is None if q.dtype == torch.float32
+             else torch.equal(got[0], want[0]))
+    for ok, what in ((qs_ok, "q' differs"),
                      (torch.equal(got[1], want[1]), "padded lse differs"),
                      (err <= 1e-5 + 1e-5 * want[2].abs().max().item(),
                       f"delta max |err| {err}"),
@@ -1751,6 +1976,25 @@ def profiled(fn, what):
                  "calls": e.count} for e in top]}))
 
 
+def device_kernels(fn):
+    """The device kernels of one fn() call (after the caller warmed it),
+    by torch.profiler: [{"kernel": name, "ms": device time}], or "not
+    measured" where the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = [{"kernel": e.key[:300], "ms": e.self_device_time_total / 1e3}
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0]
+    return found or "not measured"
+
+
 def kernel_kind(name):
     low = name.lower()
     if "flash_fwd_kernel" in low:
@@ -2254,7 +2498,8 @@ def main():
         phase_drift()
         return
     if args.only == "f32":
-        phase_f32(titok_decoder_mask(), exp2_rates()[False])
+        phase_f32(titok_decoder_mask(), exp2_rates())
+        phase_direct_f32()
         return
     if args.only == "long_video":
         cfg, llm, dif = build_full(args.steps)
@@ -2283,7 +2528,8 @@ def main():
     adaln = phase_adaln()
     # 3b. the drift gates; 3c. the f32 kernels
     drift = phase_drift()
-    f32 = phase_f32(dec_mask, measured.pop("rates")[False])
+    f32 = phase_f32(dec_mask, measured.pop("rates"))
+    f32_direct_launches = phase_direct_f32()
     # 4. the pipeline; 5. prompt -> codes -> video; 6. stage 2 alone
     cfg, llm, dif = build_full(args.steps)
     video_launches = phase_video(cfg, llm, dif, args.steps)
@@ -2370,11 +2616,18 @@ def main():
         "flash_fwd_exact_f32": f32_train_launches["flash_fwd_exact_f32"],
         "flash_fwd_int8_f32": ckpt_launches["flash_fwd_int8_f32"],
         "flash_bwd_f32": f32_train_launches["flash_bwd_f32"]}
+    # the f32 variants on the dispatcher (int8_pv) and the direct entry
+    for name in ("flash_fwd_exact_exp_bf16_f32", "flash_fwd_int8_pv_f32",
+                 "flash_fwd_int8_pv_exp_bf16_f32",
+                 "flash_fwd_int8_exp_bf16_f32"):
+        f32_launches[name] = f32_direct_launches[name]
     for name, n in f32_launches.items():
         check(n > 0, f"{name} never launched on its path")
         dit, titok = f32[name]
         rows.append(f32_entry(name, dit, titok, n, f32["ptxas"]))
-    rows[-2]["launches_train_f32"] = f32_train_launches["flash_fwd_int8_f32"]
+        if name == "flash_fwd_int8_f32":
+            rows[-1]["launches_train_f32"] = \
+                f32_train_launches["flash_fwd_int8_f32"]
     log(json.dumps({"phase": "done",
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": rows}))

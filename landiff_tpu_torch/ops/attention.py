@@ -38,10 +38,14 @@ The kernels replace the Pallas kernels `_flash_kernel` (:91),
 `_flash_bwd_fused_kernel` (:658) of landiff_tpu/ops/attention.py; see
 csrc/flash_fwd.cu and csrc/flash_bwd.cu for their bounds on the H100 and
 the design. They take bf16 and f32 inputs: f32 ones go to the f32 forms
-in csrc/flash_f32.cu (the exact and int8-score forwards, the backward;
-counted under the names ending in _f32, `F32_KERNELS`), which keep p in
-f32 as the JAX kernels do given f32 refs. `save_flash_residuals_context`
-keeps `_FlashDiff`'s out / lse across a layer checkpoint
+in csrc/flash_f32.cu (the exact and int8-score forwards with their
+int8_pv / exp_bf16 variants, the backward; counted under the names ending
+in _f32, `F32_KERNELS`), which keep p in f32 as the JAX kernels do given
+f32 refs. The exact forward and the backward take their products on the
+tensor cores in three TF32 passes ("3xTF32") on split copies of their
+operands, which their prologues make (`tf32_split`, `tf32_split_t`, each
+with a plain version). `save_flash_residuals_context` keeps
+`_FlashDiff`'s out / lse across a layer checkpoint
 (LANDIFF_REMAT_SAVE_ATTN).
 """
 
@@ -73,9 +77,15 @@ KERNEL_HEAD_DIM = 64
 # backward's default kv block follow them
 BWD_BLOCK_Q = 64
 BWD_BLOCK_KV = 128
-# the f32 kernels' tiles (csrc/flash_f32.cu kT): 64 q rows x 64 kv rows in
-# the forwards and the backward
+# the f32 kernels' tiles (csrc/flash_f32.cu): the int8-score forward 64 q
+# rows x 64 kv rows (kT); the 3xTF32 exact forward 128 q rows (kFwdBQ) x 64
+# kv rows (kFwdBKV); the 3xTF32 backward per 64-row kv tile its 64-row q
+# tiles (kBwdBKV, kBwdBQ). Compared with the kernels on the card, the plain
+# versions take the f32 forwards' kv tile (F32_BLOCK_KV), so that a p
+# rounded to bf16 or int8 is rounded at the same running max.
 F32_BLOCK = 64
+F32_FWD_BLOCK_Q = 128
+F32_BLOCK_KV = 64
 # JAX's default kv block (flash_attention block_kv=1024), which is also the
 # int8_pv V-scale block: one scale per (b, h, block of this many rows)
 JAX_BLOCK_KV = 1024
@@ -213,7 +223,98 @@ def quantize_v_blocks(v: torch.Tensor, v_block: int):
 
 
 # ---------------------------------------------------------------------------
+# the 3xTF32 split (csrc/flash_f32.cu: cvt.rna.tf32.f32)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to tf32 (10 mantissa bits, ties away from zero, as
+    cvt.rna.tf32.f32): its low 13 bits cleared after adding half of the
+    last kept one. x finite."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split_plain(x: torch.Tensor):
+    """(hi, lo): hi = tf32(x), lo = tf32(x - hi), f32 tensors like x; x -
+    hi is exact, so |x - hi - lo| <= 2^-22 |x| for normal x, and a.b =
+    hi.hi + hi.lo + lo.hi to about 2^-21 |a||b|. Plain version of the
+    split prologue (csrc/flash_f32.cu landiff_tf32_split)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def tf32_split_t_plain(x: torch.Tensor, s_pad: int):
+    """The split of x (B, S, H, D) transposed to (B, H, D, s_pad), zero
+    where s >= S, each 8-row group of s permuted: position j holds s 2j for j <
+    4, 2(j - 4) + 1 after, the order in which an accumulator's registers
+    hold the columns of its 8-column groups (so the kernels take p and ds
+    as wgmma A fragments as they lie). Plain version of
+    csrc/flash_f32.cu landiff_tf32_split_t."""
+    S = x.shape[1]
+    xt = torch.nn.functional.pad(x.float().permute(0, 2, 3, 1), (0, s_pad - S))
+    j = torch.arange(s_pad, device=x.device) % 8
+    src = torch.arange(s_pad, device=x.device) - j + torch.where(
+        j < 4, 2 * j, 2 * (j - 4) + 1)
+    return tf32_split_plain(xt[..., src].contiguous())
+
+
+def tf32_split(x: torch.Tensor):
+    """tf32_split_plain's result: on a CUDA tensor (contiguous f32) by one
+    launch of the split prologue (csrc/flash_f32.cu), which the 3xTF32
+    kernels' wrappers launch before their main kernel and count with it;
+    on a CPU tensor by the plain version."""
+    if x.device.type == "cpu":
+        return tf32_split_plain(x)
+    from landiff_tpu_torch.ops import kernels
+
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() % 4 \
+            or x.data_ptr() % 16:
+        raise ValueError("tf32_split takes a contiguous, 16-byte aligned "
+                         "f32 tensor of a multiple of 4 elements")
+    hi, lo = torch.empty_like(x), torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = kernels.flash_f32_library().landiff_tf32_split(
+            x.data_ptr(), hi.data_ptr(), lo.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tf32 split launch failed: cudaError {rc}")
+    return hi, lo
+
+
+def tf32_split_t(x: torch.Tensor, s_pad: int):
+    """tf32_split_t_plain's result: on a CUDA tensor (contiguous f32 BSHD,
+    head dim 64, s_pad a multiple of 64) by one launch of the transposing
+    split prologue (csrc/flash_f32.cu); on a CPU tensor by the plain
+    version."""
+    if x.device.type == "cpu":
+        return tf32_split_t_plain(x, s_pad)
+    from landiff_tpu_torch.ops import kernels
+
+    _check_inputs(x, x, x)
+    B, S, H, D = x.shape
+    if x.dtype != torch.float32 or s_pad % 64 or s_pad < S:
+        raise ValueError(f"tf32_split_t takes f32 and s_pad a multiple of "
+                         f"64 >= {S}, got {x.dtype}, {s_pad}")
+    hi = torch.empty((B, H, D, s_pad), dtype=torch.float32, device=x.device)
+    lo = torch.empty_like(hi)
+    with torch.cuda.device(x.device):
+        rc = kernels.flash_f32_library().landiff_tf32_split_t(
+            x.data_ptr(), hi.data_ptr(), lo.data_ptr(), B, S, H, s_pad,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tf32 split_t launch failed: cudaError {rc}")
+    return hi, lo
+
+
+# ---------------------------------------------------------------------------
 # plain versions of the kernels
+
+
+def _sum_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' working precision: f32 for bf16 and f32 inputs,
+    float64 for float64 ones (a reference for the f32 kernels, rounded to
+    f32 by its caller)."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def exp2_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -266,7 +367,8 @@ def _flash_plain(q, k, v, mask_fn, scale, int8: bool, block_kv: int,
     v_block rows (default v_block_rows(Skv)); acc = acc * alpha +
     (p8 . v8) * (sv * f32(1/127)). The p8 . v8 sums are integers below
     2^24 (block_kv <= 1024), so the f32 product is exact. exp2_table (a
-    card_exp2_table) replaces the bf16 exp2 by a lookup."""
+    card_exp2_table) replaces the bf16 exp2 by a lookup. The sums are f32
+    (float64 for float64 inputs, _sum_dtype)."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     if int8_pv and not int8:
@@ -274,7 +376,7 @@ def _flash_plain(q, k, v, mask_fn, scale, int8: bool, block_kv: int,
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     qscale = _f32(scale * LOG2E, q.device)
-    dev = q.device
+    dev, cdt = q.device, _sum_dtype(q)
     if int8:
         codes, sq = quantize_q_rows(q, float(scale * LOG2E))
         qq = codes.permute(0, 2, 1, 3)                  # (B, H, Sq, D)
@@ -283,8 +385,8 @@ def _flash_plain(q, k, v, mask_fn, scale, int8: bool, block_kv: int,
         kk = k8.float().permute(0, 2, 3, 1)             # (B, H, D, Skv)
         sk = sk.permute(0, 2, 1)                        # (B, H, Skv)
     else:
-        qq = (q.float() * qscale).to(q.dtype).float().permute(0, 2, 1, 3)
-        kk = k.float().permute(0, 2, 3, 1)
+        qq = (q.to(cdt) * qscale).to(q.dtype).to(cdt).permute(0, 2, 1, 3)
+        kk = k.to(cdt).permute(0, 2, 3, 1)
     vv = v.permute(0, 2, 1, 3)                          # (B, H, Skv, D)
     if int8_pv:
         v_block = v_block_rows(Skv) if v_block is None else v_block
@@ -294,9 +396,9 @@ def _flash_plain(q, k, v, mask_fn, scale, int8: bool, block_kv: int,
         v8, sv = quantize_v_blocks(v, v_block)
         vv = v8.float().transpose(-1, -2)               # (B, H, Skv_p, D)
         svs = sv * _f32(INV127, dev)                    # (B, H, nvb)
-    m = torch.full((B, H, Sq, 1), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, H, Sq, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
+    m = torch.full((B, H, Sq, 1), NEG_INF, dtype=cdt, device=dev)
+    l = torch.zeros((B, H, Sq, 1), dtype=cdt, device=dev)
+    acc = torch.zeros((B, H, Sq, D), dtype=cdt, device=dev)
     qi = torch.arange(Sq, device=dev)[:, None]
     for j0 in range(0, Skv, block_kv):
         j1 = min(j0 + block_kv, Skv)
@@ -317,8 +419,8 @@ def _flash_plain(q, k, v, mask_fn, scale, int8: bool, block_kv: int,
                   exp2_table[d.view(torch.int16).long() & 0xffff])
             if keep is not None:
                 pb = pb * keep.bfloat16()
-            p = pb.float()
-            tile_sum = p.sum(-1, keepdim=True).bfloat16().float()
+            p = pb.to(cdt)
+            tile_sum = p.sum(-1, keepdim=True).bfloat16().to(cdt)
         else:
             p = torch.exp2(s - m_new)
             if keep is not None:
@@ -329,8 +431,8 @@ def _flash_plain(q, k, v, mask_fn, scale, int8: bool, block_kv: int,
             pv = torch.round(p * 127.0) @ vv[:, :, j0:j1]
             acc = acc * alpha + pv * svs[:, :, j0 // v_block, None, None]
         else:
-            acc = acc * alpha + (p.to(v.dtype).float()
-                                 @ vv[:, :, j0:j1].float())
+            acc = acc * alpha + (p.to(v.dtype).to(cdt)
+                                 @ vv[:, :, j0:j1].to(cdt))
         m = m_new
     out = (acc / l.clamp_min(1e-30)).to(q.dtype).permute(0, 2, 1, 3)
     lse = torch.where(l > 0, m + torch.log2(l.clamp_min(1e-30)),
@@ -342,7 +444,8 @@ def flash_exact_plain(q, k, v, *, mask_fn=None, scale=None,
                       block_kv: int = KERNEL_BLOCK_KV,
                       exp_bf16: bool = False, exp2_table=None):
     """Plain version of the exact kernel (_flash_kernel / _cached):
-    returns (out (B, Sq, H, D) q.dtype, lse (B, H, Sq) f32 log2)."""
+    returns (out (B, Sq, H, D) q.dtype, lse (B, H, Sq) log2, f32; float64
+    for float64 inputs)."""
     return _flash_plain(q, k, v, mask_fn, scale, False, block_kv,
                         exp_bf16=exp_bf16, exp2_table=exp2_table)
 
@@ -364,25 +467,24 @@ def flash_bwd_prep_plain(q, out, lse, do, *, scale=None):
     q.dtype, BSHD; lse padded to (B, H, Sq_pad) with +inf past Sq, where
     p = exp2(s - lse) = 0; delta = rowsum(do * out) in f32, (B, H, Sq_pad),
     0 past Sq; the zeroed dq workspace (B, H, Sq_pad, D) f32). Sq_pad
-    rounds Sq up to BWD_BLOCK_Q."""
+    rounds Sq up to BWD_BLOCK_Q. float64 inputs: float64 throughout."""
     B, Sq, H, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    dev = q.device
+    dev, cdt = q.device, _sum_dtype(q)
     sq_pad = masks_lib.round_up(Sq, BWD_BLOCK_Q)
-    qs = (q.float() * _f32(scale * LOG2E, dev)).to(q.dtype)
-    lse_pad = torch.full((B, H, sq_pad), math.inf, dtype=torch.float32,
-                         device=dev)
+    qs = (q.to(cdt) * _f32(scale * LOG2E, dev)).to(q.dtype)
+    lse_pad = torch.full((B, H, sq_pad), math.inf, dtype=cdt, device=dev)
     lse_pad[:, :, :Sq] = lse
-    delta = torch.zeros((B, H, sq_pad), dtype=torch.float32, device=dev)
-    delta[:, :, :Sq] = (do.float() * out.float()).sum(-1).permute(0, 2, 1)
-    ws = torch.zeros((B, H, sq_pad, D), dtype=torch.float32, device=dev)
+    delta = torch.zeros((B, H, sq_pad), dtype=cdt, device=dev)
+    delta[:, :, :Sq] = (do.to(cdt) * out.to(cdt)).sum(-1).permute(0, 2, 1)
+    ws = torch.zeros((B, H, sq_pad, D), dtype=cdt, device=dev)
     return qs, lse_pad, delta, ws
 
 
 def dq_from_workspace(ws, q_len: int, dtype):
-    """dq (B, Sq, H, D) in `dtype` from the f32 workspace (B, H, Sq_pad,
-    D) the backward adds into: rows past Sq dropped, cast, permuted."""
+    """dq (B, Sq, H, D) in `dtype` from the workspace (B, H, Sq_pad, D)
+    the backward adds into: rows past Sq dropped, cast, permuted."""
     return ws[:, :, :q_len].permute(0, 2, 1, 3).to(dtype).contiguous()
 
 
@@ -396,24 +498,25 @@ def flash_bwd_plain(q, k, v, out, lse, do, *, mask_fn=None, scale=None,
     scale*ds rounded to q.dtype before dv += p^T.do, dk += (scale*ds)^T.q,
     dq += (scale*ds).k; every sum in f32. The roundings are per element,
     so the tiles (block_q None: all q rows at once) change only the order
-    of the f32 sums. q', delta and the padded lse come from the prologue's
-    plain version, and dq is summed in its workspace, as the kernel does.
+    of the f32 sums (float64 for float64 inputs, _sum_dtype). q', delta
+    and the padded lse come from the prologue's plain version, and dq is
+    summed in its workspace, as the kernel does.
     lse: (B, H, Sq) log2, from the exact forward. Returns (dq, dk, dv) in
     the inputs' dtypes."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    dev, dt = q.device, q.dtype
+    dev, dt, cdt = q.device, q.dtype, _sum_dtype(q)
     bq = Sq if block_q is None else block_q
-    bhsd = lambda x: x.float().permute(0, 2, 1, 3)
+    bhsd = lambda x: x.to(cdt).permute(0, 2, 1, 3)
     qs, lse, delta, dq = flash_bwd_prep_plain(q, out, lse, do, scale=scale)
     qs = bhsd(qs)
     qf, kf, vf, dof = bhsd(q), bhsd(k), bhsd(v), bhsd(do.to(dt))
     delta, lse = delta[..., None], lse[..., None]       # (B, H, Sq_pad, 1)
     sc = _f32(scale, dev)
-    dk = torch.zeros((B, H, Skv, D), dtype=torch.float32, device=dev)
-    dv = torch.zeros((B, H, Skv, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, H, Skv, D), dtype=cdt, device=dev)
+    dv = torch.zeros((B, H, Skv, D), dtype=cdt, device=dev)
     for j0 in range(0, Skv, block_kv):
         j = slice(j0, min(j0 + block_kv, Skv))
         kj, vj = kf[:, :, j], vf[:, :, j]
@@ -425,13 +528,15 @@ def flash_bwd_plain(q, k, v, out, lse, do, *, mask_fn=None, scale=None,
                 keep = mask_fn(
                     torch.arange(i.start, i.stop, device=dev)[:, None],
                     torch.arange(j.start, j.stop, device=dev)[None, :])
-                s = torch.where(keep, s, NEG_INF)
+                # -1e30 as f32, as the forward's lse of a row that sees
+                # nothing: exp2(s - lse) = 1 (then * keep) in float64 too
+                s = torch.where(keep, s, float(np.float32(NEG_INF)))
             pr = torch.exp2(s - lse[:, :, i])
             if keep is not None:
                 pr = pr * keep
             dp = dof[:, :, i] @ vj.transpose(-1, -2)
-            dsb = ((pr * (dp - delta[:, :, i])) * sc).to(dt).float()
-            pb = pr.to(dt).float()
+            dsb = ((pr * (dp - delta[:, :, i])) * sc).to(dt).to(cdt)
+            pb = pr.to(dt).to(cdt)
             dv[:, :, j] += pb.transpose(-1, -2) @ dof[:, :, i]
             dk[:, :, j] += dsb.transpose(-1, -2) @ qf[:, :, i]
             dq[:, :, i] += dsb @ kj
@@ -461,14 +566,24 @@ def kernel_error_rel(out: torch.Tensor, ref: torch.Tensor):
     return (diff.abs().max() / top).item(), rel_rms.item()
 
 
-# The f32 kernels against their plain versions (f32 sums in another order,
-# ex2.approx.ftz.f32 within 2 ulp): max |err| over the largest |plain|
-# output, relative RMS, lse in log2 units. A single-pass TF32 product
-# (10-bit mantissa, about 1e-3 relative) is far outside them.
-# Readings on an H100 at B=1 S=17,776 H=30 (randn inputs, q times 1.5)
-# and at the TiTok decoder's shape and mask: out 4.9e-6 / 2.4e-6, lse
-# 3.8e-6; dq / dk / dv at most 7.7e-7 / 4.2e-7 (dq). The limits are about
-# twice the readings.
+def f64_reference(plain, *tensors, **kw):
+    """`plain` (a plain version) run on float64 copies of its tensor
+    arguments, each result rounded to f32: the f32 function evaluated
+    about exactly, which the 3xTF32 kernels are held to within F32_TOL.
+    The plain version in f32 is no such reference at the main shapes: its
+    own sums err by more than those limits (PERF.md)."""
+    return tuple(x.float() for x in plain(*(t.double() for t in tensors),
+                                          **kw))
+
+
+# The f32 kernels against their plain versions: max |err| over the largest
+# |plain| output, relative RMS, lse in log2 units. A single-pass TF32
+# product (10-bit mantissa, about 1e-3 relative) is far outside them. Set
+# from the readings of the first f32 kernels (FFMA, whose sums ran in the
+# f32 plain versions' own order), about twice them. The 3xTF32 kernels
+# (the exact forward, the backward) are held to the plain version in
+# float64 (f64_reference); the SIMT int8-score forms to the f32 one, whose
+# quantization they share.
 F32_TOL = {"fwd": {"max_rel": 1e-5, "rel_rms": 5e-6, "lse": 1e-5},
            "bwd": {"max_rel": 2e-6, "rel_rms": 1e-6}}
 
@@ -539,21 +654,49 @@ def variant_limits(ref, v, *, int8_pv: bool, exp_bf16: bool,
                      "lse": lse_tol + tile_lse}}
 
 
+# The f32 exact forward's exp_bf16 variant against the plain version with
+# the card's exp2: its 3xTF32 scores differ from the plain version's f32
+# ones in their last bits (about 1e-6), so bf16(s - m) now and then rounds
+# the other way and that p moves by up to 2^-8 of 1. Readings on an H100
+# at the DiT and TiTok shapes (chip_smoke.py): relative RMS error 4.5e-5
+# to 6.6e-5 (the int8-score forms, whose scores are the plain version's,
+# read 0 to 2.4e-6). The limit is about twice the largest reading.
+F32_EXP_BF16_CARD_RMS = 1.5e-4
+
+
+def f32_variant_limits(ref, v, *, int8: bool, int8_pv: bool,
+                       exp_bf16: bool) -> dict:
+    """variant_limits for an f32 forward variant, from the f32 limits
+    (F32_TOL["fwd"]: max |err| max_rel of the largest |ref|, relative RMS,
+    lse), with the exact form's exp_bf16 held against the card's exp2
+    within F32_EXP_BF16_CARD_RMS."""
+    tol = F32_TOL["fwd"]
+    top = max(ref.float().abs().max().item(), 2.0 ** -126)
+    step = 2.0 ** (math.frexp(top)[1] - 8)
+    lim = variant_limits(ref, v, int8_pv=int8_pv, exp_bf16=exp_bf16,
+                         tol_steps=tol["max_rel"] * top / step,
+                         tol_rms=tol["rel_rms"], lse_tol=tol["lse"])
+    if exp_bf16 and not int8:
+        lim["card"]["rel_rms"] = max(lim["card"]["rel_rms"],
+                                     F32_EXP_BF16_CARD_RMS)
+    return lim
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 
 
 @functools.lru_cache(maxsize=32)
 def visibility_tables(mask_fn, q_len: int, kv_len: int, device: str,
-                      kv_major: bool = False, f32: bool = False):
+                      kv_major: bool = False, tiles: tuple | None = None):
     """(count, order, kind) int32 tables on `device` (masks.tile_tables):
     per q tile its visible kv tiles at the forwards' 192 x 128 tiles
     (KERNEL_BLOCK_Q x KERNEL_BLOCK_KV), or with kv_major per kv tile the
     q tiles that see it at the backward's 64 x 128 tiles (BWD_BLOCK_Q x
-    BWD_BLOCK_KV); with f32, at the f32 kernels' 64 x 64 tiles
-    (F32_BLOCK)."""
-    if f32:
-        bq = bkv = F32_BLOCK
+    BWD_BLOCK_KV); `tiles` (q rows, kv rows) sets other tiles (the f32
+    kernels')."""
+    if tiles is not None:
+        bq, bkv = tiles
     else:
         bq, bkv = ((BWD_BLOCK_Q, BWD_BLOCK_KV) if kv_major
                    else (KERNEL_BLOCK_Q, KERNEL_BLOCK_KV))
@@ -596,7 +739,7 @@ def _check_inputs(q, k, v):
 
 
 def _mask_args(mask_fn, Sq: int, Skv: int, dev, kv_major: bool,
-               f32: bool = False):
+               tiles: tuple | None = None):
     """((count, order, kind) pointers, table width, mask descriptor) as
     the kernels take them; no tables for no mask."""
     if mask_fn is None:
@@ -604,7 +747,7 @@ def _mask_args(mask_fn, Sq: int, Skv: int, dev, kv_major: bool,
     if not isinstance(mask_fn, masks_lib.MaskSpec):
         raise TypeError("the flash kernels take a MaskSpec (kernel "
                         f"descriptor) or None, got {mask_fn!r}")
-    tables = visibility_tables(mask_fn, Sq, Skv, str(dev), kv_major, f32)
+    tables = visibility_tables(mask_fn, Sq, Skv, str(dev), kv_major, tiles)
     return (tuple(t.data_ptr() for t in tables), tables[1].shape[1],
             mask_fn.descriptor())
 
@@ -622,8 +765,12 @@ def variant_name(int8: bool, int8_pv: bool = False,
 FWD_VARIANTS = tuple(variant_name(i8, pv, e) for i8, pv in
                      ((False, False), (True, False), (True, True))
                      for e in (False, True))
-F32_KERNELS = (variant_name(False, f32=True), variant_name(True, f32=True),
-               "flash_bwd_f32")
+# the f32 forms: the exact forward, the int8 one, their int8_pv / exp_bf16
+# variants, the backward
+F32_VARIANTS = tuple(variant_name(i8, pv, e, f32=True) for i8, pv in
+                     ((False, False), (True, False), (True, True))
+                     for e in (False, True))
+F32_KERNELS = F32_VARIANTS + ("flash_bwd_f32",)
 LAUNCHES = dict.fromkeys(FWD_VARIANTS + ("flash_bwd",) + F32_KERNELS, 0)
 
 
@@ -681,41 +828,56 @@ def _launch(q, k, v, mask_fn, scale, int8: bool, int8_pv: bool,
 
 def _launch_f32(q, k, v, mask_fn, scale, int8: bool, int8_pv: bool,
                 exp_bf16: bool):
-    """The f32 forwards (csrc/flash_f32.cu): exact, or int8 scores after
-    the f32 K quantization prologue. int8_pv and exp_bf16 are options of
-    the bf16 fast path and have no f32 form."""
+    """The f32 forwards (csrc/flash_f32.cu): the 3xTF32 exact one after its
+    split prologues (K hi / lo, V^T hi / lo), or the int8-score one after
+    the f32 K quantization prologue (with int8_pv, on V codes and scales
+    from quantize_v_blocks, as on the bf16 path)."""
     from landiff_tpu_torch.ops import kernels
 
-    if int8_pv or exp_bf16:
-        raise NotImplementedError(
-            "the int8_pv and exp_bf16 variants take bf16 inputs; their f32 "
-            "forms are not ported yet: ROADMAP queue 2 C")
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     qscale = float(np.float32(scale * LOG2E))
     dev = q.device
-    tables, nk_table, desc = _mask_args(mask_fn, Sq, Skv, dev, False, True)
+    tiles = (F32_BLOCK, F32_BLOCK) if int8 else (F32_FWD_BLOCK_Q,
+                                                  F32_BLOCK_KV)
+    tables, nk_table, desc = _mask_args(mask_fn, Sq, Skv, dev, False, tiles)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = kernels.flash_f32_library()
+    # the prologues' temporaries may be freed when this returns: the
+    # caching allocator hands their memory only to work queued after the
+    # kernel on this stream
     with torch.cuda.device(dev):
         if int8:
             k8, sk = quantize_k(k)
+            v_in, vsc, v_block, skv_p = v, None, 0, 0
+            if int8_pv:
+                v_block = v_block_rows(Skv)
+                v_in, vsc = quantize_v_blocks(v, v_block)
+                skv_p = v_in.shape[-1]
             rc = lib.landiff_flash_fwd_i8_f32(
-                q.data_ptr(), k8.data_ptr(), sk.data_ptr(), v.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), *tables, B, H, Sq, Skv,
-                nk_table, sk.shape[1], qscale, *desc, stream)
+                q.data_ptr(), k8.data_ptr(), sk.data_ptr(), v_in.data_ptr(),
+                None if vsc is None else vsc.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *tables, B, H, Sq, Skv, nk_table,
+                sk.shape[1], qscale, *desc, v_block, skv_p, int(exp_bf16),
+                stream)
         else:
+            skv_pad = masks_lib.round_up(Skv, F32_BLOCK_KV)
+            k_hi, k_lo = tf32_split(k)
+            vt_hi, vt_lo = tf32_split_t(v, skv_pad)
             rc = lib.landiff_flash_fwd_f32(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), *tables, B, H, Sq, Skv, nk_table, qscale,
-                *desc, stream)
+                q.data_ptr(), k_hi.data_ptr(), k_lo.data_ptr(),
+                vt_hi.data_ptr(), vt_lo.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *tables, B, H, Sq, Skv, skv_pad, nk_table,
+                qscale, *desc, int(exp_bf16), stream)
     if rc != 0:
-        raise RuntimeError(f"f32 flash kernel launch failed: cudaError {rc}")
-    LAUNCHES[variant_name(int8, f32=True)] += 1
+        raise RuntimeError(f"f32 flash kernel launch failed: error {rc} (a "
+                           "cudaError; 1000 + a CUresult where a TMA tensor "
+                           "map could not be encoded)")
+    LAUNCHES[variant_name(int8, int8_pv, exp_bf16, f32=True)] += 1
     return out, lse
 
 
@@ -759,20 +921,27 @@ def _launch_bwd_prep(q, out, lse, do, scale):
     B, Sq, H, D = q.shape
     dev = q.device
     sq_pad = masks_lib.round_up(Sq, BWD_BLOCK_Q)
-    qs = torch.empty_like(q)
     lse_pad = torch.empty((B, H, sq_pad), dtype=torch.float32, device=dev)
     delta = torch.empty_like(lse_pad)
-    ws = torch.empty((B, H, sq_pad, D), dtype=torch.float32, device=dev)
-    prep = (kernels.flash_f32_library().landiff_flash_bwd_prep_f32
-            if q.dtype == torch.float32
-            else kernels.flash_bwd_library().landiff_flash_bwd_prep)
+    # the f32 backward sums dq across kv tiles in float64
+    ws = torch.empty((B, H, sq_pad, D), device=dev,
+                     dtype=torch.float64 if q.dtype == torch.float32
+                     else torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = prep(
-            q.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            qs.data_ptr(), lse_pad.data_ptr(), delta.data_ptr(),
-            ws.data_ptr(), B, H, Sq, sq_pad,
-            float(np.float32(scale * LOG2E)),
-            torch.cuda.current_stream(dev).cuda_stream)
+        if q.dtype == torch.float32:   # q' is made in the main kernel
+            qs = None
+            rc = kernels.flash_f32_library().landiff_flash_bwd_prep_f32(
+                out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                lse_pad.data_ptr(), delta.data_ptr(), ws.data_ptr(), B, H,
+                Sq, sq_pad, stream)
+        else:
+            qs = torch.empty_like(q)
+            rc = kernels.flash_bwd_library().landiff_flash_bwd_prep(
+                q.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                qs.data_ptr(), lse_pad.data_ptr(), delta.data_ptr(),
+                ws.data_ptr(), B, H, Sq, sq_pad,
+                float(np.float32(scale * LOG2E)), stream)
     if rc != 0:
         raise RuntimeError(f"flash backward prologue launch failed: "
                            f"cudaError {rc}")
@@ -783,7 +952,10 @@ def flash_bwd_prep(q, out, lse, do, *, scale=None):
     """The backward's prologue alone: (q', padded lse, delta, zeroed dq
     workspace), as flash_bwd_prep_plain returns them. CUDA tensors launch
     landiff_flash_bwd_prep (csrc/flash_bwd.cu), which flash_bwd launches
-    before its main kernel and counts with it; CPU tensors run the plain
+    before its main kernel and counts with it; for f32 inputs
+    landiff_flash_bwd_prep_f32 (csrc/flash_f32.cu), which leaves q' to the
+    main kernel (it scales the raw q tile in registers) and returns None
+    in its place, with a float64 workspace. CPU tensors run the plain
     version."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -800,12 +972,12 @@ def flash_bwd(q, k, v, out, lse, do, *, mask_fn=None, scale=None):
     forward's out and log2 lse (B, H, Sq). CUDA tensors launch the
     prologue (delta, padded lse, q', zeroed dq workspace: the work
     `_flash_bwd_pallas` does outside its kernel, :799) and the main kernel
-    (csrc/flash_bwd.cu, or csrc/flash_f32.cu for f32 inputs), counted once
-    in `LAUNCHES["flash_bwd"]` (`"flash_bwd_f32"`); CPU tensors run
-    flash_bwd_plain. The kernel adds dq by bulk reduce-adds (f32: float4
-    atomics) into the f32 (B, H, Sq_pad, D) workspace, which
-    dq_from_workspace casts at the end, so the last bits of dq vary from
-    run to run; dk and dv do not."""
+    (csrc/flash_bwd.cu, or csrc/flash_f32.cu for f32 inputs, after its
+    split prologues of K and V), counted once in `LAUNCHES["flash_bwd"]`
+    (`"flash_bwd_f32"`); CPU tensors run flash_bwd_plain. The kernel adds
+    dq by bulk reduce-adds into the (B, H, Sq_pad, D) workspace (f32;
+    float64 for f32 inputs), which dq_from_workspace casts at the end, so
+    the last bits of dq may vary from run to run; dk and dv do not."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mask_fn,
                                scale=scale)
@@ -820,18 +992,33 @@ def flash_bwd(q, k, v, out, lse, do, *, mask_fn=None, scale=None):
         scale = 1.0 / math.sqrt(D)
     dev = q.device
     f32 = q.dtype == torch.float32
-    tables, nq_table, desc = _mask_args(mask_fn, Sq, Skv, dev, True, f32)
+    tables, nq_table, desc = _mask_args(
+        mask_fn, Sq, Skv, dev, True, (BWD_BLOCK_Q, F32_BLOCK_KV) if f32
+        else None)
     qs, lse_pad, delta, ws = _launch_bwd_prep(q, out, lse, do, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    bwd = (kernels.flash_f32_library().landiff_flash_bwd_f32 if f32
-           else kernels.flash_bwd_library().landiff_flash_bwd)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = bwd(
-            q.data_ptr(), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse_pad.data_ptr(), delta.data_ptr(),
-            ws.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tables, B, H, Sq,
-            Skv, lse_pad.shape[-1], nq_table, float(np.float32(scale)),
-            *desc, torch.cuda.current_stream(dev).cuda_stream)
+        if f32:   # the kv side split (K, V) and transposed (K^T) once
+            skv_pad = masks_lib.round_up(Skv, F32_BLOCK_KV)
+            k_hi, k_lo = tf32_split(k)
+            v_hi, v_lo = tf32_split(v)
+            kt_hi, kt_lo = tf32_split_t(k, skv_pad)
+            rc = kernels.flash_f32_library().landiff_flash_bwd_f32(
+                q.data_ptr(), k_hi.data_ptr(), k_lo.data_ptr(),
+                v_hi.data_ptr(), v_lo.data_ptr(), kt_hi.data_ptr(),
+                kt_lo.data_ptr(), do.data_ptr(), lse_pad.data_ptr(),
+                delta.data_ptr(), ws.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *tables, B, H, Sq, Skv, lse_pad.shape[-1],
+                skv_pad, nq_table, float(np.float32(scale * LOG2E)),
+                float(np.float32(scale)), *desc, stream)
+        else:
+            rc = kernels.flash_bwd_library().landiff_flash_bwd(
+                q.data_ptr(), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+                do.data_ptr(), lse_pad.data_ptr(), delta.data_ptr(),
+                ws.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tables, B, H,
+                Sq, Skv, lse_pad.shape[-1], nq_table,
+                float(np.float32(scale)), *desc, stream)
     if rc != 0:
         raise RuntimeError(f"flash backward launch failed: error {rc} "
                            "(a cudaError; 1000 + a CUresult where a TMA "

@@ -1,6 +1,6 @@
 // Shared device helpers of the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): the head dim, the backward's q tile, the mask algebra,
-// the SFU's exp2 and bf16 packing.
+// flash_bwd.cu, flash_f32.cu): the head dim, the backward's q tile, the
+// mask algebra, the SFU's exp2 and bf16 packing.
 
 #pragma once
 
@@ -76,6 +76,14 @@ __device__ __forceinline__ bool mask_keep(const P& p, int q, int q_frame,
 __device__ __forceinline__ float exp2_sfu(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two exp2 of a bf16 pair, rounded to bf16 (ex2.approx.ftz.bf16x2): the
+// exp_bf16 variants' p
+__device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {
+  uint32_t y;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
   return y;
 }
 

@@ -150,12 +150,6 @@ __host__ __device__ constexpr uint32_t stage_bytes() {
          (kInt8 ? kFwdBKV * 4 : 0);
 }
 
-__device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {
-  uint32_t y;
-  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
-  return y;
-}
-
 __device__ __forceinline__ float int_to_f32(uint32_t c) {
   return static_cast<float>(static_cast<int>(c));
 }

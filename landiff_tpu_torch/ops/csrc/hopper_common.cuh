@@ -13,6 +13,8 @@
 //   MN-major (the contraction runs down the rows; imm-trans set):
 //     8-row groups 1024 B apart (SBO); the next k16 slice is +2048 B; a
 //     sub-tile starting n columns in is +2n B within the 128-byte row.
+// f32 (tf32) tiles of 64 columns are two such tiles of 32 columns (128-byte
+// rows), 8 KB apart for 64 rows; K-major only, the next k8 slice +32 B.
 // int8 tiles of 128-byte rows (the int8_pv V codes, kv contiguous) use
 // the same layout, K-major, the next k32 slice +32 B. int8 K tiles have
 // 64-byte rows (64 codes of one kv position) and take the 64-byte swizzle
@@ -116,6 +118,19 @@ __device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map,
       ".bulk_group [%0, {%2, %3}], [%1];\n"
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
          "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// element-wise f64 add of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) of shared memory into global memory, in the bulk-async
+// group of the issuing thread
+__device__ __forceinline__ void bulk_reduce_add_f64(double* dst,
+                                                    const void* src,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f64"
+      " [%0], [%1], %2;\n"
+      :: "l"(dst), "r"(smem_addr(src)), "r"(bytes)
       : "memory");
 }
 
@@ -320,6 +335,40 @@ __device__ __forceinline__ void wgmma_rs_n64_s8(uint32_t (&d)[32],
       : LANDIFF_R8(0), LANDIFF_R8(8), LANDIFF_R8(16), LANDIFF_R8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(scale_d));
+}
+
+// d (64 x 64 f32) (+)= A (64 x 8 tf32 in registers) . B (8 x 64 tf32,
+// shared, K-major: 32-bit operands have no transpose); scale_d = 0
+// overwrites d. A is each warp's 16 rows: a[0] (row g, k t), a[1] (g + 8,
+// t), a[2] (g, t + 4), a[3] (g + 8, t + 4), g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void wgmma_rs_n64_tf32(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : LANDIFF_D8(0), LANDIFF_D8(8), LANDIFF_D8(16), LANDIFF_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+// x rounded to tf32 (10 mantissa bits, ties away from zero), as the f32
+// bit pattern with its low 13 bits clear
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// The 3xTF32 split: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact), so
+// a.b = hi.hi + hi.lo + lo.hi up to 2^-21 of |a||b| (lo.lo dropped)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
 }
 
 #undef LANDIFF_R8

@@ -134,23 +134,34 @@ def bind_flash_bwd(path: Path) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def flash_f32_library() -> ctypes.CDLL:
-    """The f32 flash library (exact and int8-score forwards, the K
-    quantization prologue, the backward's prologue and main kernel) with
-    its C signatures declared."""
-    lib = ctypes.CDLL(str(build(["flash_f32"])["flash_f32"]))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    """The f32 flash library (the 3xTF32 exact forward and backward with
+    their split prologues, the int8-score forward and its K quantization
+    prologue, the backward's q-side prologue) with its C signatures
+    declared."""
+    return bind_flash_f32(build(["flash_f32"])["flash_f32"])
+
+
+def bind_flash_f32(path: Path) -> ctypes.CDLL:
+    """A library built from flash_f32.cu, at `path`, with its C signatures
+    declared."""
+    lib = ctypes.CDLL(str(path))
+    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
     lib.landiff_flash_fwd_f32.argtypes = (
-        [ptr] * 8 + [i32] * 5 + [f32] + [i32] * 5 + [ptr])
+        [ptr] * 10 + [i32] * 6 + [f32] + [i32] * 6 + [ptr])
     lib.landiff_flash_fwd_i8_f32.argtypes = (
-        [ptr] * 9 + [i32] * 6 + [f32] + [i32] * 5 + [ptr])
+        [ptr] * 10 + [i32] * 6 + [f32] + [i32] * 8 + [ptr])
     lib.landiff_flash_quantize_k_f32.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
-    lib.landiff_flash_bwd_prep_f32.argtypes = (
-        [ptr] * 8 + [i32] * 4 + [f32, ptr])
+    lib.landiff_tf32_split.argtypes = [ptr] * 3 + [i64, ptr]
+    lib.landiff_tf32_split_t.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.landiff_flash_bwd_prep_f32.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     lib.landiff_flash_bwd_f32.argtypes = (
-        [ptr] * 13 + [i32] * 6 + [f32] + [i32] * 5 + [ptr])
+        [ptr] * 16 + [i32] * 7 + [f32, f32] + [i32] * 5 + [ptr])
+    lib.landiff_flash_f32_smem_bytes.argtypes = [i32]
     for fn in (lib.landiff_flash_fwd_f32, lib.landiff_flash_fwd_i8_f32,
-               lib.landiff_flash_quantize_k_f32,
-               lib.landiff_flash_bwd_prep_f32, lib.landiff_flash_bwd_f32):
+               lib.landiff_flash_quantize_k_f32, lib.landiff_tf32_split,
+               lib.landiff_tf32_split_t, lib.landiff_flash_bwd_prep_f32,
+               lib.landiff_flash_bwd_f32, lib.landiff_flash_f32_smem_bytes):
         fn.restype = i32
     return lib
 

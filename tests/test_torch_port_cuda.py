@@ -24,10 +24,17 @@ versions with the forward's limits widened by what each variant's
 arithmetic can move (attention.variant_limits, as chip_smoke.py holds
 them); the W8A8 product of the DiT to its CPU result bit for bit.
 
+The f32 kernels are held within attention.F32_TOL: the 3xTF32 exact
+forward and backward to the plain version in float64
+(attention.f64_reference), the SIMT int8-score forms to the f32 one; their
+variants within attention.f32_variant_limits.
+
 The adaLN kernel and its plain version both compute in f32 and round
 once: within one bf16 step per element in bf16 (steps taken at the
 element's own size, not below that at 2^-7) and 1e-5 relative + 1e-5
 absolute in f32."""
+
+import functools
 
 import pytest
 import torch
@@ -414,8 +421,9 @@ def test_adaln_kernel_backward_is_the_reference(dev):
 
 
 # ---------------------------------------------------------------------------
-# the f32 kernels (csrc/flash_f32.cu), held to their plain versions in f32
-# within attention.F32_TOL, which a TF32 product would miss by far
+# the f32 kernels (csrc/flash_f32.cu), held to their plain versions (in
+# float64 for the 3xTF32 kernels, attention.f64_reference) within
+# attention.F32_TOL, which a TF32 product would miss by far
 
 
 def _qkv32(dev, B, Sq, Skv, H, seed=0):
@@ -452,7 +460,10 @@ def test_f32_kernel_matches_plain(dev, f32_matmul, int8, mask, Sq, Skv):
     out, lse = fn(q, k, v, mask_fn=mf)
     torch.cuda.synchronize()
     assert TA.LAUNCHES[name] == before + 1 and out.dtype == torch.float32
-    ref, ref_lse = plain(q, k, v, mask_fn=mf)
+    # the 3xTF32 exact form against the plain version in float64
+    ref, ref_lse = (plain if int8 else functools.partial(
+        TA.f64_reference, plain))(q, k, v, mask_fn=mf,
+                                  block_kv=TA.F32_BLOCK_KV)
     tol = TA.F32_TOL["fwd"]
     max_rel, rel_rms = TA.kernel_error_rel(out, ref)
     assert max_rel <= tol["max_rel"] and rel_rms <= tol["rel_rms"], \
@@ -468,20 +479,82 @@ def test_f32_k_quantization_prologue_matches_plain(dev):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_f32_variants_of_the_fast_path_are_refused(dev):
-    q, k, v = _qkv32(dev, 1, 64, 64, 1)
-    for kw in ({"int8_pv": True}, {"exp_bf16": True}):
-        with pytest.raises(NotImplementedError, match="queue 2 C"):
-            TA.flash_fwd_int8(q, k, v, **kw)
+@pytest.mark.parametrize("int8,int8_pv,exp_bf16", [
+    (True, True, False), (True, True, True), (True, False, True),
+    (False, False, True)])
+@pytest.mark.parametrize("mask,Sq,Skv", [(None, 300, 187), ("causal", 333, 333),
+                                         ("decoder", _LAYOUT.seq_len + 100,
+                                          _LAYOUT.seq_len + 100)])
+def test_f32_variants_of_the_fast_path_match_plain(dev, f32_matmul, int8,
+                                                   int8_pv, exp_bf16, mask,
+                                                   Sq, Skv):
+    """The int8_pv and exp_bf16 forms in f32 run their kernels and match
+    their plain versions (at the f32 kernels' kv tile) within
+    attention.f32_variant_limits; the exp_bf16 ones also the plain version
+    with the card's own exp2. f16 is refused."""
+    mf = _MASKS[mask]
+    q, k, v = _qkv32(dev, 2, Sq, Skv, 3, seed=4)
+    opts = dict(exp_bf16=exp_bf16, **({"int8_pv": int8_pv} if int8 else {}))
+    fn, plain = ((TA.flash_fwd_int8, TA.flash_int8_plain) if int8
+                 else (TA.flash_fwd_exact, TA.flash_exact_plain))
+    name = TA.variant_name(int8, int8_pv, exp_bf16, f32=True)
+    before = TA.LAUNCHES[name]
+    out, lse = fn(q, k, v, mask_fn=mf, **opts)
+    torch.cuda.synchronize()
+    assert TA.LAUNCHES[name] == before + 1 and out.dtype == torch.float32
+    if not int8:   # the 3xTF32 exact form: the plain version in float64
+        plain = functools.partial(TA.f64_reference, plain)
+    ref, ref_lse = plain(q, k, v, mask_fn=mf, block_kv=TA.F32_BLOCK_KV,
+                         **opts)
+    lim = TA.f32_variant_limits(ref, v, int8=int8, int8_pv=int8_pv,
+                                exp_bf16=exp_bf16)
+    assert (out - ref).abs().max().item() <= lim["max_abs"]
+    assert TA.kernel_error_rel(out, ref)[1] <= lim["rel_rms"]
+    assert (lse - ref_lse).abs().max().item() <= lim["lse"]
+    if exp_bf16:
+        card, card_lse = plain(q, k, v, mask_fn=mf, block_kv=TA.F32_BLOCK_KV,
+                               exp2_table=TA.card_exp2_table("cuda"), **opts)
+        assert (out - card).abs().max().item() <= lim["card"]["max_abs"]
+        assert TA.kernel_error_rel(out, card)[1] <= lim["card"]["rel_rms"]
+        assert (lse - card_lse).abs().max().item() <= lim["card"]["lse"]
     with pytest.raises(TypeError):
         TA.flash_fwd_exact(q.half(), k.half(), v.half())
+
+
+def test_f32_dispatcher_launches_int8_pv(dev, f32_matmul, monkeypatch):
+    """attention() on f32 inputs under LANDIFF_ATTN_INT8_PV=1 takes the
+    int8_pv kernel on its int8 route (640 positions: two 512-row q
+    blocks) and gives what flash_fwd_int8(int8_pv=True) gives."""
+    monkeypatch.setenv("LANDIFF_ATTN_INT8_PV", "1")
+    q, k, v = _qkv32(dev, 1, 640, 640, 2, seed=6)
+    TA.reset_launch_counts()
+    got = TA.attention(q, k, v, impl="pallas")
+    torch.cuda.synchronize()
+    assert TA.LAUNCHES["flash_fwd_int8_pv_f32"] == 1
+    assert sum(TA.LAUNCHES.values()) == 1
+    want = TA.flash_fwd_int8(q, k, v, int8_pv=True)[0]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,S,H,s_pad", [(2, 300, 3, 320), (1, 64, 1, 64),
+                                         (1, 17, 2, 128)])
+def test_tf32_split_prologues_match_plain(dev, B, S, H, s_pad):
+    """The 3xTF32 kernels' prologues (csrc/flash_f32.cu landiff_tf32_split,
+    landiff_tf32_split_t) give their plain versions bit for bit."""
+    x = torch.randn((B, S, H, 64), device=dev) * 3
+    x[0, 0, 0, :4] = torch.tensor([0.0, -0.0, 1.0 + 2.0 ** -11, 2.0 ** -126])
+    for got, want in ((TA.tf32_split(x), TA.tf32_split_plain(x)),
+                      (TA.tf32_split_t(x, s_pad),
+                       TA.tf32_split_t_plain(x, s_pad))):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("mask,Sq,Skv", _F32_CASES + [(None, 64, 64),
                                                       (None, 100, 369)])
 def test_f32_bwd_kernel_matches_plain(dev, f32_matmul, mask, Sq, Skv):
-    """dq, dk, dv in f32 against the plain version; dk and dv bit-identical
-    from a second call (dq is summed by atomics in no fixed order)."""
+    """dq, dk, dv in f32 against the plain version in float64; dk and dv
+    bit-identical from a second call (dq is summed by bulk reduce-adds in
+    no fixed order)."""
     mf = _MASKS[mask]
     q, k, v = _qkv32(dev, 2, Sq, Skv, 3, seed=1)
     out, lse = TA.flash_fwd_exact(q, k, v, mask_fn=mf)
@@ -491,7 +564,8 @@ def test_f32_bwd_kernel_matches_plain(dev, f32_matmul, mask, Sq, Skv):
     got = TA.flash_bwd(q, k, v, out, lse, do, mask_fn=mf)
     torch.cuda.synchronize()
     assert TA.LAUNCHES["flash_bwd_f32"] == before + 1
-    want = TA.flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mf)
+    want = TA.f64_reference(TA.flash_bwd_plain, q, k, v, out, lse, do,
+                            mask_fn=mf)
     tol = TA.F32_TOL["bwd"]
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and g.dtype == torch.float32
@@ -503,14 +577,18 @@ def test_f32_bwd_kernel_matches_plain(dev, f32_matmul, mask, Sq, Skv):
 
 
 def test_f32_bwd_prologue_matches_plain(dev):
+    """The f32 prologue gives the padded lse exactly, delta within 1e-5
+    and a zeroed float64 dq workspace; q' is left to the main kernel
+    (None)."""
     q, k, v = _qkv32(dev, 2, 187, 187, 3, seed=5)
     out, lse = TA.flash_fwd_exact(q, k, v)
     do = torch.randn(out.shape, device=dev) * 0.5
     got = TA.flash_bwd_prep(q, out, lse, do)
     want = TA.flash_bwd_prep_plain(q, out, lse, do)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[0] is None and torch.equal(got[1], want[1])
     torch.testing.assert_close(got[2], want[2], atol=1e-5, rtol=1e-5)
-    assert torch.equal(got[3], want[3])
+    assert got[3].dtype == torch.float64
+    assert torch.equal(got[3], want[3].double())
 
 
 def test_remat_save_attn_on_the_card(dev, monkeypatch):
