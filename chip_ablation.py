@@ -5,6 +5,7 @@
     python3 chip_ablation.py --kernel bwd base exp2f   # only these
     python3 chip_ablation.py --kernel fwd --rounds 3 base no_mask
     python3 chip_ablation.py --kernel fwd_f32 | bwd_f32   # the 3xTF32 ones
+    python3 chip_ablation.py --kernel fwd_i8_f32          # the f32 int8 one
     python3 chip_ablation.py --kernel bwd_f32 --rounds 1 --seeds 42 43 44
 
 Builds landiff_tpu_torch/ops/csrc/flash_fwd.cu, flash_bwd.cu or
@@ -30,7 +31,16 @@ wrapper with CUDA events, variants in turns, two rounds by default:
   largest |plain|, relative RMS): the passes (one or two TF32 passes
   against three: timed only, never a valid result), the k8 slices per fresh
   accumulator (kFwdGroup, kBwdGroup), the forward's ring depth, the
-  backward's dV^T / dK^T adds, dq product and reduce-add.
+  backward's dV^T / dK^T adds, dq product and reduce-add;
+- fwd_i8_f32: the f32 int8-score forward's four forms (f32 p, int8_pv,
+  int8_pv + exp_bf16, exp_bf16) at the DiT shape and the f32-p form at the
+  TiTok shape, each with its error against attention.int8_f64_reference:
+  three consumer warpgroups against two (a bf16 or int8 p: two against
+  three),
+  the q codes in registers against shared memory, the k8 slices per fresh
+  accumulator of p.v, the ring's depth, the softmax under the last tile's
+  product or after it, and pieces dropped (the exp2, one TF32 pass of p.v,
+  the int8_pv product) to find what binds.
 
 A variant that drops work computes wrong outputs: its time says what that
 work costs in the kernel as scheduled, not what it would cost alone.
@@ -51,7 +61,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "landiff_tpu_torch" / "ops" / "csrc"
 SOURCES = {"fwd": "flash_fwd.cu", "bwd": "flash_bwd.cu",
-           "fwd_f32": "flash_f32.cu", "bwd_f32": "flash_f32.cu"}
+           "fwd_f32": "flash_f32.cu", "bwd_f32": "flash_f32.cu",
+           "fwd_i8_f32": "flash_f32.cu"}
 
 # one TF32 pass (hi.hi) instead of three (csrc/flash_f32.cu mma3, both
 # kernels): the two small passes dropped, hi.hi overwriting on its first
@@ -177,6 +188,44 @@ VARIANTS = {
                            "    if (q0 < 0) mma3<kBwdGroup, true, false>(\n"
                            "        dq,")],
     },
+    "fwd_i8_f32": {
+        "base": [],
+        # the f32-p form at three consumer warpgroups (192-row q tiles, 160
+        # registers each), not two; the forms with a bf16 or int8 p at two
+        # (240 registers), not three
+        "wgs_3": [("constexpr int kI8WGs = 2;", "constexpr int kI8WGs = 3;")],
+        "narrow_wgs_2": [("constexpr int kI8NarrowWGs = 3;",
+                          "constexpr int kI8NarrowWGs = 2;")],
+        # the q codes as a register A operand (wgmma rs), not shared memory
+        "q_regs": [("constexpr bool kI8QSmem = true;",
+                    "constexpr bool kI8QSmem = false;")],
+        # k8 slices of p.v per fresh accumulator: four (two accumulators a
+        # tile), not eight
+        "group_4": [("constexpr int kI8Group = 8;",
+                     "constexpr int kI8Group = 4;")],
+        # a ring of two or four stages, not three
+        "stages_2": [("constexpr int kI8Stages = 3;",
+                      "constexpr int kI8Stages = 2;")],
+        "stages_4": [("constexpr int kI8Stages = 3;",
+                      "constexpr int kI8Stages = 4;")],
+        # the softmax of tile j waits for the product of tile j - 1 too
+        "no_overlap": [("    wgmma_wait<1>();\n    reg_fence(S);\n\n"
+                        "    // ---- the scores in log2 units",
+                        "    wgmma_wait<0>();\n    reg_fence(S);\n\n"
+                        "    // ---- the scores in log2 units")],
+        # no exp2 for p (f32 p: p = s - m; timed only)
+        "no_exp2": [("const float pe = exp2_sfu(as_f32(S[n * 4 + e]) - "
+                     "mu[e >> 1]);",
+                     "const float pe = as_f32(S[n * 4 + e]) - mu[e >> 1];")],
+        # p.v in two TF32 passes (hi.lo dropped; timed only)
+        "two_pass": [("    for (int i = 0; i < kPer; ++i) {           // hi.lo",
+                      "    for (int i = 0; i < 0; ++i) {")],
+        # int8_pv: no p8.v8 product (stale sums added; timed only)
+        "no_pv_product": [("        wgmma_rs_n64_s8(pv, pa[kk], "
+                           "i8_desc(v_b + kk * 32), kk > 0);",
+                           "        if (s_last < 0) wgmma_rs_n64_s8(pv, "
+                           "pa[kk], i8_desc(v_b + kk * 32), kk > 0);")],
+    },
 }
 
 
@@ -271,6 +320,31 @@ def _f32_cases(kernel: str, titok, seeds=None):
     return cases
 
 
+def _i8_f32_cases(titok):
+    """[(case, call, error)] of the f32 int8-score forward: its four forms
+    at the DiT shape, the f32-p form at the TiTok shape; error(output) is
+    (max |err| over the largest |ref|, relative RMS) against
+    attention.int8_f64_reference, computed once here."""
+    from landiff_tpu_torch.ops import attention as A
+
+    cases = []
+    dit = _qkv(1, 17776, 30, 41, 3, f32=True)
+    tk = _qkv(1, 18768, 12, 42, 3, f32=True)
+    forms = ((False, False), (True, False), (True, True), (False, True))
+    for case, args, mask, form in (
+            [(f"dit_{A.variant_name(True, pv, eb)}", dit, None, (pv, eb))
+             for pv, eb in forms]
+            + [("titok_flash_fwd_int8", tk, titok, (False, False))]):
+        opts = dict(int8_pv=form[0], exp_bf16=form[1])
+        ref = A.int8_f64_reference(*args, mask_fn=mask,
+                                   block_kv=A.F32_BLOCK_KV, **opts)[0]
+        call = lambda a=args, m=mask, o=opts: A.flash_fwd_int8(*a, mask_fn=m,
+                                                               **o)
+        err = lambda out, r=ref: A.kernel_error_rel(out[0], r)
+        cases.append((case, call, err))
+    return cases
+
+
 def _cases(kernel: str, seeds=None):
     """[(case, call, error or None)] for the kernel, on inputs made
     once."""
@@ -278,6 +352,8 @@ def _cases(kernel: str, seeds=None):
     from landiff_tpu_torch.ops import attention as A
 
     titok = chip_smoke.titok_decoder_mask()
+    if kernel == "fwd_i8_f32":
+        return _i8_f32_cases(titok)
     if kernel.endswith("_f32"):
         return _f32_cases(kernel, titok, seeds)
     if kernel == "fwd":
@@ -325,12 +401,13 @@ def main():
     from landiff_tpu_torch.ops import kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions
-    lib_attr = {"fwd": "flash_library", "bwd": "flash_bwd_library",
-                "fwd_f32": "flash_f32_library",
-                "bwd_f32": "flash_f32_library"}[args.kernel]
-    bind = {"fwd": kernels.bind_flash_fwd, "bwd": kernels.bind_flash_bwd,
-            "fwd_f32": kernels.bind_flash_f32,
-            "bwd_f32": kernels.bind_flash_f32}[args.kernel]
+    f32 = args.kernel.endswith("_f32")
+    lib_attr = ("flash_f32_library" if f32 else
+                {"fwd": "flash_library", "bwd": "flash_bwd_library"}[
+                    args.kernel])
+    bind = (kernels.bind_flash_f32 if f32 else
+            {"fwd": kernels.bind_flash_fwd,
+             "bwd": kernels.bind_flash_bwd}[args.kernel])
     with tempfile.TemporaryDirectory(prefix="ablation_") as tmp:
         libs = {name: bind(path)
                 for name, path in build(args.kernel, names, Path(tmp)).items()}

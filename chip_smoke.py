@@ -11,7 +11,8 @@
                                                # single calls at full
                                                # width, bf16 and f32
     python3 chip_smoke.py --only f32 | ckpt | long_video | train
-                                       # one of the phases 3c, 8d, 8c, 9
+                                       # one of the phases 3c (with 8e),
+                                       # 8d, 8c, 9
 
 Phases, in order; any failure exits nonzero before the last line:
   1. device:  the card's name and power limit; TF32 off for matmuls and
@@ -50,14 +51,17 @@ Phases, in order; any failure exits nonzero before the last line:
               launches only its variant, 9 times.
   3c. f32:    the f32 kernels (csrc/flash_f32.cu: the 3xTF32 exact
               forward and backward with their split prologues, the
-              int8-score forward, and the int8_pv / exp_bf16 variants)
-              against their plain versions in f32 (attention.F32_TOL,
-              attention.f32_variant_limits; the prologues bit for bit)
-              at the training shape (B=1 S=17,776 H=30) and the TiTok
-              decoder shape, timed beside SDPA in f32 (and its own error
-              against the plain versions) with the bounds of both designs
-              (the CUDA cores' f32 rate, three TF32 passes on the tensor
-              cores); ptxas's registers, spills and serialized wgmma (none
+              int8-score forward with int8 scores and 3xTF32 or int8 p.v,
+              and the int8_pv / exp_bf16 variants) against their plain
+              versions in float64 (attention.f64_reference; the int8
+              forms attention.int8_f64_reference, on four seeds a shape,
+              their scores bit-equal to the plain version's; limits
+              attention.F32_TOL, attention.f32_variant_limits; the
+              prologues bit for bit) at the training shape (B=1 S=17,776
+              H=30) and the TiTok decoder shape, timed beside SDPA in f32
+              (and its own error) with the bounds of both designs (the
+              CUDA cores' f32 rate, the tensor cores: three TF32 passes,
+              int8); ptxas's registers, spills and serialized wgmma (none
               allowed); then the f32 variants on their paths (the
               dispatcher under LANDIFF_ATTN_INT8_PV=1, flash_attention
               under the exp_bf16 knobs), one launch each.
@@ -91,7 +95,10 @@ Phases, in order; any failure exits nonzero before the last line:
               infer_video.generate: 2 x 1,218 codes, 19 latent frames, 73
               frames at 480 x 720, finite, in [0, 1]; seconds per phase and
               per segment; 2 * (12 + 45 * steps) int8 launches.
-  8d. ckpt:   the pipelines are freed; a synthetic checkpoint tree of
+  8e. dit call f32: the pipelines are freed; one full-width f32 DiT model
+              call (CFG batch 2, 45 layers, random weights): seconds, and
+              45 launches of the f32 int8 forward, nothing else.
+  8d. ckpt:   a synthetic checkpoint tree of
               LanDiffConfig() at full width, depth cut (CKPT_DEPTH), in the
               release's layout and names (ckpt/synth.py), loaded through
               build_pipeline(ckpt_dir=...) in f32: every loaded tensor
@@ -466,8 +473,17 @@ def sdpa_f32(q, k, v, mask_fn):
         return None, None
 
 
-def f32_fwd_case(name, B, S, H, mask_fn, int8, seed, exp2_rates,
+def f32_fwd_case(name, B, S, H, mask_fn, int8, seeds, exp2_rates,
                  int8_pv=False, exp_bf16=False):
+    """One f32 forward form at one shape against its plain version in
+    float64 (attention.f64_reference; the int8-score forms
+    attention.int8_f64_reference, whose codes and scores are the
+    kernel's) within attention.F32_TOL or attention.f32_variant_limits,
+    the exp_bf16 forms also against the reference with the card's exp2, on
+    inputs from each of `seeds` (the largest errors over them are the
+    case's); timed, with the prologues, SDPA f32 and, for the int8 forms,
+    the scores' bit-equality check (lse from one kv position is the score),
+    on the first."""
     import functools
 
     import torch
@@ -476,11 +492,7 @@ def f32_fwd_case(name, B, S, H, mask_fn, int8, seed, exp2_rates,
     from landiff_tpu_torch.ops import masks as M
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed)
     D = 64
-    q = torch.randn((B, S, H, D), generator=g, device=dev) * 1.5
-    k = torch.randn((B, S, H, D), generator=g, device=dev)
-    v = torch.randn((B, S, H, D), generator=g, device=dev)
     opts = dict(exp_bf16=exp_bf16, **({"int8_pv": int8_pv} if int8 else {}))
     fn = functools.partial(A.flash_fwd_int8 if int8 else A.flash_fwd_exact,
                            **opts)
@@ -489,48 +501,48 @@ def f32_fwd_case(name, B, S, H, mask_fn, int8, seed, exp2_rates,
     plain = functools.partial(
         A.flash_int8_plain if int8 else A.flash_exact_plain,
         block_kv=A.F32_BLOCK_KV, **opts)
-    out, lse = fn(q, k, v, mask_fn=mask_fn)
-    torch.cuda.synchronize()
-    ms = cuda_ms(lambda: fn(q, k, v, mask_fn=mask_fn), 2, repeats=3)
-    t0 = time.perf_counter()
-    ref, ref_lse = plain(q, k, v, mask_fn=mask_fn)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    plain_vs_f64 = None
-    if not int8:   # the 3xTF32 forms: held to the plain version in float64
-        f32_ref = ref
-        ref, ref_lse = A.f64_reference(plain, q, k, v, mask_fn=mask_fn)
-        plain_vs_f64 = A.kernel_error_rel(f32_ref, ref)
-        del f32_ref
-    max_rel, rel_rms = A.kernel_error_rel(out, ref)
-    max_abs = (out - ref).abs().max().item()
-    lse_err = (lse - ref_lse).abs().max().item()
+    reference = (functools.partial(A.int8_f64_reference,
+                                   block_kv=A.F32_BLOCK_KV, **opts) if int8
+                 else functools.partial(A.f64_reference, plain))
     tol = A.F32_TOL["fwd"]
     variant = int8_pv or exp_bf16
-    checks = [(bool(torch.isfinite(out).all()), "output not finite")]
-    card = None
-    if not variant:
-        limits = tol
-        checks += [(max_rel <= tol["max_rel"],
-                    f"max |err| / max |plain| {max_rel}"),
-                   (rel_rms <= tol["rel_rms"], f"relative RMS error {rel_rms}"),
-                   (lse_err <= tol["lse"], f"lse error {lse_err}")]
-    else:
-        limits = A.f32_variant_limits(ref, v, int8=int8, int8_pv=int8_pv,
-                                      exp_bf16=exp_bf16)
-        checks += [(max_abs <= limits["max_abs"], f"max |err| {max_abs}"),
-                   (rel_rms <= limits["rel_rms"],
-                    f"relative RMS error {rel_rms}"),
-                   (lse_err <= limits["lse"], f"lse error {lse_err}")]
-        if exp_bf16:   # the same plain version with the card's own exp2
-            c_out, c_lse = (plain if int8 else functools.partial(
-                A.f64_reference, plain))(
-                q, k, v, mask_fn=mask_fn,
-                exp2_table=A.card_exp2_table("cuda"))
+    by_seed, faults = {}, []
+    for seed in reversed(seeds):   # the first seed's tensors stay
+        g = torch.Generator(device=dev).manual_seed(seed)
+        q = torch.randn((B, S, H, D), generator=g, device=dev) * 1.5
+        k = torch.randn((B, S, H, D), generator=g, device=dev)
+        v = torch.randn((B, S, H, D), generator=g, device=dev)
+        out, lse = fn(q, k, v, mask_fn=mask_fn)
+        torch.cuda.synchronize()
+        ref, ref_lse = reference(q, k, v, mask_fn=mask_fn)
+        max_rel, rel_rms = A.kernel_error_rel(out, ref)
+        err = {"max_abs_err": (out - ref).abs().max().item(),
+               "max_rel_err": max_rel, "rel_rms_err": rel_rms,
+               "lse_max_abs_err": (lse - ref_lse).abs().max().item()}
+        checks = [(bool(torch.isfinite(out).all()), "output not finite")]
+        if not variant:
+            limits = tol
+            checks += [(max_rel <= tol["max_rel"],
+                        f"max |err| / max |ref| {max_rel}"),
+                       (rel_rms <= tol["rel_rms"],
+                        f"relative RMS error {rel_rms}"),
+                       (err["lse_max_abs_err"] <= tol["lse"],
+                        f"lse error {err['lse_max_abs_err']}")]
+        else:
+            limits = A.f32_variant_limits(ref, v, int8=int8, int8_pv=int8_pv,
+                                          exp_bf16=exp_bf16)
+            checks += [(err["max_abs_err"] <= limits["max_abs"],
+                        f"max |err| {err['max_abs_err']}"),
+                       (rel_rms <= limits["rel_rms"],
+                        f"relative RMS error {rel_rms}"),
+                       (err["lse_max_abs_err"] <= limits["lse"],
+                        f"lse error {err['lse_max_abs_err']}")]
+        if exp_bf16:   # the same reference with the card's own exp2
+            c_out, c_lse = reference(q, k, v, mask_fn=mask_fn,
+                                     exp2_table=A.card_exp2_table("cuda"))
             card = {"max_abs_err": (out - c_out).abs().max().item(),
                     "rel_rms_err": A.kernel_error_rel(out, c_out)[1],
-                    "lse_max_abs_err": (lse - c_lse).abs().max().item(),
-                    "limits": limits["card"]}
+                    "lse_max_abs_err": (lse - c_lse).abs().max().item()}
             checks += [
                 (card["max_abs_err"] <= limits["card"]["max_abs"],
                  f"vs card exp2: max |err| {card['max_abs_err']}"),
@@ -538,23 +550,52 @@ def f32_fwd_case(name, B, S, H, mask_fn, int8, seed, exp2_rates,
                  f"vs card exp2: relative RMS {card['rel_rms_err']}"),
                 (card["lse_max_abs_err"] <= limits["card"]["lse"],
                  f"vs card exp2: lse error {card['lse_max_abs_err']}")]
-            limits = {k_: limits[k_] for k_ in limits if k_ != "card"}
+            err["vs_card_exp2"] = card
             del c_out, c_lse
+        by_seed[seed] = err
+        faults += [f"seed {seed}: {what}" for ok, what in checks if not ok]
+        del out, lse, ref_lse
+        if seed != seeds[0]:
+            del q, k, v, ref
+    plain_vs_f64 = None
+    t0 = time.perf_counter()
+    got_plain = plain(q, k, v, mask_fn=mask_fn)[0]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_vs_f64 = A.kernel_error_rel(got_plain, ref)
+    del got_plain
+    ms = cuda_ms(lambda: fn(q, k, v, mask_fn=mask_fn), 2, repeats=3)
     prologue = None
     if int8:
         got, want = A.quantize_k(k), A.quantize_k_plain(k)
         exact = all(torch.equal(a, b) for a, b in zip(got, want))
-        checks.append((exact, "K quantization prologue differs"))
+        if not exact:
+            faults.append("K quantization prologue differs")
+        # one kv position: p = 1 and lse is that position's score, so the
+        # kernel's q codes and scales (made in the CTA), K's and the order
+        # of the two products are the plain version's if the lse are equal
+        lse1 = fn(q, k[:, :1].contiguous(), v[:, :1].contiguous(),
+                  mask_fn=None)[1]
+        want1 = plain(q, k[:, :1], v[:, :1])[1]
+        scores_exact = torch.equal(lse1, want1)
+        if not scores_exact:
+            faults.append("scores (lse from one kv position) differ from "
+                          "the plain version's")
         prologue = {"k_quantization_ms": cuda_ms(lambda: A.quantize_k(k), 5),
-                    "exact": exact}
-        del got, want
+                    "exact": exact, "scores_exact": scores_exact}
+        if not int8_pv:
+            s_pad = M.round_up(S, A.F32_BLOCK_KV)
+            prologue["split_t_ms"] = cuda_ms(
+                lambda: A.tf32_split_t(v, s_pad), 5)
+        del got, want, lse1, want1
     else:   # the split prologues against their plain versions, bit for bit
         s_pad = M.round_up(S, A.F32_BLOCK_KV)
         exact = all(torch.equal(a, b) for a, b in zip(
             A.tf32_split(k), A.tf32_split_plain(k))) and all(
             torch.equal(a, b) for a, b in zip(
                 A.tf32_split_t(v, s_pad), A.tf32_split_t_plain(v, s_pad)))
-        checks.append((exact, "tf32 split prologues differ"))
+        if not exact:
+            faults.append("tf32 split prologues differ")
         prologue = {"split_ms": cuda_ms(lambda: A.tf32_split(k), 5),
                     "split_t_ms": cuda_ms(lambda: A.tf32_split_t(v, s_pad), 5),
                     "exact": exact}
@@ -573,11 +614,15 @@ def f32_fwd_case(name, B, S, H, mask_fn, int8, seed, exp2_rates,
                              exp_bf16, exp2_rates[exp_bf16])
     bound_s, bound_by, unit, terms = least_time_designs(designs)
     kname = A.variant_name(int8, int8_pv, exp_bf16, f32=True)
+    errs = {m: max(e[m] for e in by_seed.values())
+            for m in ("max_abs_err", "max_rel_err", "rel_rms_err",
+                      "lse_max_abs_err")}
     res = {"case": name, "shape": [B, S, H, D], "dtype": "float32",
-           "visible_pairs": visible, "max_abs_err": max_abs,
-           "max_rel_err": max_rel, "rel_rms_err": rel_rms,
-           "lse_max_abs_err": lse_err, "limits": limits,
-           "vs_card_exp2": card, "plain_f32_vs_f64": plain_vs_f64,
+           "visible_pairs": visible, "seeds": list(seeds), **errs,
+           "errors_by_seed": by_seed, "limits": {
+               k_: v_ for k_, v_ in limits.items() if k_ != "card"},
+           "limits_vs_card_exp2": limits.get("card"),
+           "plain_f32_vs_f64": plain_vs_f64,
            "ms": ms, "plain_ms": plain_ms,
            "prologue": prologue, "library_ms": library_ms,
            "sdpa_vs_plain": sdpa_err, "sdpa_kernels": sdpa_kernels,
@@ -586,9 +631,8 @@ def f32_fwd_case(name, B, S, H, mask_fn, int8, seed, exp2_rates,
            "bound_terms_ms": terms, "tflops": flops / (ms * 1e-3) / 1e12}
     log(json.dumps({"kernel": kname, **res}))
     res["name"] = kname
-    res["faults"] = [f"{kname} {name}: {what}" for ok, what in checks
-                     if not ok]
-    del q, k, v, out, ref, lse, ref_lse
+    res["faults"] = [f"{kname} {name}: {what}" for what in faults]
+    del q, k, v, ref
     torch.cuda.empty_cache()
     return res
 
@@ -718,10 +762,11 @@ def phase_f32(dec, exp2_rates):
     results = {}
     for int8, int8_pv, exp_bf16 in FWD_VARIANTS:
         kw = dict(int8_pv=int8_pv, exp_bf16=exp_bf16, exp2_rates=exp2_rates)
-        dit = f32_fwd_case("dit_train", 1, 17776, 30, None, int8, seed=41,
+        seeds = F32_I8_SEEDS if int8 else ((41,), (42,))
+        dit = f32_fwd_case("dit_train", 1, 17776, 30, None, int8, seeds[0],
                            **kw)
-        titok = f32_fwd_case("titok_dec", 1, 18768, 12, dec, int8, seed=42,
-                             **kw)
+        titok = f32_fwd_case("titok_dec", 1, 18768, 12, dec, int8,
+                             seeds[1], **kw)
         results[dit["name"]] = (dit, titok)
     train = f32_bwd_case("dit_train", 1, 17776, 30, None, F32_BWD_SEEDS[0],
                          exp2_rate=exp2_rates[False])
@@ -737,17 +782,19 @@ def phase_f32(dec, exp2_rates):
         check(rep_["spill_stores"] == 0 and rep_["spill_loads"] == 0
               and not rep_["warnings"], f"{e} ptxas: {rep_}")
     lib = kernels.flash_f32_library()
-    smem = {"flash_fwd_tf32_kernel": lib.landiff_flash_f32_smem_bytes(0),
-            "flash_bwd_tf32_kernel": lib.landiff_flash_f32_smem_bytes(1)}
+    smem = {name: lib.landiff_flash_f32_smem_bytes(i) for i, name in
+            enumerate(("flash_fwd_tf32_kernel", "flash_bwd_tf32_kernel")
+                      + F32_VARIANT_NAMES)}
     log(json.dumps({"phase": "f32_ptxas", "ptxas": ptxas,
                     "smem_bytes": smem}))
     results["ptxas"] = ptxas
     return results
 
 
-# the f32 backward's inputs at the DiT and the TiTok shape: four seeds
-# each, its limits held on every one
+# the f32 backward's and the f32 int8-score forward's inputs at the DiT and
+# the TiTok shape: four seeds each, their limits held on every one
 F32_BWD_SEEDS = ((43, 45, 47, 49), (44, 46, 48, 50))
+F32_I8_SEEDS = ((41, 61, 63, 65), (42, 62, 64, 66))
 
 # ptxas entries of each f32 kernel: the main kernel's instances and the
 # prologues counted with it
@@ -757,13 +804,23 @@ F32_PTXAS = {
                             "flash_fwd_tf32_kernelILb0ELb1E") + _SPLITS,
     "flash_fwd_exact_exp_bf16_f32": ("flash_fwd_tf32_kernelILb1ELb0E",
                                      "flash_fwd_tf32_kernelILb1ELb1E"),
-    "flash_fwd_int8_f32": ("flash_fwd_i8_f32_kernelILb0ELb0E",
-                           "quantize_k_f32"),
-    "flash_fwd_int8_pv_f32": ("flash_fwd_i8_f32_kernelILb1ELb0E",),
-    "flash_fwd_int8_pv_exp_bf16_f32": ("flash_fwd_i8_f32_kernelILb1ELb1E",),
-    "flash_fwd_int8_exp_bf16_f32": ("flash_fwd_i8_f32_kernelILb0ELb1E",),
+    "flash_fwd_int8_f32": ("flash_fwd_i8_f32_kernelILb0ELb0ELb0E",
+                           "flash_fwd_i8_f32_kernelILb0ELb0ELb1E",
+                           "quantize_k_f32", "tf32_split_t_kernel"),
+    "flash_fwd_int8_pv_f32": ("flash_fwd_i8_f32_kernelILb1ELb0ELb0E",
+                              "flash_fwd_i8_f32_kernelILb1ELb0ELb1E"),
+    "flash_fwd_int8_pv_exp_bf16_f32": (
+        "flash_fwd_i8_f32_kernelILb1ELb1ELb0E",
+        "flash_fwd_i8_f32_kernelILb1ELb1ELb1E"),
+    "flash_fwd_int8_exp_bf16_f32": ("flash_fwd_i8_f32_kernelILb0ELb1ELb0E",
+                                    "flash_fwd_i8_f32_kernelILb0ELb1ELb1E"),
     "flash_bwd_f32": ("flash_bwd_tf32_kernelILb0E",
                       "flash_bwd_tf32_kernelILb1E", "bwd_prep_f32") + _SPLITS}
+# the int8-score forward's shared memory by form, in the order of
+# landiff_flash_f32_smem_bytes (2 + 2 int8_pv + exp_bf16)
+F32_VARIANT_NAMES = ("flash_fwd_int8_f32", "flash_fwd_int8_exp_bf16_f32",
+                     "flash_fwd_int8_pv_f32",
+                     "flash_fwd_int8_pv_exp_bf16_f32")
 
 
 def f32_entry(name, dit, titok, launches, ptxas):
@@ -777,8 +834,8 @@ def f32_entry(name, dit, titok, launches, ptxas):
         replaces = REPLACES_FWD[int8] + (
             ", int8_pv :338-348" if pv else "") + (
             ", exp_bf16 _softmax_tile :37-57" if eb else "") + " (f32 refs)"
-    redesigned = name in ("flash_fwd_exact_f32", "flash_fwd_exact_exp_bf16_f32",
-                          "flash_bwd_f32")
+    design = ("wgmma int8 scores, 3xTF32 or int8 p.v, TMA" if "int8" in name
+              else "wgmma 3xTF32, TMA")
     return {"name": name, "route": "cuda",
             "source": "landiff_tpu_torch/ops/csrc/flash_f32.cu",
             "replaces": replaces, "launches": launches,
@@ -788,8 +845,8 @@ def f32_entry(name, dit, titok, launches, ptxas):
             "bound_unit": dit["bound_unit"],
             "bound_terms_ms": dit["bound_terms_ms"], "tflops": dit["tflops"],
             "sdpa_vs_plain": dit["sdpa_vs_plain"],
-            "design": ("redesigned: wgmma 3xTF32, TMA" if redesigned
-                       else "SIMT (FFMA / DP4A)"),
+            "design": design, "seeds": dit.get("seeds"),
+            "scores_exact": (dit.get("prologue") or {}).get("scores_exact"),
             "ptxas": ptxas, "shape": dit["shape"], "dtype": "float32",
             "titok_dec": {k: titok[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -1678,6 +1735,69 @@ def phase_dit_call(cfg, params):
         "fused_vs_unfused_rel_rms": rel, "launches": launches}))
 
 
+def phase_dit_call_f32():
+    """One full-width f32 DiT model call (control_warp_forward, CFG batch
+    2, 30 main + 15 control layers of LanDiffConfig(), random weights from
+    a seed with the zero leaves filled, compute_dtype f32), built once the
+    bf16 pipelines are freed: the path of an f32 request's DiT, whose K / V
+    (17,776 rows) fill the "cached" budget at f32, so that every layer
+    takes the f32 int8-score forward. A warm call timed (host clock around
+    a synchronised call, twice); launches 45 flash_fwd_int8_f32 and
+    nothing else; the output finite and of its shape."""
+    import torch
+
+    from landiff_tpu_torch.config import LanDiffConfig
+    from landiff_tpu_torch.models import dit
+    from landiff_tpu_torch.utils import count_params, fill_zero_leaves
+
+    d = LanDiffConfig().dit
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    t0 = time.perf_counter()
+    main = fill_zero_leaves(dit.init(gen, d), gen)
+    control = fill_zero_leaves(dit.init(gen, d, control=True), gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    shape = (2, d.latent_frames, d.in_channels, d.latent_height,
+             d.latent_width)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    sem = torch.randn(shape, generator=gen, device="cuda")
+    ctx = torch.randn((2, d.text_length, d.text_dim), generator=gen,
+                      device="cuda")
+    ts = torch.tensor([500.0, 500.0], device="cuda")
+    os.environ.pop("LANDIFF_FUSED_ADALN", None)
+
+    def call():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = dit.control_warp_forward(main, control, x, ts, ctx, d, sem,
+                                           compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    first_s, _ = call()
+    reset_counts()
+    seconds, out = call()
+    launches = read_counts()
+    again_s, _ = call()
+    want = {k: 45 if k == "flash_fwd_int8_f32" else 0 for k in launches}
+    check(launches == want, f"f32 DiT call launches {launches}, want {want}")
+    check(tuple(out.shape) == shape and out.dtype == torch.float32,
+          f"f32 DiT call output {tuple(out.shape)} {out.dtype}")
+    check(bool(torch.isfinite(out).all()), "f32 DiT call not finite")
+    log(json.dumps({
+        "phase": "dit_call_f32", "what": "one control_warp_forward in f32, "
+        "CFG batch 2, 30 + 15 layers, full width", "init_s": init_s,
+        "params": count_params(main) + count_params(control),
+        "first_s": first_s, "seconds": [seconds, again_s],
+        "launches": launches,
+        "gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    del main, control, x, sem, ctx, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 FAST_STEPS = 50
 # per 50-step video: 28 model calls x 45 DiT layers + 12 TiTok decoder
 # layers, all on the int8 route
@@ -2500,6 +2620,7 @@ def main():
     if args.only == "f32":
         phase_f32(titok_decoder_mask(), exp2_rates())
         phase_direct_f32()
+        phase_dit_call_f32()
         return
     if args.only == "long_video":
         cfg, llm, dif = build_full(args.steps)
@@ -2548,6 +2669,8 @@ def main():
     del llm, dif
     gc.collect()
     torch.cuda.empty_cache()
+    # 8e. one full-width f32 DiT model call
+    f32_call_launches = phase_dit_call_f32()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 8d. a synthetic checkpoint tree through build_pipeline, in f32
         ckpt_launches = phase_ckpt(Path(tmp), args.steps)
@@ -2628,6 +2751,8 @@ def main():
         if name == "flash_fwd_int8_f32":
             rows[-1]["launches_train_f32"] = \
                 f32_train_launches["flash_fwd_int8_f32"]
+            rows[-1]["launches_dit_call_f32"] = \
+                f32_call_launches["flash_fwd_int8_f32"]
     log(json.dumps({"phase": "done",
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": rows}))

@@ -44,7 +44,10 @@ in _f32, `F32_KERNELS`), which keep p in f32 as the JAX kernels do given
 f32 refs. The exact forward and the backward take their products on the
 tensor cores in three TF32 passes ("3xTF32") on split copies of their
 operands, which their prologues make (`tf32_split`, `tf32_split_t`, each
-with a plain version). `save_flash_residuals_context` keeps
+with a plain version); the int8-score forward its int8 scores on the
+tensor cores and p.v in 3xTF32 (int8_pv: in int8). The f32 kernels are
+checked against their plain versions run in float64 (`f64_reference`,
+`int8_f64_reference`). `save_flash_residuals_context` keeps
 `_FlashDiff`'s out / lse across a layer checkpoint
 (LANDIFF_REMAT_SAVE_ATTN).
 """
@@ -77,14 +80,16 @@ KERNEL_HEAD_DIM = 64
 # backward's default kv block follow them
 BWD_BLOCK_Q = 64
 BWD_BLOCK_KV = 128
-# the f32 kernels' tiles (csrc/flash_f32.cu): the int8-score forward 64 q
-# rows x 64 kv rows (kT); the 3xTF32 exact forward 128 q rows (kFwdBQ) x 64
-# kv rows (kFwdBKV); the 3xTF32 backward per 64-row kv tile its 64-row q
-# tiles (kBwdBKV, kBwdBQ). Compared with the kernels on the card, the plain
-# versions take the f32 forwards' kv tile (F32_BLOCK_KV), so that a p
+# the f32 kernels' tiles (csrc/flash_f32.cu): the exact forward 128 q rows
+# (kFwdBQ) x 64 kv rows (kFwdBKV); the int8-score forward F32_I8_BLOCK_Q q
+# rows, by whether p is bf16 or int8 (exp_bf16 or int8_pv: 64 per consumer
+# warpgroup, kI8WGs / kI8NarrowWGs; its wrapper reads them from the library
+# for the tables) x 64 kv rows; the backward per 64-row kv tile its 64-row
+# q tiles (kBwdBKV, kBwdBQ). Compared with the kernels on the card, the
+# plain versions take the f32 forwards' kv tile (F32_BLOCK_KV), so that a p
 # rounded to bf16 or int8 is rounded at the same running max.
-F32_BLOCK = 64
 F32_FWD_BLOCK_Q = 128
+F32_I8_BLOCK_Q = {False: 128, True: 192}
 F32_BLOCK_KV = 64
 # JAX's default kv block (flash_attention block_kv=1024), which is also the
 # int8_pv V-scale block: one scale per (b, h, block of this many rows)
@@ -368,7 +373,10 @@ def _flash_plain(q, k, v, mask_fn, scale, int8: bool, block_kv: int,
     (p8 . v8) * (sv * f32(1/127)). The p8 . v8 sums are integers below
     2^24 (block_kv <= 1024), so the f32 product is exact. exp2_table (a
     card_exp2_table) replaces the bf16 exp2 by a lookup. The sums are f32
-    (float64 for float64 inputs, _sum_dtype)."""
+    (float64 for float64 inputs, _sum_dtype). The int8 forms' codes and
+    scales (of q, K and V), their scores s = f32(q8 . k8) * sq * sk and the
+    int8_pv codes p8 (of the f32 p) are f32 whatever the input dtype, as
+    the kernels make them."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     if int8_pv and not int8:
@@ -394,7 +402,7 @@ def _flash_plain(q, k, v, mask_fn, scale, int8: bool, block_kv: int,
             raise ValueError(f"a kv tile of {block_kv} rows must lie inside "
                              f"one V block of {v_block}")
         v8, sv = quantize_v_blocks(v, v_block)
-        vv = v8.float().transpose(-1, -2)               # (B, H, Skv_p, D)
+        vv = v8.to(cdt).transpose(-1, -2)               # (B, H, Skv_p, D)
         svs = sv * _f32(INV127, dev)                    # (B, H, nvb)
     m = torch.full((B, H, Sq, 1), NEG_INF, dtype=cdt, device=dev)
     l = torch.zeros((B, H, Sq, 1), dtype=cdt, device=dev)
@@ -428,7 +436,15 @@ def _flash_plain(q, k, v, mask_fn, scale, int8: bool, block_kv: int,
             tile_sum = p.sum(-1, keepdim=True)
         l = l * alpha + tile_sum
         if int8_pv:
-            pv = torch.round(p * 127.0) @ vv[:, :, j0:j1]
+            # the codes of the f32 p, exp2 of the f32 s - m on the inputs'
+            # device, as the kernels round them: from a float64 p they
+            # would move at rounding edges (int8_f64_reference)
+            p32 = p
+            if p.dtype != torch.float32 and not exp_bf16:
+                p32 = torch.exp2((s - m_new).float())
+                p32 = p32 if keep is None else p32 * keep
+            p8 = torch.round(p32 * 127.0).to(cdt)
+            pv = p8 @ vv[:, :, j0:j1]
             acc = acc * alpha + pv * svs[:, :, j0 // v_block, None, None]
         else:
             acc = acc * alpha + (p.to(v.dtype).to(cdt)
@@ -576,14 +592,31 @@ def f64_reference(plain, *tensors, **kw):
                                           **kw))
 
 
+def int8_f64_reference(q, k, v, **kw):
+    """The checking reference of the f32 int8-score kernels (keywords as
+    flash_int8_plain's): the plain version on float64 copies, rounded to
+    f32. Its codes and scales are the kernels' bit for bit, made in f32
+    from the f32 values (quantize_q_rows, quantize_k_positions and
+    quantize_v_blocks compute in f32 whatever the input dtype; the copies
+    are exact), and so are its scores, f32(q8 . k8) * sq * sk in JAX's
+    order; the softmax, its sums and p . v then run in float64, but for
+    int8_pv's p8 = rint(127 p), taken from the f32 p = exp2(f32(s - m)) as
+    JAX and the kernels take it (exp2 on the inputs' device: on the card
+    its own exp2, as the kernels'). Quantizing from float64 values would
+    move codes at rounding edges, a difference that is not the kernel's
+    (p8 from a float64 p misses the f32 limits at the DiT shape on the
+    card: PERF.md). For checks only: nothing on the path calls it."""
+    return f64_reference(flash_int8_plain, q, k, v, **kw)
+
+
 # The f32 kernels against their plain versions: max |err| over the largest
 # |plain| output, relative RMS, lse in log2 units. A single-pass TF32
 # product (10-bit mantissa, about 1e-3 relative) is far outside them. Set
 # from the readings of the first f32 kernels (FFMA, whose sums ran in the
-# f32 plain versions' own order), about twice them. The 3xTF32 kernels
-# (the exact forward, the backward) are held to the plain version in
-# float64 (f64_reference); the SIMT int8-score forms to the f32 one, whose
-# quantization they share.
+# f32 plain versions' own order), about twice them. Every f32 kernel is
+# held to its plain version in float64: the exact forward and the backward
+# by f64_reference, the int8-score forms by int8_f64_reference (codes and
+# scores in f32, as the kernels make them).
 F32_TOL = {"fwd": {"max_rel": 1e-5, "rel_rms": 5e-6, "lse": 1e-5},
            "bwd": {"max_rel": 2e-6, "rel_rms": 1e-6}}
 
@@ -830,8 +863,8 @@ def _launch_f32(q, k, v, mask_fn, scale, int8: bool, int8_pv: bool,
                 exp_bf16: bool):
     """The f32 forwards (csrc/flash_f32.cu): the 3xTF32 exact one after its
     split prologues (K hi / lo, V^T hi / lo), or the int8-score one after
-    the f32 K quantization prologue (with int8_pv, on V codes and scales
-    from quantize_v_blocks, as on the bf16 path)."""
+    the f32 K quantization prologue and the V^T split (with int8_pv, on V
+    codes and scales from quantize_v_blocks, as on the bf16 path)."""
     from landiff_tpu_torch.ops import kernels
 
     B, Sq, H, D = q.shape
@@ -840,29 +873,34 @@ def _launch_f32(q, k, v, mask_fn, scale, int8: bool, int8_pv: bool,
         scale = 1.0 / math.sqrt(D)
     qscale = float(np.float32(scale * LOG2E))
     dev = q.device
-    tiles = (F32_BLOCK, F32_BLOCK) if int8 else (F32_FWD_BLOCK_Q,
-                                                  F32_BLOCK_KV)
+    lib = kernels.flash_f32_library()
+    tiles = ((lib.landiff_flash_fwd_i8_f32_block_q(int(int8_pv),
+                                                    int(exp_bf16)),
+              F32_BLOCK_KV) if int8 else (F32_FWD_BLOCK_Q, F32_BLOCK_KV))
     tables, nk_table, desc = _mask_args(mask_fn, Sq, Skv, dev, False, tiles)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = kernels.flash_f32_library()
     # the prologues' temporaries may be freed when this returns: the
     # caching allocator hands their memory only to work queued after the
     # kernel on this stream
     with torch.cuda.device(dev):
         if int8:
             k8, sk = quantize_k(k)
-            v_in, vsc, v_block, skv_p = v, None, 0, 0
-            if int8_pv:
+            if int8_pv:   # the V codes (B, H, 64, v_pad) and block scales
                 v_block = v_block_rows(Skv)
-                v_in, vsc = quantize_v_blocks(v, v_block)
-                skv_p = v_in.shape[-1]
+                v_hi, vsc = quantize_v_blocks(v, v_block)
+                v_lo, v_pad = None, v_hi.shape[-1]
+            else:         # V^T hi / lo for p.v in 3xTF32
+                v_block, vsc = 0, None
+                v_pad = masks_lib.round_up(Skv, F32_BLOCK_KV)
+                v_hi, v_lo = tf32_split_t(v, v_pad)
             rc = lib.landiff_flash_fwd_i8_f32(
-                q.data_ptr(), k8.data_ptr(), sk.data_ptr(), v_in.data_ptr(),
+                q.data_ptr(), k8.data_ptr(), sk.data_ptr(), v_hi.data_ptr(),
+                None if v_lo is None else v_lo.data_ptr(),
                 None if vsc is None else vsc.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), *tables, B, H, Sq, Skv, nk_table,
-                sk.shape[1], qscale, *desc, v_block, skv_p, int(exp_bf16),
+                sk.shape[1], v_pad, qscale, *desc, v_block, int(exp_bf16),
                 stream)
         else:
             skv_pad = masks_lib.round_up(Skv, F32_BLOCK_KV)

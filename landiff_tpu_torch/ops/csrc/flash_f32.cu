@@ -13,40 +13,40 @@
 //     :264 with f32 inputs): q quantized per row in the CTA (absmax, IEEE
 //     division, half to even), K per kv position by the prologue
 //     landiff_flash_quantize_k_f32; s = f32(q8.k8) * sq * sk in JAX's order
-//     from exact int32 sums (__dp4a); p.v in f32. int8_pv (:338-348): V
-//     quantized per V block by the wrapper (attention.quantize_v_blocks, as
-//     :573-584), p8 = rint(127 p), p8.v8 summed exactly in int32 (__dp4a)
-//     and acc = acc * alpha + f32(p8.v8) * (sv * f32(1/127)); exp_bf16 as
-//     above. SIMT (FFMA / DP4A on the CUDA cores), 64 x 64 tiles.
+//     (two rounded products) from exact int32 sums (s8 wgmma); p in f32,
+//     p.v in 3xTF32. int8_pv (:338-348): V quantized per V block by the
+//     wrapper (attention.quantize_v_blocks, as :573-584), p8 = rint(127 p),
+//     p8.v8 summed exactly in int32 (s8 wgmma) and acc = acc * alpha +
+//     f32(p8.v8) * (sv * f32(1/127)), l summing the f32 p; exp_bf16 as
+//     above (p.v in two TF32 passes).
 //   landiff_flash_bwd_prep_f32 / landiff_flash_bwd_f32: the fused backward
 //     (_flash_bwd_fused_kernel :658 with f32 refs): p = exp2(s - lse) * keep,
 //     dp = do.v^T, ds = p * (dp - delta), dv += p^T.do, dk += (scale*ds)^T.q,
 //     dq += (scale*ds).k, q' = q * scale*log2e and every sum in f32.
 //
-// The exact forward and the backward run their products on the tensor
-// cores in TF32 with three passes ("3xTF32"): x = hi + lo with hi =
-// tf32(x) (cvt.rna) and lo = tf32(x - hi), a.b = hi.hi + hi.lo + lo.hi in
-// f32 (the small products first), which leaves lo.lo, under 2^-21 of
-// |a||b|: about f32's own error, where one TF32 pass is about 1e-3. A bf16
-// p (exp_bf16) is exact in TF32: its p.v takes two passes. The tensor
-// cores' sums lose low bits (one accumulator carried over a whole kv loop
-// drifted far outside the f32 limits), so a product sums at most one
-// 64-wide contraction into a fresh accumulator (kFwdGroup, kBwdGroup k8
-// slices), which is then added into the result in f32, rounded to
-// nearest.
+// The exact forward and the backward run their products, and the int8 forward
+// its p.v, on the tensor cores in TF32 with three passes ("3xTF32"): x = hi +
+// lo with hi = tf32(x) (cvt.rna) and lo = tf32(x - hi), a.b = hi.hi + hi.lo +
+// lo.hi in f32 (the small products first), which leaves lo.lo, under 2^-21 of
+// |a||b|: about f32's own error, where one TF32 pass is about 1e-3. A bf16 p
+// (exp_bf16) is exact in TF32: its p.v takes two passes. The tensor cores'
+// sums lose low bits (one accumulator carried over a whole kv loop drifted far
+// outside the f32 limits), so a product sums at most one 64-wide contraction
+// into a fresh accumulator (kFwdGroup, kBwdGroup k8 slices), which is then
+// added into the result in f32, rounded to nearest.
 //
 // wgmma reads a 32-bit operand from shared memory only K-major (the
 // contraction contiguous; there is no transpose bit as for bf16), and A may
-// come from registers. Both kernels take every A from registers (split
+// come from registers. The 3xTF32 products take every A from registers (split
 // there) and every B from 128-byte-swizzled tiles of 32 columns that TMA
 // writes. A operand that comes from an accumulator (p for p.v, ds for ds.k)
-// holds columns 2t, 2t + 1 of each 8-column group where the A fragment
-// wants t, t + 4: its B tile is stored with each 8-row group of the
-// contraction permuted (position j holds row 2j for j < 4, 2(j - 4) + 1
-// after), so the registers are taken as they are. The prologues make the
-// split and transposed copies in device memory (landiff_tf32_split,
-// landiff_tf32_split_t):
-//   forward: K hi / lo (BSHD), V^T hi / lo (B*H, 64, Skv_pad64) permuted;
+// holds columns 2t, 2t + 1 of each 8-column group where the A fragment wants
+// t, t + 4: its B tile is stored with each 8-row group of the contraction
+// permuted (position j holds row 2j for j < 4, 2(j - 4) + 1 after), so the
+// registers are taken as they are. The prologues make the split and transposed
+// copies in device memory (landiff_tf32_split, landiff_tf32_split_t):
+//   forward: K hi / lo (BSHD), V^T hi / lo (B*H, 64, Skv_pad64) permuted
+//     (the int8 forward: V^T hi / lo only);
 //   backward: K, V hi / lo (BSHD), K^T hi / lo permuted; q and do are read
 //     raw and split in registers, in both orientations, by the consumers.
 //
@@ -60,6 +60,28 @@
 // split in registers). A warpgroup waits for each group of its products
 // (its accumulators and A fragments fill its 240 registers): the two
 // warpgroups' softmax and products interleave on the SM.
+//
+// The int8-score forward: one CTA per (64 q rows per consumer warpgroup,
+// b*h) with a producer warpgroup and kI8WGs = 2 consumer warpgroups (240
+// registers each; with a bf16 or int8 p kI8NarrowWGs = 3 at 160), 64-row
+// kv tiles in a 3-stage ring. The producer loads each visible kv tile's K
+// codes (64-byte rows, TMA with the 64-byte swizzle), K scales (bulk copy)
+// and V^T hi / lo (or, int8_pv, the V codes [d][kv], K-major as an s8 B
+// operand must be: 64-byte rows, the same swizzle). A consumer quantizes
+// its q rows once (a quad holds a row, so the absmax is two shuffles away)
+// into a shared tile of 64-byte rows, the A operand of S = q8.k8^T (2 wgmma
+// m64n64k32 .s32.s8.s8; the sums are exact integers in any order, so each
+// score is JAX's to the bit). Per kv tile j, as the bf16 forward
+// (flash_fwd.cu): S_j and the product of tile j - 1 are issued as two
+// groups; once S_j is done, its scores and online softmax run in the s32
+// accumulator's registers under that product; then O += P_{j-1}.V_{j-1},
+// O *= alpha_j, and P_j becomes the next product's A fragments in
+// registers: split for 3xTF32 (the 8 k8 slices into 8 / kI8Group fresh
+// accumulators, as kFwdGroup, added in f32), or, int8_pv, p8 packed into
+// s8 fragments by quad shuffles for one k32 wgmma pair into s32 sums. P's
+// split takes 64 registers, which only two consumer warpgroups have; three
+// with P's split in shared memory instead, the A operand of an ss product,
+// ran slower (PERF.md).
 //
 // Backward design: one CTA per (64-row kv tile, b*h), 384 threads: a
 // producer warpgroup (K, V, K^T hi / lo once, 96 KB; then each visible
@@ -89,25 +111,32 @@
 // memory at the end and written once: deterministic. dq's reduce-adds come
 // in no fixed order: the last bits of its f64 sums vary from run to run.
 //
-// Shared memory (227 KB, 232,448 B, a CTA): forward 3 stages x (K hi, lo,
-// V^T hi, lo: 4 x 16 KB) = 192 KB; backward 6 x 16 KB fixed (K, V, K^T hi /
-// lo) + 2 stages x 32 KB (raw q, do) + 2 x 32 KB (each warpgroup's p / ds
-// hi, lo) = 224 KB, plus 1 KB of alignment slack. The bf16 backward's
-// 128-row kv tiles would need twice the fixed tiles: 64-row ones it is,
-// and the q side's transposes are made in registers rather than stored
-// (4 more tiles a stage).
+// Shared memory (227 KB, 232,448 B, a CTA): forward 3 stages x (K hi, lo, V^T
+// hi, lo: 4 x 16 KB) = 192 KB; int8 forward 3 stages x 37 KB (V^T hi, lo, K
+// codes 4 KB, scales; int8_pv 9 KB) + the q codes (8 or 12 KB); backward 6 x
+// 16 KB fixed (K, V, K^T hi / lo) + 2 stages x 32 KB (raw q, do) + 2 x 32 KB
+// (each warpgroup's p / ds hi, lo) = 224 KB, plus 1 KB of alignment slack. The
+// bf16 backward's 128-row kv tiles would need twice the fixed tiles: 64-row
+// ones it is, and the q side's transposes are made in registers rather than
+// stored (4 more tiles a stage).
 //
 // Bounds on the H100 (B=1 S=17,776 H=30 D=64, unmasked): forward 4 *
 // B*H*S^2*D = 2.43 TFLOP, 3x that at the TF32 peak of 495 TFLOP/s = 14.7
 // ms (the CUDA cores at 67 TFLOP/s: 36.2 ms); backward 10 * B*H*S^2*D x 3
 // at 495 = 36.8 ms (90.6 on the CUDA cores). B*H*S^2 = 9.5e9 exp2 take 2.3
-// ms on the SFUs; the bytes are far below. Bound by the tensor cores.
+// ms on the SFUs; the bytes are far below. Bound by the tensor cores. The
+// int8 forward: q.k at the int8 peak (1,979 TOP/s) 0.61 ms and p.v in
+// 3xTF32 7.36 ms, 7.97 ms (exp_bf16: two passes, 5.52 ms with the exp2
+// and q.k beside); int8_pv bound by the exp2 on the SFUs (2.27 ms; its
+// products take 1.2 ms at the int8 peak).
 //
 // exp2 is ex2.approx.ftz.f32 (about 2 ulp), as in the bf16 kernels. The
 // mask algebra and the visibility / tile tables are the bf16 kernels'
 // (flash_common.cuh): per 128-row q tile its visible 64-row kv tiles
-// (exact forward), per 64 x 64 tile (int8 forward), per 64-row kv tile its
-// 64-row q tiles (backward). The build must not use --use_fast_math.
+// (exact forward; the int8 forward per 128- or 192-row q tile), per 64-row kv
+// tile its 64-row q tiles (backward). The build must not use
+// --use_fast_math: the int8 codes depend on IEEE division and on
+// round-half-to-even.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -117,8 +146,6 @@
 
 namespace {
 
-constexpr int kT = 64;          // the int8 forward's q and kv rows per tile
-constexpr int kThreads = 256;   // 16 x 16 threads, a 4 x 4 block each
 constexpr int kSkvPad = 128;    // the K scales' padding (the bf16 kernels')
 constexpr float kInv127f = 1.0f / 127.0f;
 
@@ -140,62 +167,6 @@ Mask make_mask(int mask_kind, int nf, int tpf, int iqt, int pft) {
   return m;
 }
 
-// keep of score (q, kv) for the tile's rows / columns (kv < Skv checked by
-// the caller)
-__device__ __forceinline__ bool keep_score(const Mask& m, int q, int kv) {
-  if (m.mask_kind == kMaskNone) return true;
-  if (m.mask_kind == kMaskCausal) return q >= kv;
-  const int q_frame = floordiv_fast(q, m.tpf, m.inv_tpf);
-  const int p_frame = floordiv_fast(q - m.iqe, m.pft, m.inv_pft) + 1;
-  return keep_frames(m, q, q_frame, p_frame, kv,
-                     floordiv_fast(kv, m.tpf, m.inv_tpf));
-}
-
-// ---------------------------------------------------------------------------
-// the int8-score forward (SIMT)
-
-// A (row, 4-column chunk) of a 64 x 64 tile stored with its chunks XORed
-// by the row's own chunk, so that a thread block's float4 stores of a
-// transposed tile fall into distinct banks; a row's reads stay float4.
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * kT + ((chunk ^ ((row >> 2) & 15)) << 2);
-}
-
-// The tile in its own layout, n[r * 64 + d]; rows past `rows` zero.
-__device__ __forceinline__ void load_n(float* n, const float* x, int b, int S,
-                                       int H, int h, int r0) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = (threadIdx.x >> 4) + 16 * i;
-    const int c = threadIdx.x & 15;
-    float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < S) {
-      w = *reinterpret_cast<const float4*>(
-          x + ((static_cast<size_t>(b) * S + r0 + r) * H + h) * kD + 4 * c);
-    }
-    *reinterpret_cast<float4*>(n + r * kT + 4 * c) = w;
-  }
-}
-
-// acc[i][j] += sum_k a[k] (row, chunk ty, swizzled) * b[k * 64 + 4 tx + j],
-// k < 64: the thread's 4 x 4 block of a 64 x 64 x 64 product.
-__device__ __forceinline__ void mma_tile_swz(float (&acc)[4][4],
-                                             const float* a, const float* b,
-                                             int ty, int tx) {
-#pragma unroll 8
-  for (int k = 0; k < kT; ++k) {
-    const float4 x = *reinterpret_cast<const float4*>(a + swz(k, ty));
-    const float4 y = *reinterpret_cast<const float4*>(b + k * kT + 4 * tx);
-    const float xs[4] = {x.x, x.y, x.z, x.w};
-    const float ys[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
-    }
-  }
-}
-
 // row reductions over the 16 threads (lanes tx = 0..15 of a half warp)
 // that hold a row's 64 columns
 __device__ __forceinline__ float row_max(float x) {
@@ -209,267 +180,6 @@ __device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
   for (int m = 1; m < 16; m <<= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
   return x;
-}
-
-struct I8Smem {
-  int32_t q8[16 * kT];   // q codes, 4 per word, transposed
-  float sq[kT];          // the rows' scales times qscale
-  int32_t k8[16 * kT];   // k codes transposed
-  float sk[kT];          // the tile's K scales
-  float v[kT * kT];      // v, kv-major (f32 p.v)
-  float p[kT * kT];      // p, kv-major, swizzled (f32 p.v)
-  int32_t v8[16 * kT];   // int8_pv: v codes, 4 kv per word, [word][d]
-  int32_t p8[16 * kT];   // int8_pv: p codes, 4 kv per word, [word][q]
-};
-
-struct I8Args {
-  const float* q;
-  const int8_t* k8;      // codes BSHD
-  const float* ksc;      // (B*H, skv_pad)
-  const void* v;         // f32 BSHD, or int8_pv: codes (B*H, 64, skv_p)
-  const float* vsc;      // int8_pv: (B*H, skv_p / v_block)
-  float* o;
-  float* lse;
-  const int* count;      // null: every kv tile visible
-  const int* order;
-  const int* kind;
-  int B, H, Sq, Skv, nk_table, skv_pad, v_block, skv_p;
-  float qscale;
-  Mask mask;
-};
-
-template <bool kPV8, bool kExpBf16>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_i8_f32_kernel(const I8Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  I8Smem& sm = *reinterpret_cast<I8Smem*>(smem_raw);
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
-  const int q0 = qt * kT;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-
-  // the row codes: 16 threads (a half warp) per row, a float4 each
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < a.Sq) {
-      w = *reinterpret_cast<const float4*>(
-          a.q + ((static_cast<size_t>(b) * a.Sq + q0 + r) * a.H + h) * kD +
-          4 * tx);
-    }
-    float amax = fmaxf(fmaxf(fabsf(w.x), fabsf(w.y)),
-                       fmaxf(fabsf(w.z), fabsf(w.w)));
-    amax = row_max(amax);
-    const float sq = __fmul_rn(fmaxf(amax, 1e-30f), kInv127f);
-    const float xs[4] = {w.x, w.y, w.z, w.w};
-    uint32_t word = 0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = static_cast<int>(rintf(__fdiv_rn(xs[e], sq)));
-      word |= static_cast<uint32_t>(c & 0xff) << (8 * e);
-    }
-    sm.q8[tx * kT + r] = static_cast<int32_t>(word);
-    if (tx == 0) sm.sq[r] = __fmul_rn(sq, a.qscale);
-  }
-
-  float m[4], l[4], acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-  const int nkv = a.count ? a.count[qt] : (a.Skv + kT - 1) / kT;
-  const int* order = a.order ? a.order + static_cast<size_t>(qt) * a.nk_table
-                             : nullptr;
-  const int* kinds = a.kind ? a.kind + static_cast<size_t>(qt) * a.nk_table
-                            : nullptr;
-  for (int j = 0; j < nkv; ++j) {
-    const int kt = order ? order[j] : j;
-    const int kv0 = kt * kT;
-    const bool partial = (kinds && kinds[j] == 1) || kv0 + kT > a.Skv;
-    __syncthreads();   // the previous tile's k, v and p are consumed
-    {
-      const int r = tid & 63;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = (tid >> 6) + 4 * i;
-        int32_t w = 0;
-        if (kv0 + r < a.Skv) {
-          w = *reinterpret_cast<const int32_t*>(
-              a.k8 + ((static_cast<size_t>(b) * a.Skv + kv0 + r) * a.H + h) *
-                         kD + 4 * c);
-        }
-        sm.k8[c * kT + r] = w;
-      }
-      if (tid < kT) {
-        sm.sk[tid] = a.ksc[static_cast<size_t>(bh) * a.skv_pad + kv0 + tid];
-      }
-    }
-    if constexpr (kPV8) {
-      // the V codes of kv 4w..4w+3 of column d, one word each (kv0 lies
-      // inside the padded skv_p, zero past Skv)
-      const int32_t* vc = static_cast<const int32_t*>(a.v) +
-                          (static_cast<size_t>(bh) * kD * a.skv_p + kv0) / 4;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int idx = tid + kThreads * i;
-        const int w = idx & 15, d = idx >> 4;
-        sm.v8[w * kT + d] = vc[static_cast<size_t>(d) * (a.skv_p / 4) + w];
-      }
-    } else {
-      load_n(sm.v, static_cast<const float*>(a.v), b, a.Skv, a.H, h, kv0);
-    }
-    __syncthreads();
-
-    float s[4][4];
-    {
-      int si[4][4] = {};
-#pragma unroll 4
-      for (int w = 0; w < 16; ++w) {
-        const int4 x = *reinterpret_cast<const int4*>(sm.q8 + w * kT + 4 * ty);
-        const int4 y = *reinterpret_cast<const int4*>(sm.k8 + w * kT + 4 * tx);
-        const int xs[4] = {x.x, x.y, x.z, x.w};
-        const int ys[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) si[i][c] = __dp4a(xs[i], ys[c], si[i][c]);
-        }
-      }
-      const float4 sk4 = *reinterpret_cast<const float4*>(sm.sk + 4 * tx);
-      const float sks[4] = {sk4.x, sk4.y, sk4.z, sk4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float sqi = sm.sq[4 * ty + i];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[i][c] = __fmul_rn(__fmul_rn(static_cast<float>(si[i][c]), sqi),
-                              sks[c]);
-        }
-      }
-    }
-    if (partial) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int kv = kv0 + 4 * tx + c;
-          if (!(kv < a.Skv && keep_score(a.mask, q0 + 4 * ty + i, kv))) {
-            s[i][c] = -INFINITY;
-          }
-        }
-      }
-    }
-    // online softmax (log2 units); a fully masked tile keeps the running
-    // max (-1e30 at the start), so its p are exp2(-inf) = 0
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tm = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      tm = row_max(tm);
-      const float mx = tm == -INFINITY ? m[i] : fmaxf(m[i], tm);
-      const float alpha = exp2_sfu(m[i] - mx);
-      m[i] = mx;
-      if constexpr (kExpBf16) {
-        float ts = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; c += 2) {
-          const uint32_t pb = ex2_bf16x2(pack_bf16(s[i][c] - mx,
-                                                   s[i][c + 1] - mx));
-          s[i][c] = __uint_as_float(pb << 16);
-          s[i][c + 1] = __uint_as_float(pb & 0xffff0000u);
-          ts += s[i][c] + s[i][c + 1];
-        }
-        const float tsum = __bfloat162float(__float2bfloat16_rn(row_sum(ts)));
-        l[i] = __fadd_rn(__fmul_rn(l[i], alpha), tsum);
-      } else {
-        float ts = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[i][c] = exp2_sfu(s[i][c] - mx);
-          ts += s[i][c];
-        }
-        l[i] = fmaf(l[i], alpha, row_sum(ts));
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] *= alpha;
-    }
-    if constexpr (kPV8) {
-      // p8 = rint(127 p), the codes of kv 4tx..4tx+3 of row 4ty+i in word
-      // tx; the 4-row chunk XORed by the word, so that the stores of a
-      // half warp fall into distinct banks
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        uint32_t word = 0;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int code = __float2int_rn(__fmul_rn(s[i][c], 127.f));
-          word |= static_cast<uint32_t>(code & 0xff) << (8 * c);
-        }
-        sm.p8[tx * kT + 4 * (ty ^ tx) + i] = static_cast<int32_t>(word);
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {   // p^T: row kv, chunk ty
-        *reinterpret_cast<float4*>(sm.p + swz(4 * tx + c, ty)) =
-            make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-      }
-    }
-    __syncthreads();
-    if constexpr (kPV8) {
-      int pv[4][4] = {};
-#pragma unroll 4
-      for (int w = 0; w < 16; ++w) {
-        const int4 x =
-            *reinterpret_cast<const int4*>(sm.p8 + w * kT + 4 * (ty ^ w));
-        const int4 y = *reinterpret_cast<const int4*>(sm.v8 + w * kT + 4 * tx);
-        const int xs[4] = {x.x, x.y, x.z, x.w};
-        const int ys[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) pv[i][c] = __dp4a(xs[i], ys[c], pv[i][c]);
-        }
-      }
-      // the V block's scale over 127, constant over the tile: a V block is
-      // a multiple of 128 rows
-      const float svs = __fmul_rn(
-          __ldg(a.vsc + static_cast<size_t>(bh) * (a.skv_p / a.v_block) +
-                kv0 / a.v_block),
-          kInv127f);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          acc[i][c] = __fadd_rn(acc[i][c],
-                                __fmul_rn(static_cast<float>(pv[i][c]), svs));
-        }
-      }
-    } else {
-      mma_tile_swz(acc, sm.p, sm.v, ty, tx);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + 4 * ty + i;
-    if (q >= a.Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float4 w;
-    w.x = __fdiv_rn(acc[i][0], denom);
-    w.y = __fdiv_rn(acc[i][1], denom);
-    w.z = __fdiv_rn(acc[i][2], denom);
-    w.w = __fdiv_rn(acc[i][3], denom);
-    *reinterpret_cast<float4*>(
-        a.o + ((static_cast<size_t>(b) * a.Sq + q) * a.H + h) * kD + 4 * tx) =
-        w;
-    if (tx == 0) {
-      a.lse[static_cast<size_t>(bh) * a.Sq + q] =
-          l[i] > 0.f ? m[i] + log2f(denom) : kNegInf;
-    }
-  }
 }
 
 // The int8 forward's prologue from f32 K: one 16-thread group per (b, s, h)
@@ -703,16 +413,28 @@ __device__ __forceinline__ void pair_frags(uint32_t hi, uint32_t lo, int warp,
   }
 }
 
+// An accumulator's f32 values, held as floats or, where an s32 wgmma
+// accumulator's registers take them in place (the int8 forward's scores),
+// as their bits.
+__device__ __forceinline__ float as_f32(float x) { return x; }
+__device__ __forceinline__ float as_f32(uint32_t x) {
+  return __uint_as_float(x);
+}
+__device__ __forceinline__ void put_f32(float& d, float x) { d = x; }
+__device__ __forceinline__ void put_f32(uint32_t& d, float x) {
+  d = __float_as_uint(x);
+}
+
 // A fragments of an accumulator taken as it lies: k slot t is its column
 // 2t, slot t + 4 its column 2t + 1 of each 8-column group (the B tile's
 // rows are permuted to match). kSplit false: bf16 values, exact in tf32
 // (lo unused).
-template <bool kSplit>
-__device__ __forceinline__ void acc_frags(const float (&v)[32], int kk,
+template <bool kSplit, class T>
+__device__ __forceinline__ void acc_frags(const T (&v)[32], int kk,
                                           uint32_t (&h)[4],
                                           uint32_t (&l)[4]) {
-  const float x[4] = {v[kk * 4], v[kk * 4 + 2], v[kk * 4 + 1],
-                      v[kk * 4 + 3]};
+  const float x[4] = {as_f32(v[kk * 4]), as_f32(v[kk * 4 + 2]),
+                      as_f32(v[kk * 4 + 1]), as_f32(v[kk * 4 + 3])};
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     if constexpr (kSplit) {
@@ -813,6 +535,136 @@ __device__ __forceinline__ uint32_t keep_bits(const Mask& m, const int (&q)[2],
     }
   }
   return bits;
+}
+
+// The scores of an accumulator (rows q[0], q[1], columns kv_base + 8 n + c;
+// f32 values or their bits) outside the mask or at kv >= Skv set to -inf
+template <bool kVideo, class T>
+__device__ __forceinline__ void mask_scores(T (&S)[32], const Mask& mask,
+                                            const int (&q)[2], int kv_base,
+                                            int Skv) {
+  const uint32_t keep = keep_bits<kVideo>(mask, q, kv_base, 0x7fffffff, Skv);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (!((keep >> i) & 1u)) put_f32(S[i], -INFINITY);
+  }
+}
+
+// One kv tile's online softmax (log2 domain) on the scores S of the
+// accumulator's rows, made p in place: the running max m, the row sums l
+// (per-thread partial sums; with exp_bf16 the full row sums, which every
+// thread of a quad holds, the tile's sum of the bf16 p rounded to bf16) and
+// the rescale alpha of the output rows.
+template <bool kExpBf16, class T>
+__device__ __forceinline__ void online_softmax(T (&S)[32], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2]) {
+  float mu[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mt[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      mt[n & 3] = fmaxf(mt[n & 3], fmaxf(as_f32(S[n * 4 + r * 2]),
+                                         as_f32(S[n * 4 + r * 2 + 1])));
+    }
+    float tm = fmaxf(fmaxf(mt[0], mt[1]), fmaxf(mt[2], mt[3]));
+    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
+    // a fully masked tile leaves the running max (-1e30 at the start)
+    const float mx = tm == -INFINITY ? m[r] : fmaxf(m[r], tm);
+    alpha[r] = exp2_sfu(m[r] - mx);
+    m[r] = mx;
+    // a row that has seen only masked scores: exp2(-inf - 0) = 0, as
+    // exp2(s - m) * keep = 0 in the JAX kernel
+    mu[r] = mx == kNegInf ? 0.f : mx;
+  }
+  if constexpr (kExpBf16) {
+    float ts[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t pb =
+            ex2_bf16x2(pack_bf16(as_f32(S[n * 4 + r * 2]) - mu[r],
+                                 as_f32(S[n * 4 + r * 2 + 1]) - mu[r]));
+        const float lo = __uint_as_float(pb << 16);
+        const float hi = __uint_as_float(pb & 0xffff0000u);
+        ts[r][n & 3] += lo + hi;
+        put_f32(S[n * 4 + r * 2], lo);
+        put_f32(S[n * 4 + r * 2 + 1], hi);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float tr = (ts[r][0] + ts[r][1]) + (ts[r][2] + ts[r][3]);
+      tr += __shfl_xor_sync(0xffffffffu, tr, 1);
+      tr += __shfl_xor_sync(0xffffffffu, tr, 2);
+      const float tsum = __bfloat162float(__float2bfloat16_rn(tr));
+      l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), tsum);
+    }
+  } else {
+    float ls[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp2_sfu(as_f32(S[n * 4 + e]) - mu[e >> 1]);
+        put_f32(S[n * 4 + e], pe);
+        ls[e >> 1][n & 3] += pe;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = l[r] * alpha[r] +
+             ((ls[r][0] + ls[r][1]) + (ls[r][2] + ls[r][3]));
+    }
+  }
+}
+
+// O = O * alpha; alpha is exactly 1 where the running max did not move:
+// the rescale is skipped where no row of the warp moved, which changes no
+// bit
+__device__ __forceinline__ void rescale_rows(float (&o)[32],
+                                             const float (&alpha)[2]) {
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+  }
+}
+
+// The epilogue of the forwards: full row sums, out = o / max(l, 1e-30)
+// into the thread's rows q[0], q[1] of out (B, Sq, H, 64) and lse (B*H,
+// Sq) = m + log2(l), or -1e30 where l == 0.
+template <bool kExpBf16>
+__device__ __forceinline__ void store_rows(const float (&o)[32],
+                                           float (&l)[2], const float (&m)[2],
+                                           const int (&qi)[2], int t,
+                                           float* out, float* lse, int b,
+                                           int h, int bh, int H, int Sq) {
+  if constexpr (!kExpBf16) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qi[r] >= Sq) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    float* row = out + ((static_cast<size_t>(b) * Sq + qi[r]) * H + h) * kD;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<float2*>(row + n * 8 + t * 2) =
+          make_float2(__fdiv_rn(o[n * 4 + r * 2], denom),
+                      __fdiv_rn(o[n * 4 + r * 2 + 1], denom));
+    }
+    if (t == 0) {
+      lse[static_cast<size_t>(bh) * Sq + qi[r]] =
+          l[r] > 0.f ? m[r] + log2f(denom) : kNegInf;
+    }
+  }
 }
 
 // ---- forward
@@ -967,84 +819,13 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_k_hi,
                                  tile_desc(smem_addr(st.k_lo)));
 
     if (partial) {   // masked scores and kv >= Skv: -inf, so p = 0
-      const uint32_t keep =
-          keep_bits<kVideo>(a.mask, qi, kv0 + 2 * t, 0x7fffffff, a.Skv);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        if (!((keep >> i) & 1u)) S[i] = -INFINITY;
-      }
+      mask_scores<kVideo>(S, a.mask, qi, kv0 + 2 * t, a.Skv);
     }
+    float alpha[2];
+    online_softmax<kExpBf16>(S, m, l, alpha);
 
-    // ---- online softmax (log2 domain)
-    float alpha[2], mu[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mt[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        mt[n & 3] = fmaxf(mt[n & 3], fmaxf(S[n * 4 + r * 2],
-                                           S[n * 4 + r * 2 + 1]));
-      }
-      float tm = fmaxf(fmaxf(mt[0], mt[1]), fmaxf(mt[2], mt[3]));
-      tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
-      tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
-      // a fully masked tile leaves the running max (-1e30 at the start)
-      const float mx = tm == -INFINITY ? m[r] : fmaxf(m[r], tm);
-      alpha[r] = exp2_sfu(m[r] - mx);
-      m[r] = mx;
-      // a row that has seen only masked scores: exp2(-inf - 0) = 0, as
-      // exp2(s - m) * keep = 0 in the JAX kernel
-      mu[r] = mx == kNegInf ? 0.f : mx;
-    }
-    if constexpr (kExpBf16) {
-      float ts[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const uint32_t pb = ex2_bf16x2(pack_bf16(S[n * 4 + r * 2] - mu[r],
-                                                   S[n * 4 + r * 2 + 1] -
-                                                       mu[r]));
-          const float lo = __uint_as_float(pb << 16);
-          const float hi = __uint_as_float(pb & 0xffff0000u);
-          ts[r][n & 3] += lo + hi;
-          S[n * 4 + r * 2] = lo;
-          S[n * 4 + r * 2 + 1] = hi;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float tr = (ts[r][0] + ts[r][1]) + (ts[r][2] + ts[r][3]);
-        tr += __shfl_xor_sync(0xffffffffu, tr, 1);
-        tr += __shfl_xor_sync(0xffffffffu, tr, 2);
-        const float tsum = __bfloat162float(__float2bfloat16_rn(tr));
-        l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), tsum);
-      }
-    } else {
-      float ls[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float pe = exp2_sfu(S[n * 4 + e] - mu[e >> 1]);
-          S[n * 4 + e] = pe;
-          ls[e >> 1][n & 3] += pe;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l[r] = l[r] * alpha[r] +
-               ((ls[r][0] + ls[r][1]) + (ls[r][2] + ls[r][3]));
-      }
-    }
-
-    // ---- O = O * alpha + P.V; alpha is exactly 1 where the running max
-    // did not move: the rescale is skipped where no row of the warp moved,
-    // which changes no bit
-    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
-    }
+    // ---- O = O * alpha + P.V
+    rescale_rows(o, alpha);
     mma3<kFwdGroup, !kExpBf16, true>(
         o, tmp,
         [&](int kk, uint32_t (&h)[4], uint32_t (&l)[4]) {
@@ -1054,30 +835,440 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_k_hi,
     mbar_arrive(&sm.empty[s]);
   }
 
-  // ---- epilogue: full row sums, normalise, out and lse
-  if constexpr (!kExpBf16) {
+  store_rows<kExpBf16>(o, l, m, qi, t, a.o, a.lse, b, h, bh, a.H, a.Sq);
+}
+
+// ---- the int8-score forward
+
+// consumer warpgroups of 64 q rows: the f32-p form keeps P's split A
+// fragments (hi and lo: 64 registers) for the next tile's product and
+// takes 240 registers; with a bf16 p (exp_bf16: hi only) or int8_pv (the
+// p8 codes) three run at 160
+constexpr int kI8WGs = 2;
+constexpr int kI8NarrowWGs = 3;
+constexpr int kI8Stages = 3;
+// k8 slices of p.v that the tensor cores sum into one fresh accumulator
+// (as kFwdGroup): 8 / kI8Group accumulators per kv tile
+constexpr int kI8Group = 8;
+// the q codes as the A operand of S = q8.k8^T: a shared-memory tile
+// (true, as the bf16 forward) or registers (false: no faster, PERF.md)
+constexpr bool kI8QSmem = true;
+// 1.5 * 2^23: x + kMagic rounds 0 <= x < 2^22 to an integer (half to even)
+// in the low mantissa bits, without a float-to-int conversion
+constexpr float kMagic = 12582912.0f;
+
+template <bool kPV8, bool kExpBf16>
+__host__ __device__ constexpr int i8_wgs() {
+  return kPV8 || kExpBf16 ? kI8NarrowWGs : kI8WGs;
+}
+template <bool kPV8, bool kExpBf16>
+__host__ __device__ constexpr int i8_block_q() {
+  return 64 * i8_wgs<kPV8, kExpBf16>();
+}
+template <bool kPV8, bool kExpBf16>
+__host__ __device__ constexpr int i8_threads() {
+  return 128 * (i8_wgs<kPV8, kExpBf16>() + 1);
+}
+
+// One ring stage (kv tile of kFwdBKV rows), each tile 1024-aligned: f32 p:
+// V^T hi / lo [d][kv], kv permuted (two 32-column halves each); int8_pv:
+// the V codes [d][kv] (64-byte rows) in its first 4 KB. Then the K codes
+// [kv][d] (64-byte rows) and the K scales.
+template <bool kPV8>
+struct alignas(1024) I8Stage {
+  float v[kPV8 ? 64 * 64 / 4 : 2 * 64 * 64];
+  int8_t k8[64 * 64];
+  float ksc[64];
+};
+
+template <bool kPV8>
+__host__ __device__ constexpr uint32_t i8_stage_bytes() {
+  return (kPV8 ? 64 * 64 : 2 * kTile) + 64 * 64 + 64 * 4;
+}
+
+template <bool kPV8, bool kExpBf16>
+struct I8Smem {
+  I8Stage<kPV8> st[kI8Stages];
+  // the q codes: each warpgroup's 64 rows of 64 bytes, 512-aligned for the
+  // 64-byte swizzle
+  alignas(1024) int8_t q8[kI8QSmem ? i8_block_q<kPV8, kExpBf16>() * 64 : 16];
+  uint64_t full[kI8Stages];
+  uint64_t empty[kI8Stages];
+};
+
+struct I8Args {
+  const float* q;
+  const float* ksc;      // (B*H, skv_pad) K scales, 0 past Skv
+  const float* vsc;      // int8_pv: (B*H, v_pad / v_block) V scales
+  float* o;
+  float* lse;
+  const int* count;      // null: every kv tile visible
+  const int* order;
+  const int* kind;
+  int B, H, Sq, Skv, nk_table, skv_pad, v_pad, v_block;
+  float qscale;
+  Mask mask;
+};
+
+// descriptor of a K-major s8 operand of 64-byte rows (64-byte swizzle) at
+// shared address `addr`: 8-row groups 512 B apart, the next k32 slice +32 B
+__device__ __forceinline__ uint64_t i8_desc(uint32_t addr) {
+  return wgmma_desc_sw64(addr, 16, 512);
+}
+
+// acc[g] (= or +) A . B in 3xTF32 (kLo: three passes, the small ones
+// first; else two, A exact in tf32), the k8 slices of group g into
+// accumulator g afresh; A's fragments ah / al of the 8 slices, bh / bl the
+// B tiles' descriptors. Issued only: the caller fences, commits and waits.
+template <bool kLo, int kAcc>
+__device__ __forceinline__ void issue_pv3(float (&acc)[kAcc][32],
+                                          const uint32_t (&ah)[8][4],
+                                          const uint32_t (&al)[8][4],
+                                          uint64_t bh, uint64_t bl) {
+  constexpr int kPer = 8 / kAcc;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  for (int g = 0; g < kAcc; ++g) {
+    if constexpr (kLo) {                       // lo.hi
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        wgmma_rs_n64_tf32(acc[g], al[g * kPer + i],
+                          bh + slice_step(g * kPer + i), i > 0);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {           // hi.lo
+      wgmma_rs_n64_tf32(acc[g], ah[g * kPer + i],
+                        bl + slice_step(g * kPer + i), kLo || i > 0);
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {           // hi.hi
+      wgmma_rs_n64_tf32(acc[g], ah[g * kPer + i],
+                        bh + slice_step(g * kPer + i), 1);
     }
   }
+}
+
+// p8 = rint(127 p), p in [0, 1], as the s8 A fragments of the two k32
+// slices (kv columns 32 kk ..): pa[kk][0] row g, columns 4t .. 4t + 3,
+// pa[kk][1] the same of row g + 8, pa[kk][2 | 3] columns 16 + 4t ... A
+// thread packs its codes per 8-column tile n (bytes (row g, col 2t), (g, 2t
+// + 1), (g + 8, 2t), (g + 8, 2t + 1)); the columns a lane needs sit in
+// tile 4 kk + 2 hh + (t >> 1) at lanes 2 (t & 1) and 2 (t & 1) + 1 of its
+// quad (as the bf16 kernel, flash_fwd.cu)
+__device__ __forceinline__ void pack_p8(const uint32_t (&S)[32], int lane,
+                                        uint32_t (&pa)[2][4]) {
+  const int t = lane & 3;
+  const int src0 = (lane & ~3) | ((t & 1) << 1);
+  const bool upper = (t >> 1) != 0;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    uint32_t pk[4];
+#pragma unroll
+    for (int nn = 0; nn < 4; ++nn) {
+      uint32_t w = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t c = __float_as_uint(__fadd_rn(
+            __fmul_rn(as_f32(S[(kk * 4 + nn) * 4 + e]), 127.f), kMagic));
+        w |= (c & 0xffu) << (8 * e);
+      }
+      pk[nn] = w;
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const uint32_t x0 = __shfl_sync(0xffffffffu, pk[hh * 2], src0);
+      const uint32_t x1 = __shfl_sync(0xffffffffu, pk[hh * 2 + 1], src0);
+      const uint32_t y0 = __shfl_sync(0xffffffffu, pk[hh * 2], src0 + 1);
+      const uint32_t y1 = __shfl_sync(0xffffffffu, pk[hh * 2 + 1], src0 + 1);
+      const uint32_t lo = upper ? x1 : x0, hi = upper ? y1 : y0;
+      pa[kk][2 * hh] = __byte_perm(lo, hi, 0x5410);       // row g
+      pa[kk][2 * hh + 1] = __byte_perm(lo, hi, 0x7632);   // g + 8
+    }
+  }
+}
+
+template <bool kPV8, bool kExpBf16, bool kVideo>
+__global__ void __launch_bounds__(i8_threads<kPV8, kExpBf16>(), 1)
+flash_fwd_i8_f32_kernel(const __grid_constant__ CUtensorMap tm_k8,
+                        const __grid_constant__ CUtensorMap tm_v_hi,
+                        const __grid_constant__ CUtensorMap tm_v_lo,
+                        const I8Args a) {
+  using Stage = I8Stage<kPV8>;
+  using Smem = I8Smem<kPV8, kExpBf16>;
+  constexpr int kWGs = i8_wgs<kPV8, kExpBf16>();
+  constexpr int kAcc = 8 / kI8Group;       // fresh p.v accumulators a tile
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int tid = threadIdx.x;
+  // warp-uniform (a shuffle), so no wgmma sits in a path the compiler
+  // takes for divergent
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int qt = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int q0 = qt * i8_block_q<kPV8, kExpBf16>();
+  const int n_tiles = __shfl_sync(
+      0xffffffffu, a.count ? a.count[qt] : (a.Skv + kFwdBKV - 1) / kFwdBKV,
+      0);
+  const int* order = a.order ? a.order + static_cast<size_t>(qt) * a.nk_table
+                             : nullptr;
+  const int* kinds = a.kind ? a.kind + static_cast<size_t>(qt) * a.nk_table
+                            : nullptr;
+
+  if (tid == 0) {
+    for (int s = 0; s < kI8Stages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 128 * kWGs);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues every copy
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kI8Stages;
+        mbar_wait(&sm.empty[s], ((j / kI8Stages) & 1) ^ 1);
+        const int kv0 = (order ? order[j] : j) * kFwdBKV;
+        Stage& st = sm.st[s];
+        mbar_expect_tx(&sm.full[s], i8_stage_bytes<kPV8>());
+        tma_load_4d(st.k8, &tm_k8, &sm.full[s], 0, h, kv0, b);
+        bulk_load(st.ksc, a.ksc + static_cast<size_t>(bh) * a.skv_pad + kv0,
+                  64 * 4, &sm.full[s]);
+        if constexpr (kPV8) {
+          tma_load_3d(st.v, &tm_v_hi, &sm.full[s], kv0, 0, bh);
+        } else {
+          for (int half = 0; half < 2; ++half) {
+            tma_load_3d(st.v + half * kHalf, &tm_v_hi, &sm.full[s],
+                        kv0 + half * 32, 0, bh);
+            tma_load_3d(st.v + 64 * 64 + half * kHalf, &tm_v_lo, &sm.full[s],
+                        kv0 + half * 32, 0, bh);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns q rows cw*64 .. cw*64+63
+  setmaxnreg_inc<kWGs == 2 ? 240 : 160>();
+  const int cw = wg - 1;
+  const int ct = tid - 128 * wg;
+  const int warp = ct / 32, lane = ct % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int qi[2] = {q0 + cw * 64 + warp * 16 + g,
+                     q0 + cw * 64 + warp * 16 + g + 8};
+
+  // The row codes, as the compiled JAX kernel makes them: sq = max(|q|,
+  // 1e-30) * f32(1/127), q8 = rint(q / sq) (IEEE division, half to even),
+  // then sq *= qscale. A quad holds a row's 64 values (columns 16 f + 4t + e
+  // of rows g, g + 8), so its absmax is two shuffles away, and they are the
+  // row's bytes of the s8 A fragments: qa[kk][e] holds row g + 8 (e & 1),
+  // columns 32 kk + 16 (e >> 1) + 4t .. + 3; with kI8QSmem the words go to
+  // the warpgroup's tile of 64-byte rows (the 64-byte swizzle) instead.
+  uint32_t qa[2][4];
+  float sqr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (qi[r] >= a.Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    float* row = a.o + ((static_cast<size_t>(b) * a.Sq + qi[r]) * a.H + h) * kD;
+    float x[16];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<float2*>(row + n * 8 + t * 2) =
-          make_float2(__fdiv_rn(o[n * 4 + r * 2], denom),
-                      __fdiv_rn(o[n * 4 + r * 2 + 1], denom));
+    for (int f = 0; f < 4; ++f) {
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (qi[r] < a.Sq) {
+        w = __ldg(reinterpret_cast<const float4*>(
+            a.q + ((static_cast<size_t>(b) * a.Sq + qi[r]) * a.H + h) * kD +
+            16 * f + 4 * t));
+      }
+      x[4 * f] = w.x;
+      x[4 * f + 1] = w.y;
+      x[4 * f + 2] = w.z;
+      x[4 * f + 3] = w.w;
     }
-    if (t == 0) {
-      a.lse[static_cast<size_t>(bh) * a.Sq + qi[r]] =
-          l[r] > 0.f ? m[r] + log2f(denom) : kNegInf;
+    float amax = 0.f;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(x[e]));
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+    const float sq = __fmul_rn(fmaxf(amax, 1e-30f), kInv127f);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = static_cast<int>(rintf(__fdiv_rn(x[4 * f + e], sq)));
+        word |= static_cast<uint32_t>(c & 0xff) << (8 * e);
+      }
+      if constexpr (kI8QSmem) {   // row rr of the warpgroup's tile, chunk f
+        const int rr = warp * 16 + g + 8 * r;
+        *reinterpret_cast<uint32_t*>(
+            sm.q8 + cw * 64 * 64 + rr * 64 + ((f ^ ((rr >> 1) & 3)) << 4) +
+            t * 4) = word;
+      } else {
+        qa[f >> 1][(f & 1) * 2 + r] = word;
+      }
+    }
+    sqr[r] = __fmul_rn(sq, a.qscale);
+  }
+  const uint32_t q_b = smem_addr(sm.q8) + cw * 64 * 64;
+  if constexpr (kI8QSmem) {
+    fence_async_smem();
+    named_barrier(1 + cw, 128);
+  }
+
+  uint32_t S[32];                  // s32 scores, then f32 scores and p
+  float o[32];
+  float acc[kPV8 ? 1 : kAcc][32];  // f32 p: P.V in fresh accumulators
+  uint32_t pv[kPV8 ? 32 : 1];      // int8_pv: the tile's p8.v8 sums
+  // P of the last tile as A fragments: split (hi, lo; exp_bf16: hi only)
+  // or, int8_pv, the p8 codes
+  uint32_t ph[kPV8 ? 1 : 8][4], pl[kPV8 || kExpBf16 ? 1 : 8][4];
+  uint32_t pa[2][4];
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float sv_last = 0.f;             // int8_pv: the last tile's V scale / 127
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    o[i] = 0.f;
+    S[i] = 0u;
+  }
+  // the values are in place before the first wgmma is issued: a register
+  // that a wgmma accumulates into may not be defined by other instructions
+  // while any wgmma is in flight, or the compiler serializes them all
+  reg_fence(S);
+  if constexpr (kPV8) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) pv[i] = 0u;
+    reg_fence(pv);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+      reg_fence(acc[c]);
     }
   }
+
+  // Issues O's product of the last tile (stage s_last) in 3xTF32 or int8.
+  const auto issue_pv = [&](int s_last) {
+    const uint32_t v_b = smem_addr(sm.st[s_last].v);
+    if constexpr (kPV8) {
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        wgmma_rs_n64_s8(pv, pa[kk], i8_desc(v_b + kk * 32), kk > 0);
+      }
+    } else if constexpr (kExpBf16) {   // p exact in tf32: two passes
+      issue_pv3<false>(acc, ph, ph, tile_desc(v_b), tile_desc(v_b + kTile));
+    } else {
+      issue_pv3<true>(acc, ph, pl, tile_desc(v_b), tile_desc(v_b + kTile));
+    }
+  };
+  // After it: O += the last tile's P.V, its stage released.
+  const auto add_pv = [&](int s_last) {
+    if constexpr (kPV8) {
+      reg_fence(pv);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        o[i] = __fadd_rn(o[i], __fmul_rn(
+            static_cast<float>(static_cast<int>(pv[i])), sv_last));
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < kAcc; ++c) {
+        reg_fence(acc[c]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[i] = __fadd_rn(o[i], acc[c][i]);
+      }
+    }
+    mbar_arrive(&sm.empty[s_last]);
+  };
+
+  // Per kv tile j: S_j = q8.k8_j^T and O's product of tile j - 1 issued
+  // as two groups; the softmax of tile j runs once S_j is done, under that
+  // product, and writes only the score registers; then O += P_{j-1}.V_{j-1},
+  // O *= alpha_j and P_j made the next product's A operand. Both waits sit
+  // in the iteration: no group crosses the loop's back-edge.
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kI8Stages;
+    const int s_last = (j + kI8Stages - 1) % kI8Stages;
+    const int kv0 = (order ? order[j] : j) * kFwdBKV;
+    const bool partial = (kinds ? kinds[j] == 1 : false) ||
+                         kv0 + kFwdBKV > a.Skv;
+    const Stage& st = sm.st[s];
+    const uint32_t k_b = smem_addr(st.k8);
+    mbar_wait(&sm.full[s], (j / kI8Stages) & 1);
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {   // exact s32 sums, two k32 slices
+      if constexpr (kI8QSmem) {
+        wgmma_ss_n64_s8(S, i8_desc(q_b + kk * 32), i8_desc(k_b + kk * 32),
+                        kk > 0);
+      } else {
+        wgmma_rs_n64_s8(S, qa[kk], i8_desc(k_b + kk * 32), kk > 0);
+      }
+    }
+    wgmma_commit();
+    if (j > 0) issue_pv(s_last);
+    wgmma_commit();                    // (empty for the first tile)
+    wgmma_wait<1>();
+    reg_fence(S);
+
+    // ---- the scores in log2 units, s = f32(q8.k8) * sq * sk in JAX's
+    // order, in the accumulator's registers; the online softmax
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 sk2 =
+          *reinterpret_cast<const float2*>(&st.ksc[n * 8 + t * 2]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float c = static_cast<float>(static_cast<int>(S[n * 4 + e]));
+        put_f32(S[n * 4 + e], __fmul_rn(__fmul_rn(c, sqr[e >> 1]),
+                                        (e & 1) ? sk2.y : sk2.x));
+      }
+    }
+    if (partial) {   // masked scores and kv >= Skv: -inf, so p = 0
+      mask_scores<kVideo>(S, a.mask, qi, kv0 + 2 * t, a.Skv);
+    }
+    float alpha[2];
+    online_softmax<kExpBf16>(S, m, l, alpha);
+
+    // ---- O = (O + P_{j-1}.V_{j-1}) * alpha_j; P_j as A fragments
+    wgmma_wait<0>();
+    if (j > 0) add_pv(s_last);
+    rescale_rows(o, alpha);
+    if constexpr (kPV8) {
+      pack_p8(S, lane, pa);
+      // the V block's scale over 127, constant over the tile: a V block is
+      // a multiple of 128 rows
+      sv_last = __fmul_rn(
+          __ldg(a.vsc + static_cast<size_t>(bh) * (a.v_pad / a.v_block) +
+                kv0 / a.v_block),
+          kInv127f);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        if constexpr (kExpBf16) {
+          acc_frags<false>(S, kk, ph[kk], ph[kk]);
+        } else {
+          acc_frags<true>(S, kk, ph[kk], pl[kk]);
+        }
+      }
+    }
+  }
+
+  // ---- the last tile's O += P.V
+  if (n_tiles > 0) {
+    const int s_last = (n_tiles - 1) % kI8Stages;
+    wgmma_fence();
+    issue_pv(s_last);
+    wgmma_commit();
+    wgmma_wait<0>();
+    add_pv(s_last);
+  }
+
+  store_rows<kExpBf16>(o, l, m, qi, t, a.o, a.lse, b, h, bh, a.H, a.Sq);
 }
 
 // ---- backward
@@ -1376,16 +1567,6 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- host
 
-template <class Kernel, class Args>
-int launch(Kernel kernel, const Args& args, dim3 grid, int bytes,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, bytes, stream>>>(args);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // an f32 BSHD tensor (B, S, H, 64) read in boxes of `rows` rows x 32
 // columns of one (b, h)
 int bshd_map(CUtensorMap* map, const void* base, int B, int S, int H,
@@ -1415,6 +1596,61 @@ int t_map(CUtensorMap* map, const void* base, int BH, int S_pad) {
                             dims, strides, box);
 }
 
+// the int8 K codes (B, S, H, 64) read in boxes of 64 rows of one (b, h),
+// 64-byte rows with the 64-byte swizzle
+int bshd_map_i8(CUtensorMap* map, const void* base, int B, int S, int H) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(kD),
+                                 static_cast<cuuint64_t>(H) * kD,
+                                 static_cast<cuuint64_t>(S) * H * kD};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kD), 1, kFwdBKV, 1};
+  return landiff_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, base,
+                            dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// the int8_pv V codes (B*H, 64, S_pad) read in boxes of 64 d x 64 kv
+// (64-byte rows, the 64-byte swizzle)
+int t_map_i8(CUtensorMap* map, const void* base, int BH, int S_pad) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(S_pad),
+                              static_cast<cuuint64_t>(kD),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(S_pad),
+                                 static_cast<cuuint64_t>(S_pad) * kD};
+  const cuuint32_t box[3] = {kFwdBKV, static_cast<cuuint32_t>(kD), 1};
+  return landiff_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, base,
+                            dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+template <bool kPV8, bool kExpBf16>
+int i8_smem_bytes() {
+  return static_cast<int>(sizeof(I8Smem<kPV8, kExpBf16>)) + 1024;
+}
+
+template <bool kPV8, bool kExpBf16, bool kVideo>
+int launch_i8_kernel(const CUtensorMap (&tm)[3], const I8Args& a,
+                     cudaStream_t stream) {
+  auto kernel = flash_fwd_i8_f32_kernel<kPV8, kExpBf16, kVideo>;
+  const int bytes = i8_smem_bytes<kPV8, kExpBf16>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kBQ = i8_block_q<kPV8, kExpBf16>();
+  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.H);
+  kernel<<<grid, i8_threads<kPV8, kExpBf16>(), bytes, stream>>>(
+      tm[0], tm[1], tm[2], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPV8, bool kExpBf16>
+int launch_i8(const CUtensorMap (&tm)[3], const I8Args& a, bool video,
+              cudaStream_t stream) {
+  return video ? launch_i8_kernel<kPV8, kExpBf16, true>(tm, a, stream)
+               : launch_i8_kernel<kPV8, kExpBf16, false>(tm, a, stream);
+}
+
 template <class Kernel>
 int set_smem(Kernel kernel, int bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -1428,9 +1664,10 @@ int set_smem(Kernel kernel, int bytes) {
 // tensor map that could not be encoded, 1000 + its CUresult (-1: no
 // cuTensorMapEncodeTiled entry point). Tensors are contiguous f32 BSHD
 // with head dim 64, 16-byte aligned; the tables (count, order, kind) are
-// per 128-row q tile of 64-row kv tiles (exact forward), per 64 x 64 tile
-// (int8 forward), per 64-row kv tile of 64-row q tiles (backward), or null
-// where nothing is masked.
+// per 128-row q tile of 64-row kv tiles (exact forward), per q tile of
+// landiff_flash_fwd_i8_f32_block_q(...) rows of 64-row kv tiles (int8
+// forward), per 64-row kv tile of 64-row q tiles (backward), or null where
+// nothing is masked.
 
 // The exact forward on the prologue's copies: k_hi, k_lo (B, Skv, H, 64)
 // from landiff_tf32_split, vt_hi, vt_lo (B*H, 64, skv_pad) from
@@ -1469,37 +1706,54 @@ extern "C" int landiff_flash_fwd_f32(
   return static_cast<int>(cudaGetLastError());
 }
 
-// k8: int8 BSHD codes and ksc: (B*H, Skv_pad) f32 scales, from
-// landiff_flash_quantize_k_f32. vsc null: v is f32 BSHD and p.v runs in
-// f32. vsc set (int8_pv): v is the int8 (B*H, 64, skv_p) codes and vsc the
-// (B*H, skv_p / v_block) f32 scales; v_block is a multiple of 128 and
-// divides skv_p >= Skv.
+// The int8-score forward: k8, int8 BSHD codes, and ksc, (B*H, skv_pad)
+// f32 scales (skv_pad = Skv rounded up to 128), from
+// landiff_flash_quantize_k_f32. vsc null: v_hi, v_lo are V^T hi / lo (B*H,
+// 64, v_pad) from landiff_tf32_split_t (v_pad = Skv rounded up to 64) and
+// p.v runs in 3xTF32. vsc set (int8_pv): v_hi is the int8 (B*H, 64, v_pad)
+// codes (v_lo unused) and vsc the (B*H, v_pad / v_block) f32 scales;
+// v_block is a multiple of 128 and divides v_pad >= Skv. The tables are per
+// q tile of landiff_flash_fwd_i8_f32_block_q(int8_pv, exp_bf16) rows.
 extern "C" int landiff_flash_fwd_i8_f32(
-    const float* q, const void* k8, const float* ksc, const void* v,
-    const float* vsc, float* o, float* lse, const int* count,
-    const int* order, const int* kind, int B, int H, int Sq, int Skv,
-    int nk_table, int skv_pad, float qscale, int mask_kind, int nf, int tpf,
-    int iqt, int pft, int v_block, int skv_p, int exp_bf16, void* stream) {
-  if (vsc && (v_block % kSkvPad || skv_p % v_block || skv_p < Skv)) {
+    const float* q, const void* k8, const float* ksc, const void* v_hi,
+    const void* v_lo, const float* vsc, float* o, float* lse,
+    const int* count, const int* order, const int* kind, int B, int H,
+    int Sq, int Skv, int nk_table, int skv_pad, int v_pad, float qscale,
+    int mask_kind, int nf, int tpf, int iqt, int pft, int v_block,
+    int exp_bf16, void* stream) {
+  if (skv_pad % kSkvPad || skv_pad < Skv || v_pad < Skv ||
+      v_pad % kFwdBKV ||
+      (vsc && (v_block % kSkvPad || v_pad % v_block))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const I8Args a{q, static_cast<const int8_t*>(k8), ksc, v, vsc, o, lse,
-                 count, order, kind, B, H, Sq, Skv, nk_table, skv_pad,
-                 v_block, skv_p, qscale,
-                 make_mask(mask_kind, nf, tpf, iqt, pft)};
-  const dim3 grid((Sq + kT - 1) / kT, B * H);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int bytes = sizeof(I8Smem);
-  if (vsc) {
-    return exp_bf16 ? launch(flash_fwd_i8_f32_kernel<true, true>, a, grid,
-                             bytes, st)
-                    : launch(flash_fwd_i8_f32_kernel<true, false>, a, grid,
-                             bytes, st);
+  CUtensorMap tm[3];
+  int rc = bshd_map_i8(&tm[0], k8, B, Skv, H);
+  if (rc == 0 && vsc) {
+    rc = t_map_i8(&tm[1], v_hi, B * H, v_pad);
+    tm[2] = tm[1];
+  } else if (rc == 0) {
+    rc = t_map(&tm[1], v_hi, B * H, v_pad);
+    if (rc == 0) rc = t_map(&tm[2], v_lo, B * H, v_pad);
   }
-  return exp_bf16 ? launch(flash_fwd_i8_f32_kernel<false, true>, a, grid,
-                           bytes, st)
-                  : launch(flash_fwd_i8_f32_kernel<false, false>, a, grid,
-                           bytes, st);
+  if (rc != 0) return rc < 0 ? rc : 1000 + rc;
+  const I8Args a{q, ksc, vsc, o, lse, count, order, kind, B, H, Sq, Skv,
+                 nk_table, skv_pad, v_pad, v_block, qscale,
+                 make_mask(mask_kind, nf, tpf, iqt, pft)};
+  const bool video =
+      mask_kind == kMaskVideoEncoder || mask_kind == kMaskVideoDecoder;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vsc) {
+    return exp_bf16 ? launch_i8<true, true>(tm, a, video, st)
+                    : launch_i8<true, false>(tm, a, video, st);
+  }
+  return exp_bf16 ? launch_i8<false, true>(tm, a, video, st)
+                  : launch_i8<false, false>(tm, a, video, st);
+}
+
+// The int8-score forward's q rows per CTA (its tables' q tile), by form.
+extern "C" int landiff_flash_fwd_i8_f32_block_q(int int8_pv, int exp_bf16) {
+  return int8_pv || exp_bf16 ? i8_block_q<true, true>()
+                             : i8_block_q<false, false>();
 }
 
 // k (B, Skv, H, 64) f32 -> k8 (the same shape, int8) and ksc (B*H, Skv_pad)
@@ -1594,8 +1848,15 @@ extern "C" int landiff_flash_bwd_f32(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The 3xTF32 kernels' dynamic shared memory per CTA, in bytes: the
-// forward (bwd = 0) or the backward.
-extern "C" int landiff_flash_f32_smem_bytes(int bwd) {
-  return static_cast<int>(bwd ? sizeof(BwdSmem) : sizeof(FwdSmem)) + 1024;
+// Dynamic shared memory per CTA, in bytes: of the exact forward (kernel
+// 0), the backward (1), the int8-score forward (2 + 2 int8_pv + exp_bf16).
+extern "C" int landiff_flash_f32_smem_bytes(int kernel) {
+  switch (kernel) {
+    case 0: return static_cast<int>(sizeof(FwdSmem)) + 1024;
+    case 1: return static_cast<int>(sizeof(BwdSmem)) + 1024;
+    case 2: return i8_smem_bytes<false, false>();
+    case 3: return i8_smem_bytes<false, true>();
+    case 4: return i8_smem_bytes<true, false>();
+    default: return i8_smem_bytes<true, true>();
+  }
 }

@@ -321,6 +321,21 @@ __device__ __forceinline__ void wgmma_ss_n128_s8(uint32_t (&d)[64],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 64 s32) (+)= A (64 x 32 s8, shared, K-major) . B (32 x 64 s8,
+// shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n64_s8(uint32_t (&d)[32],
+                                                uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p;\n}\n"
+      : LANDIFF_R8(0), LANDIFF_R8(8), LANDIFF_R8(16), LANDIFF_R8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 64 s32) (+)= A (64 x 32 s8 in registers) . B (32 x 64 s8,
 // shared, K-major)
 __device__ __forceinline__ void wgmma_rs_n64_s8(uint32_t (&d)[32],

@@ -135,9 +135,9 @@ def bind_flash_bwd(path: Path) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def flash_f32_library() -> ctypes.CDLL:
     """The f32 flash library (the 3xTF32 exact forward and backward with
-    their split prologues, the int8-score forward and its K quantization
-    prologue, the backward's q-side prologue) with its C signatures
-    declared."""
+    their split prologues, the int8-score forward (int8 scores, 3xTF32 or
+    int8 p.v) and its K quantization prologue, the backward's q-side
+    prologue) with its C signatures declared."""
     return bind_flash_f32(build(["flash_f32"])["flash_f32"])
 
 
@@ -150,7 +150,8 @@ def bind_flash_f32(path: Path) -> ctypes.CDLL:
     lib.landiff_flash_fwd_f32.argtypes = (
         [ptr] * 10 + [i32] * 6 + [f32] + [i32] * 6 + [ptr])
     lib.landiff_flash_fwd_i8_f32.argtypes = (
-        [ptr] * 10 + [i32] * 6 + [f32] + [i32] * 8 + [ptr])
+        [ptr] * 11 + [i32] * 7 + [f32] + [i32] * 7 + [ptr])
+    lib.landiff_flash_fwd_i8_f32_block_q.argtypes = [i32, i32]
     lib.landiff_flash_quantize_k_f32.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
     lib.landiff_tf32_split.argtypes = [ptr] * 3 + [i64, ptr]
     lib.landiff_tf32_split_t.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
@@ -159,6 +160,7 @@ def bind_flash_f32(path: Path) -> ctypes.CDLL:
         [ptr] * 16 + [i32] * 7 + [f32, f32] + [i32] * 5 + [ptr])
     lib.landiff_flash_f32_smem_bytes.argtypes = [i32]
     for fn in (lib.landiff_flash_fwd_f32, lib.landiff_flash_fwd_i8_f32,
+               lib.landiff_flash_fwd_i8_f32_block_q,
                lib.landiff_flash_quantize_k_f32, lib.landiff_tf32_split,
                lib.landiff_tf32_split_t, lib.landiff_flash_bwd_prep_f32,
                lib.landiff_flash_bwd_f32, lib.landiff_flash_f32_smem_bytes):

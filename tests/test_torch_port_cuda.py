@@ -24,10 +24,12 @@ versions with the forward's limits widened by what each variant's
 arithmetic can move (attention.variant_limits, as chip_smoke.py holds
 them); the W8A8 product of the DiT to its CPU result bit for bit.
 
-The f32 kernels are held within attention.F32_TOL: the 3xTF32 exact
-forward and backward to the plain version in float64
-(attention.f64_reference), the SIMT int8-score forms to the f32 one; their
-variants within attention.f32_variant_limits.
+The f32 kernels are held within attention.F32_TOL to their plain versions
+in float64: the exact forward and the backward to
+attention.f64_reference, the int8-score forms to
+attention.int8_f64_reference (codes, scales and scores in f32, as the
+kernel makes them, the rest in float64), whose scores the kernel's equal
+bit for bit; their variants within attention.f32_variant_limits.
 
 The adaLN kernel and its plain version both compute in f32 and round
 once: within one bf16 step per element in bf16 (steps taken at the
@@ -460,8 +462,8 @@ def test_f32_kernel_matches_plain(dev, f32_matmul, int8, mask, Sq, Skv):
     out, lse = fn(q, k, v, mask_fn=mf)
     torch.cuda.synchronize()
     assert TA.LAUNCHES[name] == before + 1 and out.dtype == torch.float32
-    # the 3xTF32 exact form against the plain version in float64
-    ref, ref_lse = (plain if int8 else functools.partial(
+    # both forms against their plain versions in float64
+    ref, ref_lse = (TA.int8_f64_reference if int8 else functools.partial(
         TA.f64_reference, plain))(q, k, v, mask_fn=mf,
                                   block_kv=TA.F32_BLOCK_KV)
     tol = TA.F32_TOL["fwd"]
@@ -489,7 +491,7 @@ def test_f32_variants_of_the_fast_path_match_plain(dev, f32_matmul, int8,
                                                    int8_pv, exp_bf16, mask,
                                                    Sq, Skv):
     """The int8_pv and exp_bf16 forms in f32 run their kernels and match
-    their plain versions (at the f32 kernels' kv tile) within
+    their plain versions in float64 (at the f32 kernels' kv tile) within
     attention.f32_variant_limits; the exp_bf16 ones also the plain version
     with the card's own exp2. f16 is refused."""
     mf = _MASKS[mask]
@@ -502,8 +504,9 @@ def test_f32_variants_of_the_fast_path_match_plain(dev, f32_matmul, int8,
     out, lse = fn(q, k, v, mask_fn=mf, **opts)
     torch.cuda.synchronize()
     assert TA.LAUNCHES[name] == before + 1 and out.dtype == torch.float32
-    if not int8:   # the 3xTF32 exact form: the plain version in float64
-        plain = functools.partial(TA.f64_reference, plain)
+    # the plain version in float64 (int8: codes and scores in f32)
+    plain = (TA.int8_f64_reference if int8
+             else functools.partial(TA.f64_reference, plain))
     ref, ref_lse = plain(q, k, v, mask_fn=mf, block_kv=TA.F32_BLOCK_KV,
                          **opts)
     lim = TA.f32_variant_limits(ref, v, int8=int8, int8_pv=int8_pv,
@@ -534,6 +537,80 @@ def test_f32_dispatcher_launches_int8_pv(dev, f32_matmul, monkeypatch):
     assert sum(TA.LAUNCHES.values()) == 1
     want = TA.flash_fwd_int8(q, k, v, int8_pv=True)[0]
     assert torch.equal(got, want)
+
+
+# the int8-score f32 forward's forms (int8_pv, exp_bf16), each under every
+# mask kind, at ragged shapes: Skv mod 64 = 59, 2, 13 and 1; a single q row
+_F32_I8_FORMS = [(False, False), (True, False), (True, True), (False, True)]
+_F32_I8_CASES = [(None, 300, 187), (None, 1, 130), ("causal", 333, 333),
+                 ("decoder", _LAYOUT.seq_len + 100, _LAYOUT.seq_len + 100),
+                 ("encoder", _LAYOUT.seq_len, _LAYOUT.seq_len - 63)]
+
+
+@pytest.mark.parametrize("int8_pv,exp_bf16", _F32_I8_FORMS)
+@pytest.mark.parametrize("mask,Sq,Skv", _F32_I8_CASES)
+def test_f32_int8_forms_match_the_checking_reference(dev, f32_matmul, int8_pv,
+                                                     exp_bf16, mask, Sq, Skv):
+    """Each form of the int8-score f32 kernel against
+    attention.int8_f64_reference: the f32-p form within F32_TOL, the
+    others within attention.f32_variant_limits (exp_bf16 also against the
+    reference with the card's exp2); rows that see nothing give 0."""
+    mf = _MASKS[mask]
+    q, k, v = _qkv32(dev, 2, Sq, Skv, 3, seed=7)
+    name = TA.variant_name(True, int8_pv, exp_bf16, f32=True)
+    before = TA.LAUNCHES[name]
+    out, lse = TA.flash_fwd_int8(q, k, v, mask_fn=mf, int8_pv=int8_pv,
+                                 exp_bf16=exp_bf16)
+    torch.cuda.synchronize()
+    assert TA.LAUNCHES[name] == before + 1
+    opts = dict(int8_pv=int8_pv, exp_bf16=exp_bf16, block_kv=TA.F32_BLOCK_KV)
+    ref, ref_lse = TA.int8_f64_reference(q, k, v, mask_fn=mf, **opts)
+    if not (int8_pv or exp_bf16):
+        tol = TA.F32_TOL["fwd"]
+        max_rel, rel_rms = TA.kernel_error_rel(out, ref)
+        assert max_rel <= tol["max_rel"] and rel_rms <= tol["rel_rms"], \
+            (max_rel, rel_rms)
+        assert (lse - ref_lse).abs().max().item() <= tol["lse"]
+    else:
+        lim = TA.f32_variant_limits(ref, v, int8=True, int8_pv=int8_pv,
+                                    exp_bf16=exp_bf16)
+        assert (out - ref).abs().max().item() <= lim["max_abs"]
+        assert TA.kernel_error_rel(out, ref)[1] <= lim["rel_rms"]
+        assert (lse - ref_lse).abs().max().item() <= lim["lse"]
+        if exp_bf16:
+            card, card_lse = TA.int8_f64_reference(
+                q, k, v, mask_fn=mf, exp2_table=TA.card_exp2_table("cuda"),
+                **opts)
+            assert (out - card).abs().max().item() <= lim["card"]["max_abs"]
+            assert TA.kernel_error_rel(out, card)[1] <= lim["card"]["rel_rms"]
+            assert (lse - card_lse).abs().max().item() <= lim["card"]["lse"]
+    if mask == "decoder":     # rows past the layout see nothing
+        assert out[:, _LAYOUT.seq_len:].abs().max().item() == 0.0
+        assert (lse[..., _LAYOUT.seq_len:] == TA.NEG_INF).all()
+
+
+@pytest.mark.parametrize("B,Sq,H", [(2, 333, 3), (1, 1000, 2)])
+def test_f32_int8_scores_are_the_plain_versions_to_the_bit(dev, B, Sq, H):
+    """With one kv position p = 1, so lse is that position's score: the
+    kernel's lse equals the plain version's bit for bit, which holds its q
+    codes and scales (made in the CTA), its K codes and scales (the
+    prologue) and the order of the two products. The wrapper's q tile is
+    F32_I8_BLOCK_Q."""
+    from landiff_tpu_torch.ops import kernels
+
+    lib = kernels.flash_f32_library()
+    for int8_pv, exp_bf16 in _F32_I8_FORMS:
+        assert (lib.landiff_flash_fwd_i8_f32_block_q(int(int8_pv),
+                                                     int(exp_bf16))
+                == TA.F32_I8_BLOCK_Q[int8_pv or exp_bf16])
+    q, k, v = _qkv32(dev, B, Sq, 1, H, seed=8)
+    q[0, :3] *= 1e-3                 # rows of other magnitudes
+    q[0, 3] = 0.0                    # a row of zeros: codes 0, s = 0
+    for int8_pv in (False, True):
+        _, lse = TA.flash_fwd_int8(q, k, v, int8_pv=int8_pv)
+        _, want_lse = TA.flash_int8_plain(q, k, v, int8_pv=int8_pv,
+                                          block_kv=TA.F32_BLOCK_KV)
+        assert torch.equal(lse, want_lse)
 
 
 @pytest.mark.parametrize("B,S,H,s_pad", [(2, 300, 3, 320), (1, 64, 1, 64),
@@ -594,7 +671,8 @@ def test_f32_bwd_prologue_matches_plain(dev):
 def test_remat_save_attn_on_the_card(dev, monkeypatch):
     """LANDIFF_REMAT_SAVE_ATTN=1 on the card: the recompute launches no
     exact forward and the gradients equal those without the knob (dq's
-    atomics aside: within the bf16 backward's own run-to-run spread)."""
+    bulk reduce-adds aside: within the bf16 backward's own run-to-run
+    spread)."""
     from landiff_tpu_torch import config as tcfg
     from landiff_tpu_torch.models import dit as tdit
     from landiff_tpu_torch.pipeline import dif_infer as tdi

@@ -14,7 +14,8 @@ split.
   - The plain 3xTF32 split (attention.tf32_split_plain): hi is x rounded
     to tf32 (low 13 bits clear, ties away from zero), and hi + lo is x to
     2^-21 relative; the transposed split's layout.
-  - chip_ablation.py's tables for the 3xTF32 kernels still apply to
+  - chip_ablation.py's tables for the f32 kernels (the 3xTF32 exact
+    forward and backward, the int8-score forward) still apply to
     csrc/flash_f32.cu.
 
 Tolerances are stated at each test, from the readings on this CPU."""
@@ -188,13 +189,16 @@ _F32_ABLATIONS = {"fwd_f32": ["one_pass", "two_pass", "group_4", "group_2",
                               "stages_2"],
                   "bwd_f32": ["one_pass", "two_pass", "exp2f", "slice_adds",
                               "group_4", "group_2", "no_reduce",
-                              "no_dq_product"]}
+                              "no_dq_product"],
+                  "fwd_i8_f32": ["wgs_3", "narrow_wgs_2", "q_regs", "group_4",
+                                 "stages_2", "stages_4", "no_overlap",
+                                 "no_exp2", "two_pass", "no_pv_product"]}
 
 
 @pytest.mark.parametrize("kernel,variant", [
     (k, v) for k, names in _F32_ABLATIONS.items() for v in names])
 def test_f32_ablation_variants_still_apply_to_the_kernel_source(kernel,
                                                                 variant):
-    """chip_ablation.py --kernel fwd_f32 | bwd_f32: each edit of
-    flash_f32.cu's text matches the source exactly once."""
+    """chip_ablation.py --kernel fwd_f32 | bwd_f32 | fwd_i8_f32: each edit
+    of flash_f32.cu's text matches the source exactly once."""
     check_ablation_variant(kernel, variant, _F32_ABLATIONS[kernel])
