@@ -13,6 +13,8 @@
     python3 chip_smoke.py --only f32 | ckpt | long_video | train
                                        # one of the phases 3c (with 8e),
                                        # 8d, 8c, 9
+    python3 chip_smoke.py --only tokenizer   # 3d, 8f, 8g, 11, 12, then
+                                             # the pipeline for 6b
 
 Phases, in order; any failure exits nonzero before the last line:
   1. device:  the card's name and power limit; TF32 off for matmuls and
@@ -65,6 +67,13 @@ Phases, in order; any failure exits nonzero before the last line:
               allowed); then the f32 variants on their paths (the
               dispatcher under LANDIFF_ATTN_INT8_PV=1, flash_attention
               under the exp_bf16 knobs), one launch each.
+  3d. encoder mask: the flash kernels of the tokenizer's paths under the
+              video-encoder mask at the full TiTok layout (B=1 S=18,768
+              H=12): the bf16 exact and int8 forwards and the bf16
+              backward against their plain versions (phase 3's limits),
+              the f32 exact and int8 forwards and the f32 backward against
+              the float64 references on four seeds each (attention.
+              F32_TOL), each timed beside its bound at this shape.
   4. build the pipeline: infer_video.build_pipeline at the full width of
               LanDiffConfig() (random weights from a seed, zero leaves
               filled, depth not cut), both stages on the card.
@@ -81,6 +90,11 @@ Phases, in order; any failure exits nonzero before the last line:
               seed + 1,218 codes -> (1, 3, 49, 480, 720) video) with the
               adaLN knob unset; the int8 kernel must launch 12 + 45 *
               steps times, the adaLN kernel never.
+  6b. prefix video: image to video, a 1-frame 480 x 720 prefix VAE-encoded
+              and held over the first latent frame at the stage2 phase's
+              step count: the video's shape, range, finiteness, the held
+              frame equal to the prefix's own encoding, 12 + 45 * steps
+              int8 launches.
   7. exact:   one full-width control_warp_forward with int8 scores off;
               the exact kernel must launch 45 times.
   8. dit call: one warm model call timed with and without the knob.
@@ -95,7 +109,16 @@ Phases, in order; any failure exits nonzero before the last line:
               infer_video.generate: 2 x 1,218 codes, 19 latent frames, 73
               frames at 480 x 720, finite, in [0, 1]; seconds per phase and
               per segment; 2 * (12 + 45 * steps) int8 launches.
-  8e. dit call f32: the pipelines are freed; one full-width f32 DiT model
+  8f. tokenize: the pipelines are freed; video -> codes at full width
+              (vq.encode_to_index: Theia 12 x 768, TiTok 12 x 768, VQ
+              2,048 x 16) on a seeded 13-frame 480 x 720 clip, first and
+              warm: 1,218 codes in range, 12 int8 launches (encoder mask)
+              and nothing else, then index_to_feature's round trip (12
+              more); seconds, peak memory.
+  8g. vae encode: engine.encode_first_stage on a seeded 49-frame 480 x
+              720 clip, whole and streaming, twice each: (1, 13, 16, 60,
+              90) finite latents, seconds and peak memory.
+  8e. dit call f32: one full-width f32 DiT model
               call (CFG batch 2, 45 layers, random weights): seconds, and
               45 launches of the f32 int8 forward, nothing else.
   8d. ckpt:   a synthetic checkpoint tree of
@@ -128,6 +151,16 @@ Phases, in order; any failure exits nonzero before the last line:
   10. train lm: two steps of the stage-1 step at full width (GPT 24 x
               2,048, f32); losses finite, parameters changed, no flash
               launch.
+  11. train vq: train("vq") at full width, batch 1, f32 (its default),
+              three steps on synthesized Theia features, the first with
+              the k-means codebook init: losses finite, parameters moved,
+              per step 24 f32 exact forwards and 24 f32 backward launches
+              (the first step 12 more forwards: the k-means pass runs
+              the encoder alone), nothing else;
+              seconds per step, peak memory.
+  12. prepare: data.prepare over two seeded 13-frame 480 x 720 .npy clips
+              at full width, --model vq and lm, shards read back through
+              data.loader; 24 int8 launches for lm, none for vq.
   (--profile: one warm denoise-step model call, without and with the knob,
    and 20 stage-1 decode steps, under torch.profiler.)
 Then one JSON line with every kernel's numbers, and the last line
@@ -905,6 +938,64 @@ def titok_decoder_mask():
                                pframe_tokens=t.pframe_latent_tokens)
     check(layout.seq_len == 18768, f"TiTok sequence {layout.seq_len}")
     return M.video_decoder_mask(layout)
+
+
+def titok_encoder_mask():
+    """The TiTok encoder's mask at its full layout: the latent-query rows
+    (from frames_end on) see kv past frames_end (masks.py:107-110)."""
+    from landiff_tpu_torch.ops import masks as M
+
+    return M.video_encoder_mask(titok_decoder_mask().layout)
+
+
+# the encoder-mask cases' inputs: bf16 forwards and backward one seed
+# each, the f32 kernels four seeds each (their limits held on every one)
+ENC_SEEDS = {"bf16": 81, "f32_fwd": (82, 84, 86, 88),
+             "f32_bwd": (83, 85, 87, 89)}
+
+
+def phase_encoder_mask(rates):
+    """Each flash kernel of the tokenizer's paths under the video-encoder
+    mask at the full TiTok layout (B=1 S=18,768 H=12 D=64): the bf16 exact
+    and int8 forwards and the bf16 backward against their plain versions
+    (the limits of phase 3), the f32 exact and int8 forwards and the f32
+    backward against the float64 references on four seeds (attention.
+    F32_TOL, as phase 3c), each with its ms beside its bound at this
+    shape. Returns {kernel name: case}."""
+    enc = titok_encoder_mask()
+    B, S, H = 1, 18768, 12
+    res = {}
+    for int8 in (False, True):
+        c = kernel_case("titok_enc", B, S, H, enc, int8, seed=ENC_SEEDS["bf16"],
+                        exp2_rate=rates[False])
+        res[c["name"]] = c
+    res["flash_bwd"] = bwd_case("titok_enc", B, S, H, enc,
+                                seed=ENC_SEEDS["bf16"], exp2_rate=rates[False])
+    for int8 in (False, True):
+        c = f32_fwd_case("titok_enc", B, S, H, enc, int8, ENC_SEEDS["f32_fwd"],
+                         exp2_rates=rates)
+        res[c["name"]] = c
+    res["flash_bwd_f32"] = f32_bwd_case("titok_enc", B, S, H, enc,
+                                        ENC_SEEDS["f32_bwd"],
+                                        exp2_rate=rates[False])
+    faults = [f for c in res.values() for f in c["faults"]]
+    check(not faults, "encoder mask, kernel vs plain: " + "; ".join(faults))
+    summary = {name: {k: c[k] for k in ("ms", "bound_ms", "bound_by",
+                                        "plain_ms", "library_ms",
+                                        "max_abs_err")}
+               for name, c in res.items()}
+    log(json.dumps({"phase": "encoder_mask", "shape": [B, S, H, 64],
+                    "kernels": summary}))
+    return res
+
+
+def enc_entry(case):
+    """The encoder-mask hold of a kernel, for its row of the kernels line."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err", "rel_rms_err", "max_rel_err", "max_bf16_steps",
+            "errors", "seeds", "limits", "visible_pairs")
+    return {"shape": case["shape"], "mask": "video_encoder",
+            **{k: case[k] for k in keys if k in case}}
 
 
 def phase_kernels():
@@ -1850,6 +1941,324 @@ def phase_long_video(cfg, llm, dif, steps):
     return launches
 
 
+def phase_prefix(cfg, dif, steps):
+    """Image to video through the stage-2 wrapper: a seeded 1-frame
+    480 x 720 prefix in [0, 1] is VAE-encoded (the posterior's mode) and
+    held over the first latent frame while the rest is sampled at the
+    stage2 phase's step count; the video's shape, range and finiteness,
+    the first latent frame equal to the prefix's own encoding, 12 + 45 *
+    steps int8 launches."""
+    import torch
+
+    from landiff_tpu_torch.diffusion import engine
+    from landiff_tpu_torch.pipeline import dif_infer
+
+    prefix = np.random.default_rng(34).random((1, 3, 1, 480, 720),
+                                              dtype=np.float32)
+    codes = np.random.default_rng(35).integers(
+        0, cfg.tokenizer.vq.codebook_size, cfg.tokenizer.titok.latent_tokens)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    task = dif(dif_infer.VideoTask("prefix", "a lighthouse at dusk", 3,
+                                   semantic_token=codes), prefix_video=prefix)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    check_video(task.result, task.latent)
+    want = 12 + 45 * steps
+    check(launches["flash_fwd_int8"] == want,
+          f"prefix request: int8 launches {launches['flash_fwd_int8']}, "
+          f"want {want}")
+    check_no_variant(launches)
+    with torch.inference_mode():
+        enc = engine.encode_first_stage(
+            dif.params["vae"], engine.pre_process_video(
+                torch.from_numpy(prefix).cuda()), cfg.vae,
+            compute_dtype=dif.compute_dtype).float().cpu().numpy()
+    held = task.latent[:, :1]
+    err = float(np.abs(held - enc).max())
+    check(enc.shape == held.shape == (1, 1, 16, 60, 90),
+          f"prefix latents {enc.shape} / {held.shape}")
+    # the sampler splices the encoding in unchanged, and the same encode
+    # of the same input reruns the same cuDNN algorithms (no benchmark
+    # mode): the held frame is the encoding exactly, as on the CPU
+    check(err == 0.0,
+          f"held prefix frame differs from its encoding by {err}")
+    log(json.dumps({
+        "phase": "prefix_video", "prefix": list(prefix.shape),
+        "video": list(task.result.shape), "finite": True,
+        "seconds": seconds, "phase_seconds": dif.phase_seconds,
+        "held_frame_max_abs_err": err, "launches": launches,
+        "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    return launches
+
+
+def phase_tokenize():
+    """video -> codes at full width (Theia 12 x 768, TiTok 12 x 768, VQ
+    2,048 x 16; random weights from a seed, zero leaves filled) on a
+    seeded 13-frame 480 x 720 clip through vq.encode_to_index, twice
+    (first and warm, the warm one split into Theia and TiTok + VQ), then
+    index_to_feature's round trip. 1,218 codes in [0, 2,048); the encoder
+    launches the bf16 int8 forward 12 times (under the encoder mask) and
+    nothing else, the decoder 12 more (decoder mask)."""
+    import torch
+
+    from landiff_tpu_torch.config import TokenizerConfig
+    from landiff_tpu_torch.models import vq
+    from landiff_tpu_torch.utils import count_params, fill_zero_leaves
+
+    cfg = TokenizerConfig()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    params = fill_zero_leaves(vq.init(gen, cfg, with_theia=True), gen)
+    video = torch.from_numpy(np.random.default_rng(32).integers(
+        0, 256, (1, 13, 480, 720, 3), dtype=np.uint8)).cuda()
+    want = {"flash_fwd_int8": cfg.titok.num_layers}
+    runs = {}
+    with torch.inference_mode():
+        for run in ("first", "warm"):
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if run == "warm":
+                feats = vq.extract_features(params, video, cfg)
+                torch.cuda.synchronize()
+                t_theia = time.perf_counter() - t0
+                quant, idx = vq.encode_features_to_index(params, feats, cfg)
+            else:
+                quant, idx = vq.encode_to_index(params, video, cfg)
+            torch.cuda.synchronize()
+            launches = {k: n for k, n in read_counts().items() if n}
+            runs[run] = {"seconds": time.perf_counter() - t0,
+                         "launches": launches,
+                         "peak_gpu_mem_gb":
+                             torch.cuda.max_memory_allocated() / 1e9}
+            check(launches == want, f"tokenize ({run}): launches "
+                  f"{launches}, want {want}")
+        runs["warm"]["theia_seconds"] = t_theia
+        runs["warm"]["titok_vq_seconds"] = runs["warm"]["seconds"] - t_theia
+        codes = idx.cpu().numpy()
+        check(codes.shape == (1, cfg.titok.latent_tokens),
+              f"codes {codes.shape}")
+        check(codes.min() >= 0 and codes.max() < cfg.vq.codebook_size,
+              "codes out of range")
+        check(len(np.unique(codes)) > 1, "codes are constant")
+        check(quant.shape == (1, cfg.titok.latent_tokens, cfg.vq.dim)
+              and bool(torch.isfinite(quant).all()), "quantized latents")
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = vq.index_to_feature(params, idx, cfg)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        dec_launches = {k: n for k, n in read_counts().items() if n}
+    check(rec.shape == (1, 13, cfg.titok.grid_h, cfg.titok.grid_w,
+                        cfg.feature_dim) and bool(torch.isfinite(rec).all()),
+          f"round trip {tuple(rec.shape)}")
+    check(dec_launches == want, f"index_to_feature launches {dec_launches}")
+    log(json.dumps({
+        "phase": "tokenize", "clip": list(video.shape),
+        "params": {"theia": count_params(params["theia"]),
+                   "encoder": count_params(params["encoder"]),
+                   "quant": count_params(params["quant"])},
+        "codes": list(codes.shape), "distinct_codes":
+            int(len(np.unique(codes))), "encode": runs,
+        "round_trip": {"features": list(rec.shape), "seconds": dec_s,
+                       "launches": dec_launches}}))
+    del params, video, quant, rec
+    torch.cuda.empty_cache()
+    return runs["warm"]["launches"]
+
+
+def phase_vae_encode():
+    """video -> VAE latents at full width on a seeded 49-frame 480 x 720
+    clip in [-1, 1]: engine.encode_first_stage whole and streaming (9 +
+    5 x 8 frames), each twice; seconds and peak memory; (1, 13, 16, 60,
+    90) finite latents; no flash kernel (the convs are cuDNN's)."""
+    import torch
+
+    from landiff_tpu_torch.config import VAEConfig
+    from landiff_tpu_torch.diffusion import engine
+    from landiff_tpu_torch.models import vae as vae_lib
+    from landiff_tpu_torch.utils import count_params, fill_zero_leaves
+
+    cfg = VAEConfig()
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    params = {"encoder": fill_zero_leaves(vae_lib.init_encoder(gen, cfg),
+                                          gen)}
+    video = torch.rand((1, 3, 49, 480, 720), generator=gen,
+                       device="cuda") * 2.0 - 1.0
+    out, lat = {}, {}
+    with torch.inference_mode():
+        for streaming in (False, True):
+            name = "streaming" if streaming else "whole"
+            secs = []
+            for _ in range(2):
+                reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                z = engine.encode_first_stage(params, video, cfg,
+                                              streaming=streaming)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            check(tuple(z.shape) == (1, 13, 16, 60, 90),
+                  f"{name} latents {tuple(z.shape)}")
+            check(bool(torch.isfinite(z).all()), f"{name} latents not finite")
+            launches = {k: n for k, n in read_counts().items() if n}
+            check(not launches, f"vae encode launched {launches}")
+            lat[name] = z.float()
+            out[name] = {"seconds": secs, "peak_gpu_mem_gb":
+                         torch.cuda.max_memory_allocated() / 1e9,
+                         "peak_above_inputs_gb":
+                         (torch.cuda.max_memory_allocated() - base) / 1e9,
+                         "latent_std": float(z.float().std())}
+    log(json.dumps({
+        "phase": "vae_encode", "clip": list(video.shape),
+        "params": count_params(params), "latents": [1, 13, 16, 60, 90],
+        "whole_vs_streaming_max_abs":
+            float((lat["whole"] - lat["streaming"]).abs().max()), **out}))
+    del params, video, lat, z
+    torch.cuda.empty_cache()
+
+
+# the tokenizer trainer's flash launches per step at full width in f32:
+# 12 encoder + 12 decoder attention calls, each an exact forward under
+# grad and a backward; the first step's k-means pass (no grad) adds 24
+# exact forwards
+TRAIN_VQ_LAUNCHES = {"flash_fwd_exact_f32": 24, "flash_bwd_f32": 24}
+
+
+def phase_train_vq(workdir, steps=3):
+    """training.train.train("vq") at full width, batch 1, in f32 (the
+    trainer's default) on synthesized Theia features: `steps` steps, the
+    first with the k-means codebook init; every loss finite, the trained
+    parameters moved, the codebook initialised; seconds per step, peak
+    memory and the flash launches of each step (read at each step's
+    gradient) by kind."""
+    import torch
+
+    from landiff_tpu_torch.config import LanDiffConfig
+    from landiff_tpu_torch.models import vq as vq_lib
+    from landiff_tpu_torch.training import optim
+    from landiff_tpu_torch.training import train as train_lib
+    from landiff_tpu_torch.utils import count_params
+
+    cfg = LanDiffConfig()
+    data = workdir / "vq_data"
+    metrics = workdir / "vq_metrics.jsonl"
+    train_lib.synthesize("vq", cfg, steps, str(data), seed=0,
+                         shard_size=steps)
+    made, per_step = {}, []
+    orig_init, orig_grad = vq_lib.init, optim.grad
+
+    def init(*a, **kw):
+        made["params"] = orig_init(*a, **kw)
+        made["before"] = leaf_sums(made["params"])
+        return made["params"]
+
+    def grad(loss, params):
+        grads = orig_grad(loss, params)
+        torch.cuda.synchronize()
+        per_step.append({k: n for k, n in read_counts().items() if n})
+        reset_counts()
+        return grads
+
+    vq_lib.init, optim.grad = init, grad
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, last = train_lib.train("vq", str(data), steps=steps,
+                                      batch_size=1, log_every=1,
+                                      metrics_path=str(metrics),
+                                      device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        vq_lib.init, optim.grad = orig_init, orig_grad
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    check(len(rows) == steps, f"{len(rows)} metric rows")
+    for r in rows:
+        check(all(np.isfinite(r[k]) for k in ("total_loss", "re_loss",
+                                              "commit_loss")),
+              f"train vq: loss not finite {r}")
+    want = [dict(TRAIN_VQ_LAUNCHES) for _ in range(steps)]
+    want[0]["flash_fwd_exact_f32"] += 12   # the k-means pass: the encoder
+    check(per_step == want, f"train vq launches {per_step}, want {want}")
+    after = leaf_sums(state[0])
+    moved = int((after != made["before"]).any(dim=1).sum())
+    check(moved > len(after) // 2, f"only {moved} leaves moved")
+    check(bool(state[2]["initted"]) and state[3] is False,
+          "codebook state not initialised")
+    log(json.dumps({
+        "phase": "train_vq", "dtype": "float32", "batch": 1, "steps": steps,
+        "params": count_params(state[0]), "seconds": seconds,
+        "step_seconds": step_seconds(rows),
+        "losses": [{k: r[k] for k in ("total_loss", "re_loss",
+                                      "commit_loss")} for r in rows],
+        "launches_per_step": per_step, "leaves_moved": moved,
+        "leaves": len(after),
+        "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    del state, made
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def phase_prepare(workdir):
+    """data.prepare over two seeded 13-frame 480 x 720 .npy clips (one with
+    a caption) at full width in bf16, --model vq and --model lm, random
+    weights; the shards read back through data.loader: features (2, 13,
+    30, 45, 768) finite, codes (2, 1,218) in range, captions; the lm pass
+    launches the int8 forward 12 times per segment."""
+    import torch
+
+    from landiff_tpu_torch.config import LanDiffConfig
+    from landiff_tpu_torch.data import loader, prepare
+
+    cfg = LanDiffConfig().tokenizer
+    clips = workdir / "clips"
+    clips.mkdir()
+    rng = np.random.default_rng(36)
+    for name in ("a", "b"):
+        np.save(clips / f"{name}.npy", rng.integers(
+            0, 256, (13, 480, 720, 3), dtype=np.uint8))
+    (clips / "captions.json").write_text(json.dumps({"a": "a red kite"}))
+    res = {}
+    for model in ("vq", "lm"):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        shards = prepare.prepare(str(clips), str(workdir / f"prep_{model}"),
+                                 model=model, device="cuda")
+        seconds = time.perf_counter() - t0
+        launches = {k: n for k, n in read_counts().items() if n}
+        batch = next(loader.ShardedNpzDataset(
+            workdir / f"prep_{model}", 2).iter_epoch(0))
+        if model == "vq":
+            f = batch["features"]
+            check(f.shape == (2, 13, cfg.titok.grid_h, cfg.titok.grid_w,
+                              cfg.feature_dim) and np.isfinite(f).all(),
+                  f"prepared features {f.shape}")
+            check(not launches, f"prepare vq launched {launches}")
+        else:
+            c = batch["codes"]
+            check(c.shape == (2, cfg.titok.latent_tokens)
+                  and c.min() >= 0 and c.max() < cfg.vq.codebook_size,
+                  f"prepared codes {c.shape}")
+            check(sorted(batch["caption"]) == ["", "a red kite"],
+                  f"captions {batch['caption']}")
+            check(launches == {"flash_fwd_int8": 2 * cfg.titok.num_layers},
+                  f"prepare lm launches {launches}")
+        res[model] = {"seconds": seconds, "shards": len(shards),
+                      "keys": sorted(batch), "launches": launches,
+                      "peak_gpu_mem_gb":
+                          torch.cuda.max_memory_allocated() / 1e9}
+    log(json.dumps({"phase": "prepare", "clips": [2, 13, 480, 720, 3],
+                    **res}))
+    torch.cuda.empty_cache()
+    return res
+
+
 # the depth a synthetic checkpoint tree is cut to, at full width (it is
 # written to disk and read back)
 CKPT_DEPTH = {"gpt_layers": 2, "dit_main_layers": 2,
@@ -1890,7 +2299,9 @@ def phase_ckpt(workdir, steps):
     t0 = time.perf_counter()
     written = synth.write_tree(root, cfg, seed=9)
     write_s = time.perf_counter() - t0
-    file_bytes = sum(written["files"].values())
+    # the files build_pipeline reads (Theia's is the tokenizer's encode side)
+    file_bytes = sum(n for rel, n in written["files"].items()
+                     if rel != synth.THEIA)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2567,7 +2978,7 @@ def main():
                     help="denoise steps per request (the release uses 50)")
     ap.add_argument("--only", choices=("flash_fwd", "flash_bwd", "f32",
                                        "stage1_batch", "long_video", "ckpt",
-                                       "train"),
+                                       "train", "tokenizer"),
                     help="build, then only this kernel's cases at the "
                          "main-path shapes, or only the batched decoding "
                          "check at full width (no pipeline, no last "
@@ -2637,6 +3048,16 @@ def main():
     if args.only == "stage1_batch":
         phase_stage1_batch()
         return
+    if args.only == "tokenizer":
+        phase_encoder_mask(exp2_rates())
+        phase_tokenize()
+        phase_vae_encode()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase_train_vq(Path(tmp))
+            phase_prepare(Path(tmp))
+        cfg, llm, dif = build_full(args.steps)
+        phase_prefix(cfg, dif, args.steps)
+        return
     if args.only == "flash_bwd":
         bwd = phase_bwd_kernel(titok_decoder_mask(), exp2_rates()[False])
         log(json.dumps({"flash_bwd": bwd_entry(bwd, None)}))
@@ -2649,13 +3070,18 @@ def main():
     adaln = phase_adaln()
     # 3b. the drift gates; 3c. the f32 kernels
     drift = phase_drift()
-    f32 = phase_f32(dec_mask, measured.pop("rates"))
+    rates = measured.pop("rates")
+    f32 = phase_f32(dec_mask, rates)
     f32_direct_launches = phase_direct_f32()
+    # 3d. the kernels under the TiTok encoder's mask
+    enc = phase_encoder_mask(rates)
     # 4. the pipeline; 5. prompt -> codes -> video; 6. stage 2 alone
     cfg, llm, dif = build_full(args.steps)
     video_launches = phase_video(cfg, llm, dif, args.steps)
     phase_batch_f32()
     stage2_launches = phase_stage2(cfg, dif, args.steps)
+    # 6b. image to video: a prefix frame through the VAE encoder
+    prefix_launches = phase_prefix(cfg, dif, args.steps)
     # 7. exact path; 8. one model call with and without the knob
     exact_launches = phase_exact(cfg, dif.params)
     phase_dit_call(cfg, dif.params)
@@ -2669,6 +3095,9 @@ def main():
     del llm, dif
     gc.collect()
     torch.cuda.empty_cache()
+    # 8f. video -> codes; 8g. video -> VAE latents
+    tokenize_launches = phase_tokenize()
+    phase_vae_encode()
     # 8e. one full-width f32 DiT model call
     f32_call_launches = phase_dit_call_f32()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2683,6 +3112,11 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         phase_train_lm(Path(tmp))
+        # 11. the tokenizer trainer; 12. data preparation
+        gc.collect()
+        torch.cuda.empty_cache()
+        vq_launches = phase_train_vq(Path(tmp))
+        phase_prepare(Path(tmp))
 
     # launches of each forward variant on its path: the exact kernel on the
     # int8-off DiT call, the int8 kernel on prompt -> video, int8_pv on the
@@ -2753,6 +3187,17 @@ def main():
                 f32_train_launches["flash_fwd_int8_f32"]
             rows[-1]["launches_dit_call_f32"] = \
                 f32_call_launches["flash_fwd_int8_f32"]
+    # the encoder-mask holds, and the launches on this slice's paths
+    by_name = {r["name"]: r for r in rows}
+    for name, case in enc.items():
+        by_name[name]["titok_enc"] = enc_entry(case)
+    by_name["flash_fwd_int8"]["launches_tokenize"] = \
+        tokenize_launches["flash_fwd_int8"]
+    by_name["flash_fwd_int8"]["launches_prefix_video"] = \
+        prefix_launches["flash_fwd_int8"]
+    for name in ("flash_fwd_exact_f32", "flash_bwd_f32"):
+        by_name[name]["launches_train_vq"] = sum(
+            step.get(name, 0) for step in vq_launches)
     log(json.dumps({"phase": "done",
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": rows}))

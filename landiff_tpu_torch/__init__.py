@@ -8,9 +8,12 @@ of landiff_tpu. Public functions keep the JAX layouts (BSHD attention,
 "cuda" unless the caller passes device="cpu".
 
 Ported so far: inference, prompt -> semantic tokens -> video, of one
-segment or several (pipeline/infer_video.py, long_video.py), from random
-weights or a converted checkpoint tree (ckpt/), and training of the
-stage-2 control branch and the stage-1 LM (training/train.py). The
+segment or several (pipeline/infer_video.py, long_video.py), with an
+optional prefix video (image to video), from random weights or a
+converted checkpoint tree (ckpt/); the tokenizer's encode side, video ->
+codes (Theia, TiTok encoder, VQ) and video -> VAE latents; training of
+the stage-2 control branch, the stage-1 LM and the tokenizer
+(training/train.py) and its data preparation (data/prepare.py). The
 flash-attention forwards and backward (bf16 and f32) and the fused adaLN
 modulate run as CUDA kernels (ops/csrc/) on the card and as their plain
 PyTorch versions on the CPU.

@@ -10,13 +10,20 @@ tables, codebooks, the int8 codes and scales of the quantized trees, which
 are 2-D or 1-D) keeps its layout. bfloat16 arrays (the scales of
 gpt.quantize_int8 / quantize_int4) cross bit for bit: numpy holds them as
 ml_dtypes.bfloat16, which torch.from_numpy does not take, so their bits
-go over as uint16 and are viewed as torch.bfloat16. Every 4-D or 5-D leaf of the stage-2
-trees is a conv kernel (DiT patchify, semantic upsampler, VAE), which is
-what makes the rule by rank safe. The stage-1 tree ({"lm": {"gpt",
-"tok_emb", "text_proj", "null_text_embedding", "micro", and for training
-"micro_null"}, "t5"}) holds only vectors and (in, out) matrices and
-crosses unchanged. The port's own
-`init` functions build the converted layouts directly.
+go over as uint16 and are viewed as torch.bfloat16. Every 4-D or 5-D
+leaf of the port's trees is a conv kernel, which is what makes the rule
+by rank safe:
+  - stage 2: the DiT patchify, the semantic upsampler, the VAE encoder's
+    and decoder's causal convs (5-D) and its down / upsample convs (4-D);
+  - the tokenizer: Theia's patch embedding (P, P, 3, D); the TiTok
+    encoder's 1x1 patch embedding is a (C, W) matrix, and everything
+    else there (positions, register tokens, latent queries, codebook) is
+    1-D or 2-D;
+  - stage 1 ({"lm": {"gpt", "tok_emb", "text_proj",
+    "null_text_embedding", "micro", and for training "micro_null"},
+    "t5"}) holds only vectors and (in, out) matrices and crosses
+    unchanged.
+The port's own `init` functions build the converted layouts directly.
 """
 
 from __future__ import annotations

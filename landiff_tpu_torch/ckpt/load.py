@@ -9,9 +9,10 @@ Checkpoint tree (ckpts/CHECKSUM.md5):
   CogVideoX-2b-sat/transformer/1000/mp_rank_00_model_states.pt   base DiT
   CogVideoX-2b-sat/vae/3d-vae.pt             causal 3D VAE
   CogVideoX-2b-sat/t5-v1_1-xxl/              stage-2 T5 (HF sharded st)
-Stage-1 T5 (flan-t5-xxl) is looked for inside the tree; the reference takes
-it from the hub, which the port never reaches, so a tree without one
-raises and names the directories it looked at.
+Stage-1 T5 (flan-t5-xxl) and Theia are looked for in local directories
+inside the tree (STAGE1_T5_DIRS, THEIA_DIRS); the reference takes them
+from the hub, which the port never reaches, so where none is found the
+loader raises and names the paths it looked at.
 
 Each loader runs the port's numpy converter (ckpt/convert.py, the JAX
 package's layouts), then `bridge` (HWIO -> OIHW, (kt, kh, kw, ci, co) ->
@@ -43,6 +44,10 @@ logger = logging.getLogger("landiff_tpu_torch.ckpt")
 STAGE1_T5_DIRS = ("flan-t5-xxl", "CogVideoX-2b-sat/t5-v1_1-xxl",
                   "t5-v1_1-xxl")
 STAGE2_T5_DIR = "CogVideoX-2b-sat/t5-v1_1-xxl"
+# where a Theia directory in the HF layout (model.safetensors, or shards
+# with model.safetensors.index.json) may sit inside the tree; the
+# reference's hub id is theaiinstitute/theia-base-patch16-224-cddsv
+THEIA_DIRS = ("theia-base-patch16-224-cddsv", "theia")
 
 
 def _to_torch(tree, dtype, device):
@@ -97,16 +102,33 @@ def load_tokenizer(ckpt_dir: str | Path, cfg: LanDiffConfig,
     sd = convert.load_torch_file(ckpt_dir / "tokenizer" / "model.safetensors")
     params = _to_torch(convert.convert_tokenizer(sd), dtype, device)
     if with_theia:
-        params["theia"] = load_theia(cfg, dtype, device)
+        params["theia"] = load_theia(cfg, dtype, device, ckpt_dir=ckpt_dir)
     return params
 
 
-def load_theia(cfg: LanDiffConfig, dtype=torch.float32, device="cuda"):
-    """Theia (frozen, not in the LanDiff release; the reference takes it
-    from the hub). Its encoder is not ported yet."""
-    raise NotImplementedError(
-        "Theia (the tokenizer's encode side) is not ported yet: ROADMAP "
-        "item 13")
+def _has_safetensors(d: Path) -> bool:
+    return ((d / "model.safetensors").exists()
+            or (d / "model.safetensors.index.json").exists())
+
+
+def load_theia(cfg: LanDiffConfig, dtype=torch.float32, device="cuda", *,
+               ckpt_dir: str | Path):
+    """Theia (frozen, not in the LanDiff release) from the first of
+    THEIA_DIRS inside `ckpt_dir` that holds the HF layout. The reference
+    downloads theaiinstitute/theia-base-patch16-224-cddsv; the port does
+    not, and raises naming the paths it looked at."""
+    cands = [Path(ckpt_dir) / d for d in THEIA_DIRS]
+    found = next((d for d in cands if _has_safetensors(d)), None)
+    if found is None:
+        raise FileNotFoundError(
+            "no Theia weights (model.safetensors in the HF layout) at "
+            + ", ".join(str(d) for d in cands)
+            + "; the reference fetches theaiinstitute/theia-base-patch16-"
+            "224-cddsv from the hub, which the port does not: put a copy "
+            "of it there")
+    sd = load_hf_sharded_safetensors(found)
+    return _to_torch(convert.convert_theia(sd, cfg.tokenizer.theia.num_layers),
+                     dtype, device)
 
 
 def load_stage2(ckpt_dir: str | Path, cfg: LanDiffConfig,

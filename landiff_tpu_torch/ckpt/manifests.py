@@ -32,8 +32,8 @@ Sources (reference file:line):
 from __future__ import annotations
 
 from landiff_tpu_torch.config import (DiTConfig, LanDiffConfig, LLMConfig,
-                                SemanticCondConfig, TokenizerConfig,
-                                VAEConfig)
+                                SemanticCondConfig, TheiaConfig,
+                                TokenizerConfig, VAEConfig)
 
 MICRO_HIDDEN = 512  # MicroConditioner hidden_dim default (conditioner.py:23)
 
@@ -81,6 +81,38 @@ def _titok_block(prefix: str, W: int) -> dict[str, tuple]:
         prefix + "mlp.c_proj.weight": (W, 4 * W),
         prefix + "mlp.c_proj.bias": (W,),
     }
+
+
+def theia_hf_safetensors(cfg: TheiaConfig,
+                         prefix: str = "backbone.model.") -> dict[str, tuple]:
+    """The Theia backbone's HF DeiT / ViTModel keys (theia_model.py
+    DeiT :357-452 wraps a ViTModel as backbone.model), the ones
+    convert.convert_theia reads: CLS variant, no register tokens."""
+    D, P = cfg.hidden_size, cfg.patch_size
+    M = int(D * cfg.mlp_ratio)
+    G = (cfg.image_size // P) ** 2
+    e = prefix + "embeddings."
+    out = {e + "patch_embeddings.projection.weight": (D, 3, P, P),
+           e + "patch_embeddings.projection.bias": (D,),
+           e + "position_embeddings": (1, 1 + G, D),
+           e + "cls_token": (1, 1, D),
+           prefix + "layernorm.weight": (D,),
+           prefix + "layernorm.bias": (D,)}
+    for i in range(cfg.num_layers):
+        p = f"{prefix}encoder.layer.{i}."
+        for name in ("layernorm_before", "layernorm_after"):
+            out[p + name + ".weight"] = (D,)
+            out[p + name + ".bias"] = (D,)
+        for name in ("query", "key", "value"):
+            out[p + f"attention.attention.{name}.weight"] = (D, D)
+            out[p + f"attention.attention.{name}.bias"] = (D,)
+        out[p + "attention.output.dense.weight"] = (D, D)
+        out[p + "attention.output.dense.bias"] = (D,)
+        out[p + "intermediate.dense.weight"] = (M, D)
+        out[p + "intermediate.dense.bias"] = (M,)
+        out[p + "output.dense.weight"] = (D, M)
+        out[p + "output.dense.bias"] = (D,)
+    return out
 
 
 def tokenizer_safetensors(cfg: TokenizerConfig) -> dict[str, tuple]:

@@ -12,6 +12,10 @@ Files (as ckpts/CHECKSUM.md5 lists them):
   CogVideoX-2b-sat/vae/3d-vae.pt           {"state_dict": VAE keys}
   CogVideoX-2b-sat/t5-v1_1-xxl/            bf16 safetensors in two shards
                                            with model.safetensors.index.json
+and the Theia backbone the reference takes from the hub (not part of the
+release), where the port's loader looks for it:
+  theia-base-patch16-224-cddsv/model.safetensors   f32, HF keys under
+                                                    backbone.model.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ BASE_DIT = ("CogVideoX-2b-sat/transformer/1000/"
 ENGINE = "diffusion/1/mp_rank_00_model_states.pt"
 VAE = "CogVideoX-2b-sat/vae/3d-vae.pt"
 T5_DIR = "CogVideoX-2b-sat/t5-v1_1-xxl"
+THEIA = "theia-base-patch16-224-cddsv/model.safetensors"
 
 
 def random_state_dict(manifest: dict, gen: torch.Generator) -> dict:
@@ -59,7 +64,7 @@ def _save_pt(path: Path, envelope: str, sd: dict) -> int:
 
 
 def write_tree(root, cfg: LanDiffConfig, seed: int = 0) -> dict:
-    """Write the tree for `cfg` under `root`. Returns {"files": {relative
+    """Write the tree for `cfg` under `root` (Theia drawn last). Returns {"files": {relative
     path: bytes}, "state_dicts": {relative path: the flat numpy state
     dict written there (the T5's values as its bf16 file holds them)}}."""
     root = Path(root)
@@ -101,4 +106,6 @@ def write_tree(root, cfg: LanDiffConfig, seed: int = 0) -> dict:
     files[f"{T5_DIR}/model.safetensors.index.json"] = index.stat().st_size
     # the values the bf16 files hold, as the reader widens them
     sds[T5_DIR] = {k: convert.round_to_bf16(v) for k, v in t5.items()}
+    st(THEIA, random_state_dict(
+        manifests.theia_hf_safetensors(cfg.tokenizer.theia), gen))
     return {"files": files, "state_dicts": sds}

@@ -1,6 +1,7 @@
 """Stage-2 diffusion engine (counterpart of landiff_tpu/diffusion/
 engine.py): DiT(+control) + DiscreteDenoiser + DynamicCFG + the
-VPSDE-DPM++2M sampler + the VAE first stage.
+VPSDE-DPM++2M sampler + the VAE first stage (decode, and encode for
+prefix video).
 
 CFG batch order is [uncond, cond] (guiders.py prepare_inputs: cat(uc, c)).
 The semantic feature is computed once and captured by the denoise closure
@@ -174,6 +175,28 @@ def decode_first_stage(vae_params, latents, vae_cfg: VAEConfig, *,
     z = latents.permute(0, 2, 1, 3, 4) / vae_cfg.scale_factor
     return vae_lib.decode_streaming(vae_params["decoder"], z, vae_cfg,
                                     compute_dtype=compute_dtype)
+
+
+def encode_first_stage(vae_params, video, vae_cfg: VAEConfig, *,
+                       generator: torch.Generator | None = None,
+                       noise: torch.Tensor | None = None,
+                       compute_dtype=torch.bfloat16,
+                       streaming: bool = False) -> torch.Tensor:
+    """video (B, 3, T, H, W) in [-1, 1] -> scaled latents (B, T', z, H/8,
+    W/8) (diffusion_video.py:232-253): the posterior's mode, or a sample
+    with a generator or a given noise (vae.sample_posterior). streaming:
+    the chunked encode (vae.encode_streaming), whose per-chunk GroupNorm
+    statistics make it a different function from the whole encode."""
+    enc = vae_lib.encode_streaming if streaming else vae_lib.encode
+    moments = enc(vae_params["encoder"], video, vae_cfg,
+                  compute_dtype=compute_dtype)
+    z = vae_lib.sample_posterior(moments, generator, noise)
+    return (vae_cfg.scale_factor * z).permute(0, 2, 1, 3, 4)
+
+
+def pre_process_video(video: torch.Tensor) -> torch.Tensor:
+    """[0, 1] -> [-1, 1] (dif_infer.py:22-34)."""
+    return torch.clamp(video * 2.0 - 1.0, -1.0, 1.0)
 
 
 def post_process_video(video: torch.Tensor) -> torch.Tensor:

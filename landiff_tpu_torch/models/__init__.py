@@ -1,2 +1,3 @@
-"""Stage-2 models of the port: DiT, VQ, TiTok decoder, semantic
-conditioner, VAE decoder and T5 encoder."""
+"""Models of the port: DiT, VQ with Theia and the TiTok encoder /
+decoder, semantic conditioner, VAE encoder / decoder, T5 encoder and the
+stage-1 GPT / LM."""

@@ -1,8 +1,10 @@
-"""Semantic conditioner (counterpart of the token path of
-landiff_tpu/models/semantic_cond.py; reference landiff/diffusion/
-semantic_models/condition.py :86-137 and vq_gan_blocks.py Decoder
-:480-606): token ids -> TiTok-decoded Theia features -> per-frame
-VQGAN-style 2x upsampler -> zero-init conv_out -> DiT latent condition.
+"""Semantic conditioner (counterpart of landiff_tpu/models/
+semantic_cond.py; reference landiff/diffusion/semantic_models/
+condition.py :30-137 and vq_gan_blocks.py Decoder :480-606): token ids ->
+TiTok-decoded Theia features -> per-frame VQGAN-style 2x upsampler ->
+zero-init conv_out -> DiT latent condition. The visual path
+(`semantic_feature_from_video`) makes the token ids from a video first:
+pad square, Theia -> TiTok encode -> VQ, then the same decode.
 
 Convs run NCHW with OIHW kernels (bridge.py); GroupNorm(min(32, C),
 eps 1e-6) + swish; PixelShuffle(2) is torch's own.
@@ -74,6 +76,49 @@ def semantic_feature_from_tokens(params, indices, tok_cfg: TokenizerConfig,
     return x.reshape(B, T, *x.shape[1:])
 
 
+def pad_to_square(x, pad_value):
+    """Pad (..., H, W, C) frames square: taller -> pad LEFT columns,
+    wider -> pad BOTTOM rows (condition.py:15-27, torchvision's order)."""
+    h, w = x.shape[-3], x.shape[-2]
+    if h == w:
+        return x
+    pad = (0, 0, h - w, 0, 0, 0) if h > w else (0, 0, 0, 0, 0, w - h)
+    return F.pad(x, pad, value=pad_value)
+
+
+def semantic_feature_from_video(params, video, tok_cfg: TokenizerConfig,
+                                cfg: SemanticCondConfig, *,
+                                downsample_factor: int = 16,
+                                compute_dtype=torch.bfloat16,
+                                theia_params=None):
+    """SemanticCond's visual / training path (condition.py:86-110): video
+    (B, T, 3, H, W) in [-1, 1] -> uint8 -> pad square -> VQ encode ->
+    decode -> crop to (H/16, W/16) -> upsampler -> conv_out, (B, T,
+    out_channels, H/8, W/8). A 480 x 720 clip pads to 720 x 720: Theia
+    sees 45 x 45 patches, the decoded grid is cropped to 30 x 45. Theia's
+    parameters (frozen, not in the conditioner's tree) come as
+    theia_params or as params["vq"]["theia"]."""
+    v = torch.clamp((video + 1.0) / 2.0, 0.0, 1.0)
+    v = torch.round(v * 255.0).to(torch.uint8).permute(0, 1, 3, 4, 2)
+    target_h = v.shape[2] // downsample_factor
+    target_w = v.shape[3] // downsample_factor
+    v = pad_to_square(v, 127)
+    vq_params = dict(params["vq"])
+    if theia_params is not None:
+        vq_params["theia"] = theia_params
+    _, idx = vq_lib.encode_to_index(vq_params, v, tok_cfg,
+                                    compute_dtype=compute_dtype)
+    feats = vq_lib.index_to_feature(vq_params, idx, tok_cfg,
+                                    forward_t=v.shape[1],
+                                    compute_dtype=compute_dtype)
+    feats = feats[:, :, :target_h, :target_w]        # crop (condition.py:103)
+    B, T, gh, gw, C = feats.shape
+    x = feats.to(compute_dtype).reshape(B * T, gh, gw, C).permute(0, 3, 1, 2)
+    x = upsampler_forward(params["upsampler"], x, cfg)
+    x = _conv(params, "conv_out", x)
+    return x.reshape(B, T, *x.shape[1:])
+
+
 # ---------------------------------------------------------------------------
 # init (random weights on the device, OIHW kernels)
 
@@ -128,7 +173,7 @@ def init_upsampler(gen, cfg: SemanticCondConfig, dtype=torch.float32):
 def init(gen: torch.Generator, tok_cfg: TokenizerConfig,
          cfg: SemanticCondConfig, dtype=torch.float32):
     return {
-        "vq": vq_lib.init(gen, tok_cfg, dtype),
+        "vq": vq_lib.init(gen, tok_cfg, dtype, with_theia=False),
         "upsampler": init_upsampler(gen, cfg, dtype),
         # zero-init conv_out (condition.py:49-53)
         "conv_out_w": torch.zeros((cfg.out_channels, cfg.up_out_channels, 3,

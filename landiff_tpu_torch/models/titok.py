@@ -1,12 +1,14 @@
-"""TiTok video decoder (counterpart of the decode side of
-landiff_tpu/models/titok.py; reference landiff/tokenizer/modules/
-blocks.py TiTokDecoder :659-976): query-token transformer with the
-I/P-frame structured attention mask and factorized 3-D RoPE.
+"""TiTok video encoder / decoder (counterpart of landiff_tpu/models/
+titok.py; reference landiff/tokenizer/modules/blocks.py TiTokEncoder
+:414-656, TiTokDecoder :659-976): query-token transformers with the
+I/P-frame structured attention masks and factorized 3-D RoPE.
 
-Decoder sequence: [mask tokens (T*1350) | latent embeds (1218)]. At full
-width its attention (S = 18,768, 12 heads of 64) goes through the
-block-sparse flash kernel with the video-decoder mask. The encoder is not
-ported yet.
+Encoder sequence: [frame features (T*1350) | latent queries (1218)]
+Decoder sequence: [mask tokens (T*1350)   | latent embeds  (1218)]
+At full width their attention (S = 18,768, 12 heads of 64) goes through
+the block-sparse flash kernels with the video-encoder / video-decoder
+mask. The encoder's patch embedding is a 1x1 conv over the Theia
+features, a per-token linear: patch_w is (C, W).
 """
 
 from __future__ import annotations
@@ -65,6 +67,35 @@ def _block(p, x, cos, sin, cfg: TiTokConfig, mask_fn):
     return x + h @ p["fc1_w"].to(dt) + p["fc1_b"].to(dt)
 
 
+def encode(params, features, cfg: TiTokConfig, *, forward_t=None,
+           compute_dtype=torch.bfloat16):
+    """TiTokEncoder.forward (blocks.py:593-656): features (B, T, h, w, C)
+    normalized Theia features -> (B, latent_tokens, token_size) latents
+    (pre-quantizer)."""
+    B, T = features.shape[:2]
+    if forward_t is None:
+        forward_t = T
+    if T != forward_t:
+        raise ValueError(f"{T} frames, forward_t {forward_t}")
+    dt = compute_dtype
+    x = features.to(dt).reshape(B, T * cfg.grid_h * cfg.grid_w, -1)
+    x = x @ params["patch_w"].to(dt) + params["patch_b"].to(dt)
+    lat = params["iframe_latent"].to(dt)
+    if forward_t > 1:
+        lat = torch.cat([lat, params["pframe_latent"].to(dt).repeat(
+            forward_t - 1, 1)], dim=0)
+    x = torch.cat([x, lat[None].expand(B, -1, -1)], dim=1)
+    x = layer_norm(x, params["ln_pre_w"], params["ln_pre_b"], cfg.norm_eps)
+    cos, sin = (torch.from_numpy(a).to(x.device)
+                for a in _rope_tables(cfg, forward_t))
+    mask_fn = masks_lib.video_encoder_mask(_mask_layout(cfg, forward_t))
+    for p in params["blocks"]:
+        x = _block(p, x, cos, sin, cfg, mask_fn)
+    lat = layer_norm(x[:, forward_t * cfg.frame_tokens:], params["ln_post_w"],
+                     params["ln_post_b"], cfg.norm_eps)
+    return lat @ params["proj_w"].to(dt) + params["proj_b"].to(dt)
+
+
 def decode(params, latents, cfg: TiTokConfig, *, forward_t=None,
            compute_dtype=torch.bfloat16):
     """TiTokDecoder.forward (blocks.py:906-976): latents (B, L,
@@ -104,6 +135,29 @@ def _init_block(gen, W, mlp, dtype):
         "ln1_w": o(W), "ln1_b": z(W),
         "fc0_w": nrm((W, mlp), std), "fc0_b": z(mlp),
         "fc1_w": nrm((mlp, W), mlp ** -0.5), "fc1_b": z(W),
+    }
+
+
+def init_encoder(gen: torch.Generator, cfg: TiTokConfig, in_channels: int,
+                 dtype=torch.float32):
+    W = cfg.width
+    mlp = int(W * cfg.mlp_ratio)
+    nrm = lambda s, std: (torch.randn(s, generator=gen, device=gen.device)
+                          * std).to(dtype)
+    z = lambda n: torch.zeros((n,), dtype=dtype, device=gen.device)
+    o = lambda n: torch.ones((n,), dtype=dtype, device=gen.device)
+    scale = W ** -0.5
+    return {
+        "patch_w": nrm((in_channels, W), in_channels ** -0.5),
+        "patch_b": z(W),
+        "iframe_latent": nrm((cfg.iframe_latent_tokens, W), scale),
+        "pframe_latent": nrm((cfg.pframe_latent_tokens, W), scale),
+        "ln_pre_w": o(W), "ln_pre_b": z(W),
+        "blocks": [_init_block(gen, W, mlp, dtype)
+                   for _ in range(cfg.num_layers)],
+        "ln_post_w": o(W), "ln_post_b": z(W),
+        "proj_w": nrm((W, cfg.token_size), scale),
+        "proj_b": z(cfg.token_size),
     }
 
 

@@ -1,15 +1,17 @@
-"""Causal 3-D VAE decoder (counterpart of the decode side of
-landiff_tpu/models/vae.py; reference landiff/diffusion/vae_modules/
-cp_enc_dec.py): 8x spatial / 4x temporal upsampling, zq-conditioned
-norms, and chunked streaming decode with the causal conv cache as an
-explicit carry.
+"""Causal 3-D VAE (counterpart of landiff_tpu/models/vae.py; reference
+landiff/diffusion/vae_modules/cp_enc_dec.py): the encoder (8x spatial /
+4x temporal downsampling, double_z moments, whole or chunked streaming
+encode) and the zq-conditioned decoder with chunked streaming decode, the
+causal conv cache an explicit carry in both.
 
 Layout: (B, C, T, H, W) throughout, PyTorch's own, so every conv is one
 cuDNN call: the causal conv is a single F.conv3d on the front-padded
 input (the JAX package's per-frame 2-D decomposition is a TPU
-workaround), the per-frame 2-D upsample conv is an F.conv3d with a
-(1, 3, 3) kernel. Conv kernels are OIDHW / OIHW (bridge.py). The encoder
-is not ported yet.
+workaround), the per-frame 2-D up / downsample convs are F.conv3d with a
+(1, 3, 3) kernel. Conv kernels are OIDHW / OIHW (bridge.py). A conv whose
+input or output would pass 2^31 elements (the encoder's first level on a
+whole 49-frame 480 x 720 clip) runs in slices of output frames, which
+changes no output frame's inputs.
 """
 
 from __future__ import annotations
@@ -35,6 +37,11 @@ def _bias(b, x):
     return b.to(x.dtype).reshape(1, -1, *([1] * (x.dim() - 2)))
 
 
+# the most elements a conv's input or output takes in one call (32-bit
+# indexing)
+_INT32_ELEMS = 2 ** 31 - 1
+
+
 def causal_conv3d(p, x, cache, path, updates, stream: bool):
     """x: (B, C, T, H, W); p: {"w": (co, ci, kt, kh, kw), "b"}.
 
@@ -53,7 +60,18 @@ def causal_conv3d(p, x, cache, path, updates, stream: bool):
         xp = x
     if stream and kt > 1:
         updates[path] = xp[:, :, -(kt - 1):].clone()
-    out = F.conv3d(xp, w.to(x.dtype), padding=(0, kh // 2, kw // 2))
+    w = w.to(x.dtype)
+    pad = (0, kh // 2, kw // 2)
+    T = xp.shape[2] - kt + 1
+    per_frame = max(xp[:, :, :1].numel(), x.shape[0] * w.shape[0]
+                    * x.shape[3] * x.shape[4])
+    n = max(1, _INT32_ELEMS // per_frame - kt + 1)
+    if n >= T:
+        out = F.conv3d(xp, w, padding=pad)
+    else:
+        out = torch.cat([F.conv3d(xp[:, :, t:min(t + n, T) + kt - 1], w,
+                                  padding=pad) for t in range(0, T, n)],
+                        dim=2)
     return out + _bias(p["b"], out)
 
 
@@ -104,13 +122,36 @@ def upsample3d(p, x, compress_time: bool):
     return out + _bias(p["conv_b"], out)
 
 
+def downsample3d(p, x, compress_time: bool):
+    """DownSample3D (cp_enc_dec.py:635-680): with compress_time, frame
+    pairs averaged (an odd T keeps frame 0 alone), then an asymmetric
+    (0, 1, 0, 1) spatial pad and a stride-2 3x3 conv per frame."""
+    T = x.shape[2]
+    if compress_time and T > 1:
+        if T % 2 == 1:
+            first, rest = x[:, :, :1], x[:, :, 1:]
+            if rest.shape[2] > 0:
+                rest = 0.5 * (rest[:, :, 0::2] + rest[:, :, 1::2])
+            x = torch.cat([first, rest], dim=2)
+        else:
+            x = 0.5 * (x[:, :, 0::2] + x[:, :, 1::2])
+    out = F.conv3d(F.pad(x, (0, 1, 0, 1)), p["conv_w"].to(x.dtype)[:, :, None],
+                   stride=(1, 2, 2))
+    return out + _bias(p["conv_b"], out)
+
+
+def _norm(p, f, zq, cache, path, updates, stream):
+    """The encoder's GroupNorm (zq None) or the decoder's SpatialNorm3D."""
+    if zq is None:
+        return _gn(p, "norm", f)
+    return spatial_norm3d(p, f, zq, cache, path, updates, stream)
+
+
 def resblock3d(p, x, zq, cache, path, updates, stream):
-    h = spatial_norm3d(p["norm1"], x, zq, cache, path + ".n1", updates,
-                       stream)
+    h = _norm(p["norm1"], x, zq, cache, path + ".n1", updates, stream)
     h = causal_conv3d(p["conv1"], _swish(h), cache, path + ".c1", updates,
                       stream)
-    h = spatial_norm3d(p["norm2"], h, zq, cache, path + ".n2", updates,
-                       stream)
+    h = _norm(p["norm2"], h, zq, cache, path + ".n2", updates, stream)
     h = causal_conv3d(p["conv2"], _swish(h), cache, path + ".c2", updates,
                       stream)
     if "nin_w" in p:
@@ -118,6 +159,86 @@ def resblock3d(p, x, zq, cache, path, updates, stream):
         x = F.conv3d(x, w)
         x = x + _bias(p["nin_b"], x)
     return x + h
+
+
+def encode(params, x, cfg: VAEConfig, compute_dtype=torch.bfloat16, *,
+           cache=None, stream=False):
+    """x (B, 3, T, H, W) in [-1, 1] -> moments (B, 2z, T', H/8, W/8).
+
+    cache / stream: the causal convs' tail carry of a chunked encode
+    (encode_streaming), the encoder's only cross-chunk state: DownSample3D's
+    frame pairs never cross a chunk whose length is a multiple of the
+    temporal factor. Returns (moments, new cache) with stream=True."""
+    x = x.to(compute_dtype)
+    upd = {}
+    h = causal_conv3d(params["conv_in"], x, cache, "in", upd, stream)
+    n_res = len(cfg.ch_mult)
+    for i, level in enumerate(params["down"]):
+        for j, blk in enumerate(level["blocks"]):
+            h = resblock3d(blk, h, None, cache, f"d{i}.{j}", upd, stream)
+        if i != n_res - 1:
+            h = downsample3d(level["down"], h,
+                             compress_time=i < cfg.temporal_compress_level)
+    h = resblock3d(params["mid1"], h, None, cache, "m1", upd, stream)
+    h = resblock3d(params["mid2"], h, None, cache, "m2", upd, stream)
+    h = _gn(params, "norm_out", h)
+    h = causal_conv3d(params["conv_out"], _swish(h), cache, "out", upd,
+                      stream)
+    return (h, upd) if stream else h
+
+
+# frames per encode chunk: the first chunk 1 + 8 (odd, so every pooling
+# level keeps frame 0 alone as the whole clip does), then 8, a multiple of
+# the temporal factor; the JAX package's defaults, kept as constants
+ENCODE_TAIL_CHUNK = 8
+ENCODE_FIRST_CHUNK = 1 + ENCODE_TAIL_CHUNK
+
+
+def encode_streaming(params, x, cfg: VAEConfig,
+                     compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Serial chunked encode with the conv-cache carry (the JAX
+    package's encode_streaming): frames [0:9], then 8 at a time. GroupNorm
+    statistics are per chunk, so the chunking is part of the result and
+    is kept exactly."""
+    tf = 2 ** cfg.temporal_compress_level
+    T = x.shape[2]
+    if ENCODE_TAIL_CHUNK % tf:
+        raise ValueError(f"encode chunk {ENCODE_TAIL_CHUNK} is not a "
+                         f"multiple of the temporal factor {tf}")
+    if (T - 1) % tf:
+        raise ValueError(f"T={T} is not 1 + k*{tf}: not a valid causal "
+                         "VAE frame count")
+    chunks = [(0, min(ENCODE_FIRST_CHUNK, T))]
+    t = chunks[0][1]
+    while t < T:
+        chunks.append((t, min(t + ENCODE_TAIL_CHUNK, T)))
+        t += ENCODE_TAIL_CHUNK
+    outs = []
+    cache = None
+    for ci, (a, b) in enumerate(chunks):
+        if ci == len(chunks) - 1:
+            outs.append(encode(params, x[:, :, a:b], cfg, compute_dtype,
+                               cache=cache))
+        else:
+            out, cache = encode(params, x[:, :, a:b], cfg, compute_dtype,
+                                cache=cache, stream=True)
+            outs.append(out)
+    return torch.cat(outs, dim=2)
+
+
+def sample_posterior(moments, generator: torch.Generator | None = None,
+                     noise: torch.Tensor | None = None):
+    """DiagonalGaussian (regularizers.py): moments (B, 2z, ...) -> z. The
+    mode (the mean) without a generator or noise; else mean + std * noise,
+    noise drawn from `generator` in the moments' dtype or given."""
+    mean, logvar = moments.chunk(2, dim=1)
+    if generator is None and noise is None:
+        return mean
+    std = torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0))
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator,
+                            device=mean.device, dtype=mean.dtype)
+    return mean + std * noise.to(mean.device, mean.dtype)
 
 
 def decode(params, z, cfg: VAEConfig, *, cache=None, stream=False,
@@ -175,7 +296,7 @@ def decode_streaming(params, z, cfg: VAEConfig,
 
 
 # ---------------------------------------------------------------------------
-# init (decoder; random weights on the device, bridge layouts)
+# init (random weights on the device, bridge layouts)
 
 
 def _zeros(gen, n, dtype):
@@ -196,11 +317,19 @@ def _spatial_norm_init(gen, c, zq_ch, dtype):
             "conv_b": _conv3d_init(gen, 1, 1, 1, zq_ch, c, dtype)}
 
 
+def _norm_init(gen, c, dtype):
+    return {"norm_w": torch.ones((c,), dtype=dtype, device=gen.device),
+            "norm_b": _zeros(gen, c, dtype)}
+
+
 def _resblock_init(gen, cin, cout, zq_ch, dtype):
+    """zq_ch None: the encoder's plain GroupNorms."""
+    norm = (lambda c: _norm_init(gen, c, dtype)) if zq_ch is None else \
+        (lambda c: _spatial_norm_init(gen, c, zq_ch, dtype))
     p = {
-        "norm1": _spatial_norm_init(gen, cin, zq_ch, dtype),
+        "norm1": norm(cin),
         "conv1": _conv3d_init(gen, 3, 3, 3, cin, cout, dtype),
-        "norm2": _spatial_norm_init(gen, cout, zq_ch, dtype),
+        "norm2": norm(cout),
         "conv2": _conv3d_init(gen, 3, 3, 3, cout, cout, dtype),
     }
     if cin != cout:
@@ -209,6 +338,40 @@ def _resblock_init(gen, cin, cout, zq_ch, dtype):
                       * (1.0 / cin) ** 0.5).to(dtype)
         p["nin_b"] = _zeros(gen, cout, dtype)
     return p
+
+
+def _conv2d_init(gen, ci, co, dtype):
+    std = (1.0 / (9 * ci)) ** 0.5
+    w = torch.randn((co, ci, 3, 3), generator=gen, device=gen.device) * std
+    return {"conv_w": w.to(dtype), "conv_b": _zeros(gen, co, dtype)}
+
+
+def init_encoder(gen: torch.Generator, cfg: VAEConfig, dtype=torch.float32):
+    ch = cfg.ch
+    in_mult = (1,) + tuple(cfg.ch_mult)
+    down = []
+    for i in range(len(cfg.ch_mult)):
+        cout = ch * cfg.ch_mult[i]
+        blocks = []
+        c = ch * in_mult[i]
+        for _ in range(cfg.num_res_blocks):
+            blocks.append(_resblock_init(gen, c, cout, None, dtype))
+            c = cout
+        level = {"blocks": blocks}
+        if i != len(cfg.ch_mult) - 1:
+            level["down"] = _conv2d_init(gen, cout, cout, dtype)
+        down.append(level)
+    top = ch * cfg.ch_mult[-1]
+    zc = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
+    return {
+        "conv_in": _conv3d_init(gen, 3, 3, 3, cfg.in_channels, ch, dtype),
+        "down": down,
+        "mid1": _resblock_init(gen, top, top, None, dtype),
+        "mid2": _resblock_init(gen, top, top, None, dtype),
+        "norm_out_w": torch.ones((top,), dtype=dtype, device=gen.device),
+        "norm_out_b": _zeros(gen, top, dtype),
+        "conv_out": _conv3d_init(gen, 3, 3, 3, top, zc, dtype),
+    }
 
 
 def init_decoder(gen: torch.Generator, cfg: VAEConfig, dtype=torch.float32):
@@ -225,11 +388,7 @@ def init_decoder(gen: torch.Generator, cfg: VAEConfig, dtype=torch.float32):
             c = cout
         level = {"blocks": blocks}
         if i_level != 0:
-            std = (1.0 / (9 * cout)) ** 0.5
-            level["up"] = {
-                "conv_w": (torch.randn((cout, cout, 3, 3), generator=gen,
-                                       device=gen.device) * std).to(dtype),
-                "conv_b": _zeros(gen, cout, dtype)}
+            level["up"] = _conv2d_init(gen, cout, cout, dtype)
         up.insert(0, level)
         block_in = cout
     return {
@@ -244,5 +403,5 @@ def init_decoder(gen: torch.Generator, cfg: VAEConfig, dtype=torch.float32):
 
 
 def init(gen: torch.Generator, cfg: VAEConfig, dtype=torch.float32):
-    """{"decoder": ...}; the encoder is not part of the port yet."""
-    return {"decoder": init_decoder(gen, cfg, dtype)}
+    return {"encoder": init_encoder(gen, cfg, dtype),
+            "decoder": init_decoder(gen, cfg, dtype)}

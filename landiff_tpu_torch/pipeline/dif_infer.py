@@ -6,8 +6,10 @@ landiff/diffusion/dif_infer.py CogWrapper.forward :152-243, decode_latent
 Everything stays on one device. Under LANDIFF_DIT_INT8 (LANDIFF_FAST >= 1)
 the main and control DiTs are quantized to W8A8 once, at construction;
 LANDIFF_STEP_REUSE / LANDIFF_CFG_WINDOW (LANDIFF_FAST=2) reach the sampler
-through engine.sample_latents. Not ported yet: the mesh / TP path, prefix
-video (image-to-video) and parameter offload.
+through engine.sample_latents. A prefix video (image-to-video,
+continuation) is VAE-encoded to the clean latents the sampler holds over
+the first frames. Not ported yet: the mesh / TP path and parameter
+offload.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ class CogModelInferWrapper:
     conditioner, "vae": VAE, "t5": stage-2 T5}, tensors on `device`.
 
     After each call, `phase_seconds` holds the host seconds (synchronised
-    on the device) of its phases: t5, semantic, denoise, vae."""
+    on the device) of its phases: t5, vae_encode (with a prefix video),
+    semantic, denoise, vae."""
 
     def __init__(self, params, cfg: LanDiffConfig,
                  tokenizer_dir: str | None = None,
@@ -86,9 +89,13 @@ class CogModelInferWrapper:
         return t1
 
     @torch.inference_mode()
-    def __call__(self, task: VideoTask, init_noise=None,
+    def __call__(self, task: VideoTask, prefix_video=None, init_noise=None,
                  step_noise=None) -> VideoTask:
-        """init_noise: optional (1, T, C, H', W') initial latents replacing
+        """prefix_video: optional (1, 3, T0, H, W) in [0, 1], image to
+        video or continuation: encoded (the posterior's mode, the whole
+        clip) into prefix latents the sampler splices over the first
+        frames each step (diffusion_video.py:287-288, sampling.py:800-817).
+        init_noise: optional (1, T, C, H', W') initial latents replacing
         the seeded draw (the reference `generator` seam); step_noise:
         optional per-step sampler noises (the JAX key chain's draws)."""
         cfg = self.cfg
@@ -102,10 +109,20 @@ class CogModelInferWrapper:
             seed_from_text(str(task.prompt), 42)
         gen = torch.Generator(device=self.device).manual_seed(seed)
 
+        self.phase_seconds = {}
         t0 = time.perf_counter()
         context = self.encode_text(task.prompt)
         uc_context = torch.zeros_like(context)   # force_uc_zero_embeddings
         t0 = self._mark("t5", t0)
+        prefix = None
+        if prefix_video is not None:
+            pv = engine.pre_process_video(torch.as_tensor(
+                np.asarray(prefix_video), dtype=torch.float32).to(
+                    self.device))
+            prefix = engine.encode_first_stage(
+                self.params["vae"], pv, cfg.vae,
+                compute_dtype=self.compute_dtype)
+            t0 = self._mark("vae_encode", t0)
         denoise_fn = engine.make_denoise_fn(
             self.params["main"], self.params["control"],
             self.params["semantic"], cfg.dit, cfg.sampler, cfg.tokenizer,
@@ -114,7 +131,7 @@ class CogModelInferWrapper:
         t0 = self._mark("semantic", t0)
         latents = engine.sample_latents(
             denoise_fn, cfg.sampler, cfg.dit, generator=gen,
-            init_noise=init_noise, step_noise=step_noise)
+            init_noise=init_noise, step_noise=step_noise, prefix=prefix)
         t0 = self._mark("denoise", t0)
         video = engine.decode_first_stage(self.params["vae"], latents,
                                           cfg.vae,
@@ -129,7 +146,9 @@ class CogModelInferWrapper:
 
 def init_params(gen: torch.Generator, cfg: LanDiffConfig,
                 dtype=torch.float32):
-    """Random stage-2 parameters built on the generator's device."""
+    """Random stage-2 parameters built on the generator's device: the
+    JAX package's tree leaf for leaf (the VAE and the conditioner's VQ
+    with their encoders)."""
     return {
         "main": dit_lib.init(gen, cfg.dit, dtype=dtype),
         "control": dit_lib.init(gen, cfg.dit, control=True, dtype=dtype),

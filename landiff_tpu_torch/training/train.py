@@ -3,13 +3,16 @@ one entry point for the trainable components:
 
   python -m landiff_tpu_torch.training.train --model dit --data DIR --steps 1000
   python -m landiff_tpu_torch.training.train --model lm  --data DIR ...
+  python -m landiff_tpu_torch.training.train --model vq  --data DIR ...
 
   --model dit : stage-2 ControlNet branch (freeze_dit semantics,
                 dit_video_concat.py:1190-1193) via
                 training/diffusion_loss.make_train_step
   --model lm  : stage-1 GPT teacher forcing (lm_model.py:188-227) via
                 training/lm_train.make_cond_train_step
-  --model vq  : not ported yet (it needs the tokenizer's encode side)
+  --model vq  : semantic tokenizer VQ (video_titok_vq.py:279-375) via
+                training/vq_train.make_train_step (EMA codebook, k-means
+                init from the first batch)
 
 One process on one device (`--device`, default cuda); a mesh of more than
 one device is not ported yet. Checkpoint / resume through
@@ -22,6 +25,7 @@ Dataset format (data/loader.ShardedNpzDataset, directories of .npz shards):
   dit: latents (N,T,C,H,W) f32, context (N,text_len,text_dim) f32,
        tokens (N,num_semantic) i32
   lm : t5_feats (N,n_text,t5_dim) f32, codes (N,num_visual) i32
+  vq : features (N,T,h,w,C) f32   (Theia feature maps)
 
 `--synth N` writes a synthetic dataset of N samples first (random tensors
 with the production keys and shapes at the active config scale): the
@@ -45,7 +49,8 @@ from landiff_tpu_torch.config import LanDiffConfig, tiny_test_config
 from landiff_tpu_torch.data import loader as data_lib
 from landiff_tpu_torch.observability import MetricsLogger
 from landiff_tpu_torch.training import checkpoint as ckpt_lib
-from landiff_tpu_torch.training import diffusion_loss, lm_train, optim
+from landiff_tpu_torch.training import diffusion_loss, lm_train, optim, \
+    vq_train
 from landiff_tpu_torch.utils import tree_leaves
 
 logger = logging.getLogger("landiff_tpu_torch.train")
@@ -108,7 +113,11 @@ def synthesize(model: str, cfg: LanDiffConfig, n: int, out_dir: str,
                                   (n, sched.num_visual), dtype=np.int32),
         }
     elif model == "vq":
-        raise NotImplementedError(_VQ_NOT_PORTED)
+        data = {
+            "features": rng.standard_normal(
+                (n, t.titok.temporal_size, t.titok.grid_h, t.titok.grid_w,
+                 t.feature_dim), np.float32),
+        }
     else:
         raise ValueError(model)
     return data_lib.write_npz_shards(data, out_dir, shard_size)
@@ -176,14 +185,38 @@ def _setup_lm(cfg: LanDiffConfig, optimizer, device, dtype,
     return (params, opt_state), run
 
 
-_VQ_NOT_PORTED = ("--model vq is not ported yet: it needs the tokenizer's "
-                  "encode side (ROADMAP item 13)")
 _MESH_NOT_PORTED = ("a mesh of more than one device is not ported yet "
                     "(ROADMAP item 15); run without --mesh")
 
 
-def _setup_vq(cfg, optimizer, device, dtype):
-    raise NotImplementedError(_VQ_NOT_PORTED)
+def _setup_vq(cfg: LanDiffConfig, optimizer, device, dtype):
+    """The tokenizer step in `dtype`; the parameters stay f32 and, on the
+    first batch, the codebook is k-means-initialised from that batch's
+    projected latents (vq_train.kmeans_input: the encoder half of the
+    loss in f32)."""
+    from landiff_tpu_torch.models import vq as vq_lib
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = vq_lib.init(gen, cfg.tokenizer, with_theia=False)
+    opt_state = optimizer.init(params)
+    cb_state = vq_train.init_codebook_state(cfg.tokenizer, device)
+    step = vq_train.make_train_step(optimizer, cfg.tokenizer,
+                                    compute_dtype=dtype)
+
+    def run(state, batch, gen):
+        params, opt_state, cb_state, first = state
+        feats = batch["features"]
+        if first:
+            zin = vq_train.kmeans_input(params, feats, cfg.tokenizer)
+            params = dict(params)
+            params["quant"] = dict(params["quant"])
+            params["quant"]["codebook"] = vq_train.kmeans_init_codebook(
+                zin, cfg.tokenizer.vq.codebook_size, gen)
+        params, opt_state, cb_state, metrics = step(params, opt_state,
+                                                    cb_state, feats, gen)
+        return (params, opt_state, cb_state, False), metrics
+
+    return (params, opt_state, cb_state, True), run
 
 
 SETUPS = {"dit": _setup_dit, "lm": _setup_lm, "vq": _setup_vq}

@@ -144,8 +144,19 @@ def test_loaders_equal_the_bridge_of_the_jax_loaders(tree):
     _assert_bridged(tload.load_tokenizer(root, TC, with_theia=False,
                                          device="cpu"),
                     jload.load_tokenizer(root, JC, with_theia=False))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tload.load_tokenizer(root, TC, device="cpu")
+    # with Theia, from the tree's Theia directory (the JAX loader would
+    # reach the hub for it): the bridge of JAX's convert_theia of the same
+    # state dict
+    tok = tload.load_tokenizer(root, TC, device="cpu")
+    sd = convert.load_safetensors_views(root / synth.THEIA)
+    assert any(k.startswith("backbone.model.") for k in sd)
+    _assert_bridged(tok["theia"], jconvert.convert_theia(
+        dict(sd), JC.tokenizer.theia.num_layers))
+    assert tok["theia"]["patch_w"].shape == (
+        TC.tokenizer.theia.hidden_size, 3, TC.tokenizer.theia.patch_size,
+        TC.tokenizer.theia.patch_size)
+    with pytest.raises(FileNotFoundError, match="theia-base-patch16"):
+        tload.load_theia(TC, device="cpu", ckpt_dir=root / "llm")
     # bf16 asked: floating leaves cast, integer leaves kept
     half = tload.load_vae(root, TC, dtype=torch.bfloat16, device="cpu")
     assert {t.dtype for t in tree_leaves(half)} == {torch.bfloat16}

@@ -286,6 +286,80 @@ def test_bwd_kernel_matches_plain(dev, mask, Sq, Skv):
         assert got[2][:, _LAYOUT.seq_len:].abs().max().item() == 0.0
 
 
+def _titok_encoder_layout():
+    from landiff_tpu_torch.config import TiTokConfig
+
+    c = TiTokConfig()
+    return TM.VideoMaskLayout(num_frames=c.temporal_size,
+                              tokens_per_frame=c.frame_tokens,
+                              iframe_tokens=c.iframe_latent_tokens,
+                              pframe_tokens=c.pframe_latent_tokens)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_kernel_matches_plain_at_the_titok_encoder_mask(dev, dtype):
+    """The bf16 and the f32 backward under the video encoder mask at the
+    full TiTok layout (18,768 positions, B * H = 2), the layout train
+    --model vq runs: the latent-query rows reach past frames_end. bf16
+    within the backward's bf16 limits, f32 within attention.F32_TOL
+    against the plain version in float64."""
+    layout = _titok_encoder_layout()
+    mf = TM.video_encoder_mask(layout)
+    S = layout.seq_len
+    g = torch.Generator(device=dev).manual_seed(9)
+    r = lambda: torch.randn((1, S, 2, 64), generator=g, device=dev)
+    q, k, v, do = (r() * 1.5).to(dtype), r().to(dtype), r().to(dtype), \
+        r().to(dtype)
+    out, lse = TA.flash_fwd_exact(q, k, v, mask_fn=mf)
+    name = "flash_bwd" if dtype == torch.bfloat16 else "flash_bwd_f32"
+    before = TA.LAUNCHES[name]
+    got = TA.flash_bwd(q, k, v, out, lse, do, mask_fn=mf)
+    torch.cuda.synchronize()
+    assert TA.LAUNCHES[name] == before + 1
+    if dtype == torch.bfloat16:
+        want = TA.flash_bwd_plain(q, k, v, out, lse, do, mask_fn=mf)
+    else:
+        want = TA.f64_reference(TA.flash_bwd_plain, q, k, v, out, lse, do,
+                                mask_fn=mf)
+    tol = TA.F32_TOL["bwd"]
+    for tname, gt, wt in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(gt.float()).all()), tname
+        if dtype == torch.bfloat16:
+            steps, rel_rms = TA.kernel_error(gt, wt)
+            assert steps <= _BWD_TOL_STEPS and rel_rms <= _BWD_TOL_RMS, \
+                (tname, steps, rel_rms)
+        else:
+            max_rel, rel_rms = TA.kernel_error_rel(gt, wt)
+            assert max_rel <= tol["max_rel"] and rel_rms <= tol["rel_rms"], \
+                (tname, max_rel, rel_rms)
+
+
+def test_encode_to_index_on_the_card(dev):
+    """One full-width VideoVQ encode (Theia 12 x 768, TiTok 12 x 768, VQ
+    2,048 x 16) of a 13-frame 480 x 720 clip on the card, random weights:
+    1,218 codes in range, and the TiTok encoder's 12 attention calls on
+    the int8 forward (bf16, the JAX package's default route), nothing
+    else."""
+    from landiff_tpu_torch.config import TokenizerConfig
+    from landiff_tpu_torch.models import vq
+
+    cfg = TokenizerConfig()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = vq.init(gen, cfg, with_theia=True)
+    video = torch.randint(0, 256, (1, 13, 480, 720, 3), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    TA.reset_launch_counts()
+    with torch.inference_mode():
+        quant, idx = vq.encode_to_index(params, video, cfg)
+    torch.cuda.synchronize()
+    assert idx.shape == (1, cfg.titok.latent_tokens)
+    assert int(idx.min()) >= 0 and int(idx.max()) < cfg.vq.codebook_size
+    assert quant.shape == (1, cfg.titok.latent_tokens, cfg.vq.dim)
+    assert bool(torch.isfinite(quant).all())
+    assert {k: n for k, n in TA.LAUNCHES.items() if n} == \
+        {"flash_fwd_int8": cfg.titok.num_layers}
+
+
 @pytest.mark.parametrize("Sq", [1, 187, 256])
 def test_bwd_prologue_matches_plain(dev, Sq):
     """q' and the padded lse exactly, delta within the order of its f32
