@@ -12,9 +12,11 @@
                                                # width, bf16 and f32
     python3 chip_smoke.py --only f32 | ckpt | long_video | train
                                        # one of the phases 3c (with 8e),
-                                       # 8d, 8c, 9
+                                       # 8d, 8c, 9 (with 9a, 9b)
     python3 chip_smoke.py --only tokenizer   # 3d, 8f, 8g, 11, 12, then
                                              # the pipeline for 6b
+    python3 chip_smoke.py --only variants    # the pipeline, then 5b and
+                                             # 5c (seeded codes)
 
 Phases, in order; any failure exits nonzero before the last line:
   1. device:  the card's name and power limit; TF32 off for matmuls and
@@ -86,6 +88,19 @@ Phases, in order; any failure exits nonzero before the last line:
               gives valid codes (its agreement with the single calls in
               bf16 is printed), and at the tiny config in f32 it gives
               exactly the codes of the single calls.
+  5b. rotary3d: one full-width model call (CFG batch 2, int8 scores)
+              under pos_embed="rotary3d", one with rot_v, and the sincos
+              call of the same inputs, timed in turns, then a rotary3d call
+              with LANDIFF_FUSED_ADALN=1: outputs finite and far from the
+              sincos one, 45 int8 launches a call (and 90 adaLN with the
+              knob), nothing else.
+  5c. samplers: stage 2 through the wrapper at --steps from the first
+              request's codes with vpode_dpmpp2m and with video_ddim: the
+              video's shape, range, finiteness, 12 + 45 * steps int8
+              launches, phase seconds; then each k-sampler over (1, 13,
+              16, 60, 90) on the card with a closed-form denoiser and
+              seeded draws, within 1e-5 of the same call on the CPU
+              (relative RMS; element by element, of the largest state).
   6. stage2:  one warm request through the stage-2 wrapper alone (prompt +
               seed + 1,218 codes -> (1, 3, 49, 480, 720) video) with the
               adaLN knob unset; the int8 kernel must launch 12 + 45 *
@@ -144,6 +159,10 @@ Phases, in order; any failure exits nonzero before the last line:
               exact forwards, equal loss, gradients within ten times the
               two plain runs' own spread (dq's reduce-adds) and 1e-2,
               seconds and peak memory of each.
+  9a. train rotary3d: the trainer under pos_embed="rotary3d" (its
+              config replaced for the call), bf16, batch 1, two steps:
+              losses finite; per step 44 backward, 88 exact and 13 int8
+              forward launches; seconds per step.
   9b. train f32: the same trainer in f32 (its default, no --bf16): two
               steps and a resumed third; per step 44 f32 backward, 100 f32
               exact forward (88 + the TiTok decoder's 12) and one f32 int8
@@ -1585,7 +1604,250 @@ def phase_video(cfg, llm, dif, steps):
                     "decode_steps_per_s":
                         decode_steps / llm.phase_seconds["sample"],
                     "vs_single_calls_bf16": agree}))
-    return launches
+    return launches, codes[0]
+
+
+def _dit_call_inputs(cfg, seed):
+    """Seeded CFG-batch-2 inputs of one full-width DiT model call."""
+    import torch
+
+    d = cfg.dit
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (2, d.latent_frames, d.in_channels, d.latent_height,
+             d.latent_width)
+    x = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    sem = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    ctx = torch.randn((2, d.text_length, d.text_dim), generator=g,
+                      device="cuda")
+    return x, sem, ctx
+
+
+def phase_rotary3d(cfg, params):
+    """One full-width CFG-batch-2 model call (control_warp_forward, int8
+    scores) under pos_embed="rotary3d", with rot_v, and the sincos call of
+    the same inputs and parameters, timed in turns (host clock around a
+    synchronised call, each route warmed first); then one rotary3d call
+    with LANDIFF_FUSED_ADALN=1. Every output finite, each rotary one far
+    from the sincos one (no table added; q / k rotated), rot_v's from
+    rotary3d's; 45 int8 launches per call and nothing else (90 adaLN more
+    with the knob)."""
+    import torch
+
+    from landiff_tpu_torch.models import dit
+
+    x, sem, ctx = _dit_call_inputs(cfg, 21)
+    ts = torch.tensor([600.0, 600.0], device="cuda")
+    cfgs = {"sincos3d": cfg.dit,
+            "rotary3d": dataclasses.replace(cfg.dit, pos_embed="rotary3d"),
+            "rotary3d_rot_v": dataclasses.replace(
+                cfg.dit, pos_embed="rotary3d", rot_v=True)}
+
+    def call(name):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = dit.control_warp_forward(
+                params["main"], params["control"], x, ts, ctx, cfgs[name],
+                sem)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out, read_counts()
+
+    os.environ.pop("LANDIFF_FUSED_ADALN", None)
+    for name in cfgs:                                  # warm each route
+        call(name)
+    times = {name: [] for name in cfgs}
+    outs, launches = {}, {}
+    for name in ("sincos3d", "rotary3d", "rotary3d_rot_v", "rotary3d_rot_v",
+                 "rotary3d", "sincos3d"):
+        ms, outs[name], launches[name] = call(name)
+        times[name].append(ms)
+    for name, counts in launches.items():
+        ran = {k: n for k, n in counts.items() if n}
+        check(ran == {"flash_fwd_int8": 45},
+              f"{name} call launched {ran}, want 45 int8 forwards")
+    ref = outs["sincos3d"].float()
+    rel = {}
+    for name in ("rotary3d", "rotary3d_rot_v"):
+        o = outs[name].float()
+        check(bool(torch.isfinite(o).all()), f"{name} call not finite")
+        check(tuple(o.shape) == tuple(ref.shape), f"{name} {tuple(o.shape)}")
+        rel[name] = ((o - ref).norm() / ref.norm()).item()
+        check(rel[name] > 1e-2,
+              f"{name} call is {rel[name]} (relative RMS) off sincos")
+    rot_v_rel = ((outs["rotary3d_rot_v"].float() - outs["rotary3d"].float())
+                 .norm() / outs["rotary3d"].float().norm()).item()
+    check(rot_v_rel > 0.0, "rot_v changed nothing")
+    os.environ["LANDIFF_FUSED_ADALN"] = "1"
+    try:
+        call("rotary3d")
+        fused_ms, fused, fused_launches = call("rotary3d")
+    finally:
+        os.environ.pop("LANDIFF_FUSED_ADALN")
+    ran = {k: n for k, n in fused_launches.items() if n}
+    check(ran == {"flash_fwd_int8": 45, "adaln": 90},
+          f"fused rotary3d call launched {ran}")
+    check(bool(torch.isfinite(fused.float()).all()),
+          "fused rotary3d call not finite")
+    log(json.dumps({
+        "phase": "rotary3d", "what": "one control_warp_forward, CFG batch "
+        "2, 45 layers, int8 scores, by pos_embed", "ms": times,
+        "fused_adaln_rotary3d_ms": fused_ms,
+        "rel_rms_vs_sincos": rel, "rot_v_vs_rotary3d_rel_rms": rot_v_rel,
+        "launches_per_call": launches["rotary3d"],
+        "launches_fused_call": fused_launches}))
+    return launches["rotary3d"]
+
+
+def phase_samplers(cfg, dif, codes, steps):
+    """Stage 2 through the wrapper (dif_infer) at `steps` with each
+    deterministic request sampler, from stage-1 codes: a finite (1, 3,
+    49, 480, 720) video in [0, 1], 12 + 45 * steps int8 launches and
+    nothing else; then each k-sampler over the latent shape (1, 13, 16,
+    60, 90) on the card with a closed-form denoiser and seeded per-step
+    draws, held to the same call on the CPU within 1e-5 (relative RMS,
+    and element by element relative to the largest state)."""
+    import torch
+
+    from landiff_tpu_torch.diffusion import k_samplers as ks
+    from landiff_tpu_torch.diffusion import schedule
+    from landiff_tpu_torch.pipeline import dif_infer
+
+    os.environ.pop("LANDIFF_FUSED_ADALN", None)
+    base = dif.cfg
+    per_request = 12 + 45 * steps
+    requests, counts = {}, {}
+    try:
+        for name in ("vpode_dpmpp2m", "video_ddim"):
+            dif.cfg = dataclasses.replace(base, sampler=dataclasses.replace(
+                base.sampler, name=name, num_steps=steps))
+            reset_counts()
+            t0 = time.perf_counter()
+            task = dif(dif_infer.VideoTask(name, "a kite over a windy hill",
+                                           5, semantic_token=codes))
+            seconds = time.perf_counter() - t0
+            launches = read_counts()
+            check_video(task.result, task.latent)
+            ran = {k: n for k, n in launches.items() if n}
+            check(ran == {"flash_fwd_int8": per_request},
+                  f"{name} request launched {ran}, want {per_request} int8")
+            counts[name] = launches
+            requests[name] = {
+                "seconds": seconds, "phase_seconds": dif.phase_seconds,
+                "video_mean": float(task.result.mean()),
+                "video_std": float(task.result.std()), "launches": ran}
+    finally:
+        dif.cfg = base
+
+    shape = (1, cfg.dit.latent_frames, cfg.dit.in_channels,
+             cfg.dit.latent_height, cfg.dit.latent_width)
+    rng = np.random.default_rng(40)
+    x0 = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * 0.3)
+    sig = ks.append_zero(schedule.edm_sigmas(6))
+    noises = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+              for _ in range(len(sig) - 1)]
+    image = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    drawn = dict(noises=noises, s_churn=2.0)
+    runs = {
+        "euler_edm": lambda den, x: ks.euler_edm_sample(den, x, sig, **drawn),
+        "heun_edm": lambda den, x: ks.heun_edm_sample(den, x, sig, **drawn),
+        "sdedit_edm": lambda den, x: ks.sdedit_edm_sample(
+            den, image.to(x.device), x, sig, **drawn),
+        "ddim": lambda den, x: ks.ddim_sample(den, x, sig, noises=noises),
+        "euler_ancestral": lambda den, x: ks.euler_ancestral_sample(
+            den, x, sig, noises=noises),
+        "dpmpp2s_ancestral": lambda den, x: ks.dpmpp2s_ancestral_sample(
+            den, x, sig, noises=noises),
+        "dpmpp2m": lambda den, x: ks.dpmpp2m_sample(den, x, sig),
+        "sde_dpmpp2m": lambda den, x: ks.sde_dpmpp2m_sample(
+            den, x, sig, noises=noises),
+        "lms": lambda den, x: ks.linear_multistep_sample(den, x, sig),
+    }
+    k_errors = {}
+    for name, run in runs.items():
+        outs = {}
+        for device in ("cuda", "cpu"):
+            wd = w.to(device)
+            out = run(lambda x, sigma: torch.tanh(x / (1.0 + sigma) + wd),
+                      x0.to(device))
+            check(out.device.type == device, f"{name} left {device}")
+            outs[device] = out.cpu()
+        diff = outs["cuda"] - outs["cpu"]
+        k_errors[name] = {
+            "finite": bool(torch.isfinite(outs["cuda"]).all()),
+            "max_abs": float(diff.abs().max()),
+            "rel_rms": float(diff.norm() / outs["cpu"].norm())}
+    log(json.dumps({"phase": "samplers", "steps": steps,
+                    "requests": requests, "k_samplers_card_vs_cpu": k_errors,
+                    "k_sampler_shape": list(shape), "sigmas": sig.tolist()}))
+    # The two devices run the same f32 operations but for tanh's last bit
+    # and the card's division by a scalar (a product by its reciprocal);
+    # an ulp of the largest state, x0 * sqrt(1 + sigma_0^2) (about 400),
+    # survives the loop's cancellation down to outputs near 1. So the card
+    # is held to the CPU within 1e-5 relative RMS, and within 1e-5 of that
+    # largest state element by element.
+    top = float(x0.abs().max()) * float(np.sqrt(1.0 + sig[0] ** 2))
+    for name, e in k_errors.items():
+        check(e["finite"], f"k-sampler {name} not finite on the card")
+        check(e["rel_rms"] <= 1e-5 and e["max_abs"] <= 1e-5 * top,
+              f"k-sampler {name}: card vs CPU {e} (state scale {top})")
+    return counts
+
+
+def phase_train_rotary3d(workdir):
+    """train("dit") under pos_embed="rotary3d" (the trainer's
+    LanDiffConfig replaced for the call), bf16, batch 1, two steps on the
+    bf16 phase's synthesized data, zero leaves filled: losses finite and
+    per step 44 backward, 88 exact and 13 int8 forward launches."""
+    import torch
+
+    from landiff_tpu_torch.config import LanDiffConfig
+    from landiff_tpu_torch.models import dit as dit_lib
+    from landiff_tpu_torch.models import semantic_cond as sc_lib
+    from landiff_tpu_torch.training import train as train_lib
+    from landiff_tpu_torch.utils import fill_zero_leaves
+
+    def rotary_config():
+        cfg = LanDiffConfig()
+        return dataclasses.replace(cfg, dit=dataclasses.replace(
+            cfg.dit, pos_embed="rotary3d"))
+
+    orig = (train_lib.LanDiffConfig, dit_lib.init, sc_lib.init)
+    data = workdir / "dit_data_bf16"
+    metrics = workdir / "dit_metrics_rotary3d.jsonl"
+    train_lib.LanDiffConfig = rotary_config
+    dit_lib.init = lambda gen, *a, **kw: fill_zero_leaves(
+        orig[1](gen, *a, **kw), gen)
+    sc_lib.init = lambda gen, *a, **kw: fill_zero_leaves(
+        orig[2](gen, *a, **kw), gen)
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_lib.train("dit", str(data), steps=2, batch_size=1,
+                        dtype=torch.bfloat16, log_every=1,
+                        metrics_path=str(metrics), device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        train_lib.LanDiffConfig, dit_lib.init, sc_lib.init = orig
+    rows = [json.loads(l) for l in metrics.read_text().splitlines()]
+    check([r["step"] for r in rows] == [1, 2], f"rotary3d steps {rows}")
+    check(all(np.isfinite(r["loss"]) for r in rows),
+          f"rotary3d losses {[r['loss'] for r in rows]}")
+    want = {k: 2 * n for k, n in TRAIN_DIT_LAUNCHES["bf16"].items()}
+    got = {k: n for k, n in launches.items() if n or k in want}
+    check(got == want, f"rotary3d train launches {got}, want {want}")
+    per_step = {k: n // 2 for k, n in got.items()}
+    log(json.dumps({
+        "phase": "train_rotary3d", "dtype": "bf16", "batch_size": 1,
+        "losses": [r["loss"] for r in rows],
+        "step_seconds": step_seconds(rows), "train_call_seconds": seconds,
+        "launches_per_step": per_step,
+        "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    return per_step
 
 
 def _forced_logit_gaps(llm, prompts, steps: int, seed: int = 7):
@@ -1737,13 +1999,7 @@ def phase_exact(cfg, params):
     from landiff_tpu_torch.ops import attention as A
 
     d = cfg.dit
-    g = torch.Generator(device="cuda").manual_seed(7)
-    shape = (2, d.latent_frames, d.in_channels, d.latent_height,
-             d.latent_width)
-    x = torch.randn(shape, generator=g, device="cuda").bfloat16()
-    sem = torch.randn(shape, generator=g, device="cuda").bfloat16()
-    ctx = torch.randn((2, d.text_length, d.text_dim), generator=g,
-                      device="cuda")
+    x, sem, ctx = _dit_call_inputs(cfg, 7)
     ts = torch.tensor([800.0, 800.0], device="cuda")
     os.environ.pop("LANDIFF_FUSED_ADALN", None)
     os.environ["LANDIFF_ATTN_INT8"] = "0"
@@ -1760,7 +2016,7 @@ def phase_exact(cfg, params):
         os.environ.pop("LANDIFF_ATTN_INT8")
     check(launches == 45, f"exact launches {launches}, want 45")
     check(A.LAUNCHES["flash_fwd_int8"] == 0, "int8 kernel ran with int8 off")
-    check(tuple(out.shape) == shape, f"exact-path output {tuple(out.shape)}")
+    check(out.shape == x.shape, f"exact-path output {tuple(out.shape)}")
     check(bool(torch.isfinite(out.float()).all()), "exact path not finite")
     log(json.dumps({"phase": "exact", "seconds": seconds,
                     "launches": launches}))
@@ -1776,13 +2032,7 @@ def phase_dit_call(cfg, params):
     from landiff_tpu_torch.models import dit
 
     d = cfg.dit
-    g = torch.Generator(device="cuda").manual_seed(9)
-    shape = (2, d.latent_frames, d.in_channels, d.latent_height,
-             d.latent_width)
-    x = torch.randn(shape, generator=g, device="cuda").bfloat16()
-    sem = torch.randn(shape, generator=g, device="cuda").bfloat16()
-    ctx = torch.randn((2, d.text_length, d.text_dim), generator=g,
-                      device="cuda")
+    x, sem, ctx = _dit_call_inputs(cfg, 9)
     ts = torch.tensor([500.0, 500.0], device="cuda")
 
     def call(fused):
@@ -2978,7 +3228,7 @@ def main():
                     help="denoise steps per request (the release uses 50)")
     ap.add_argument("--only", choices=("flash_fwd", "flash_bwd", "f32",
                                        "stage1_batch", "long_video", "ckpt",
-                                       "train", "tokenizer"),
+                                       "train", "tokenizer", "variants"),
                     help="build, then only this kernel's cases at the "
                          "main-path shapes, or only the batched decoding "
                          "check at full width (no pipeline, no last "
@@ -3043,6 +3293,7 @@ def main():
                 phase_ckpt(Path(tmp), args.steps)
             else:
                 phase_train_dit(Path(tmp))
+                phase_train_rotary3d(Path(tmp))
                 phase_train_dit(Path(tmp), "f32", steps=2)
         return
     if args.only == "stage1_batch":
@@ -3057,6 +3308,14 @@ def main():
             phase_prepare(Path(tmp))
         cfg, llm, dif = build_full(args.steps)
         phase_prefix(cfg, dif, args.steps)
+        return
+    if args.only == "variants":
+        cfg, llm, dif = build_full(args.steps)
+        phase_rotary3d(cfg, dif.params)
+        codes = np.random.default_rng(41).integers(
+            0, cfg.tokenizer.vq.codebook_size,
+            cfg.tokenizer.titok.latent_tokens)
+        phase_samplers(cfg, dif, codes, args.steps)
         return
     if args.only == "flash_bwd":
         bwd = phase_bwd_kernel(titok_decoder_mask(), exp2_rates()[False])
@@ -3077,7 +3336,10 @@ def main():
     enc = phase_encoder_mask(rates)
     # 4. the pipeline; 5. prompt -> codes -> video; 6. stage 2 alone
     cfg, llm, dif = build_full(args.steps)
-    video_launches = phase_video(cfg, llm, dif, args.steps)
+    video_launches, video_codes = phase_video(cfg, llm, dif, args.steps)
+    # 5b. Rotary3D model calls; 5c. the other samplers from those codes
+    rotary_launches = phase_rotary3d(cfg, dif.params)
+    sampler_launches = phase_samplers(cfg, dif, video_codes, args.steps)
     phase_batch_f32()
     stage2_launches = phase_stage2(cfg, dif, args.steps)
     # 6b. image to video: a prefix frame through the VAE encoder
@@ -3106,6 +3368,10 @@ def main():
         # 9. the stage-2 trainer in bf16 (and LANDIFF_REMAT_SAVE_ATTN),
         # 9b. in f32; 10. the stage-1 trainer
         train_launches = phase_train_dit(Path(tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 9a. two stage-2 steps under Rotary3D
+        rotary_train_launches = phase_train_rotary3d(Path(tmp))
         gc.collect()
         torch.cuda.empty_cache()
         f32_train_launches = phase_train_dit(Path(tmp), "f32", steps=2)
@@ -3195,6 +3461,13 @@ def main():
         tokenize_launches["flash_fwd_int8"]
     by_name["flash_fwd_int8"]["launches_prefix_video"] = \
         prefix_launches["flash_fwd_int8"]
+    by_name["flash_fwd_int8"]["launches_rotary3d_call"] = \
+        rotary_launches["flash_fwd_int8"]
+    by_name["flash_fwd_int8"]["launches_samplers"] = {
+        name: n["flash_fwd_int8"] for name, n in sampler_launches.items()}
+    for name in ("flash_bwd", "flash_fwd_exact"):
+        by_name[name]["launches_train_rotary3d_step"] = \
+            rotary_train_launches[name]
     for name in ("flash_fwd_exact_f32", "flash_bwd_f32"):
         by_name[name]["launches_train_vq"] = sum(
             step.get(name, 0) for step in vq_launches)

@@ -1,7 +1,7 @@
 """Stage-2 diffusion engine (counterpart of landiff_tpu/diffusion/
-engine.py): DiT(+control) + DiscreteDenoiser + DynamicCFG + the
-VPSDE-DPM++2M sampler + the VAE first stage (decode, and encode for
-prefix video).
+engine.py): DiT(+control) + DiscreteDenoiser + DynamicCFG + the sampler
+chosen by `SamplerConfig.name` (VPSDE-DPM++2M by default, VPODE-DPM++2M,
+Video-DDIM) + the VAE first stage (decode, and encode for prefix video).
 
 CFG batch order is [uncond, cond] (guiders.py prepare_inputs: cat(uc, c)).
 The semantic feature is computed once and captured by the denoise closure
@@ -121,8 +121,8 @@ def sample_latents(denoise_fn, sampler_cfg: SamplerConfig,
                    sdedit: bool = False, prefix_noise=None,
                    reuse_every: int | None = None,
                    cfg_window: tuple[int, int] | None = None) -> torch.Tensor:
-    """Engine.sample (diffusion_video.py:255-315), VPSDE branch: randn
-    latents -> sampler loop. Returns (1, T, C, H, W) f32 on the
+    """Engine.sample (diffusion_video.py:255-315): randn latents ->
+    sampler loop. Returns (1, T, C, H, W) f32 on the
     generator's device. init_noise / step_noise: optional initial latents
     and per-step noises replacing the generator's draws. prefix: clean
     latents (1, f, C, H, W) spliced over the first f frames and held there
@@ -133,10 +133,13 @@ def sample_latents(denoise_fn, sampler_cfg: SamplerConfig,
     LANDIFF_CFG_WINDOW "lo,hi", off), as JAX reads them (engine.py:
     179-198), LANDIFF_FAST=2 supplying both: a window from the environment
     is dropped with a warning when denoise_fn has no cond_only twin; an
-    explicit cfg_window without one raises in the sampler."""
-    if sampler_cfg.name != "vpsde_dpmpp2m":
-        raise NotImplementedError(
-            f"sampler {sampler_cfg.name!r} is not ported yet")
+    explicit cfg_window without one raises in the sampler.
+
+    sampler_cfg.name picks the sampler as the reference's yaml target does
+    (engine.py:210-221): "vpsde_dpmpp2m", or the deterministic
+    "vpode_dpmpp2m" / "video_ddim", which draw only the initial latents
+    and drop step_noise, sdedit, reuse and the window without a word, as
+    the reference does; another name raises ValueError."""
     if reuse_every is None:
         reuse_every = int(env_value("LANDIFF_STEP_REUSE", "0") or 0)
     if cfg_window is None:
@@ -159,6 +162,15 @@ def sample_latents(denoise_fn, sampler_cfg: SamplerConfig,
     if prefix is not None:
         fixed = prefix.shape[1]
         x = torch.cat([prefix.float().to(device), x[:, fixed:]], dim=1)
+    name = sampler_cfg.name
+    if name == "vpode_dpmpp2m":
+        return samplers.vpode_dpmpp2m_sample(denoise_fn, x, sampler_cfg,
+                                             fixed_frames=fixed)
+    if name == "video_ddim":
+        return samplers.video_ddim_sample(denoise_fn, x, sampler_cfg,
+                                          fixed_frames=fixed)
+    if name != "vpsde_dpmpp2m":
+        raise ValueError(f"unknown sampler name: {name!r}")
     return samplers.vpsde_dpmpp2m_sample(denoise_fn, x, sampler_cfg,
                                          generator=generator,
                                          noises=step_noise,

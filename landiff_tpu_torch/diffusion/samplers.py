@@ -1,6 +1,7 @@
-"""VPSDE-DPM++2M sampler (counterpart of the default sampler of
-landiff_tpu/diffusion/samplers.py; reference sgm/modules/
-diffusionmodules/sampling.py:678-837).
+"""The request samplers (counterpart of landiff_tpu/diffusion/
+samplers.py): VPSDE-DPM++2M, the default (reference sgm/modules/
+diffusionmodules/sampling.py:678-837), and the deterministic
+VPODE-DPM++2M (:840-951) and Video-DDIM (:538-675).
 
 The JAX scan becomes a Python loop over host-precomputed f64 coefficient
 tables cast to f32. Per-step SDE noise comes from a torch.Generator, or
@@ -15,7 +16,8 @@ With a guidance window the sampler calls `denoise_fn.cond_only(x, step)`
 (the cond row alone) outside it. With a clean prefix (`fixed_frames`) and
 `sdedit`, the prefix is re-noised to each step's alpha from its own draw
 (`prefix_noises`, the seam for the JAX key chain's k_prefix draws, as
-`noises` is for k_noise). Not ported yet: the deterministic samplers.
+`noises` is for k_noise). The deterministic samplers draw nothing and
+hold a prefix as the SDE sampler does without sdedit.
 """
 
 from __future__ import annotations
@@ -91,8 +93,14 @@ def step_dicts(cfg: SamplerConfig) -> list[dict]:
     """The per-step scalars the loop hands to denoise_fn and uses itself:
     f32 coefficients (as the JAX scan's f32 tables), int indices, bools."""
     _, c = _per_step_arrays(cfg)
+    return _as_steps(c, cfg.num_steps)
+
+
+def _as_steps(c: dict, n: int) -> list[dict]:
+    """Per-step host scalars from per-step arrays: bools, int timestep /
+    idx, every other value rounded to f32."""
     steps = []
-    for i in range(cfg.num_steps):
+    for i in range(n):
         s = {}
         for key, arr in c.items():
             if arr.dtype == bool:
@@ -184,3 +192,69 @@ def vpsde_dpmpp2m_sample(denoise_fn: Callable, x: torch.Tensor,
     if prefix is not None:
         x = torch.cat([prefix, x[:, fixed_frames:]], dim=1)
     return x
+
+
+def _splice(prefix, x, fixed_frames: int):
+    return x if prefix is None else torch.cat([prefix, x[:, fixed_frames:]],
+                                              dim=1)
+
+
+def vpode_dpmpp2m_sample(denoise_fn: Callable, x: torch.Tensor,
+                         cfg: SamplerConfig, *,
+                         fixed_frames: int = 0) -> torch.Tensor:
+    """Deterministic DPM-Solver++(2M) ODE (VPODEDPMPP2MSampler,
+    samplers.py:293-346): the SDE sampler's update without its noise
+    term, from the ODE coefficients (schedule.dpmpp2m_ode_coeffs).
+    x[:, :fixed_frames] is a clean prefix spliced back before every
+    step and at the end."""
+    t = sched.sampler_tables(cfg)
+    n = cfg.num_steps
+    c = {k: np.zeros(n) for k in ("m1", "m2", "m3", "m4")}
+    first_order = np.zeros(n, bool)
+    for i in range(n):
+        a, an, ap = t["alpha"][i], t["alpha_next"][i], t["alpha_prev"][i]
+        c1, c2, c3, c4 = sched.dpmpp2m_ode_coeffs(a, an, ap)
+        c["m1"][i], c["m2"][i] = c1, c2
+        if c3 is None or an < 1e-14:
+            first_order[i] = True
+        else:
+            c["m3"][i], c["m4"][i] = c3, c4
+    c.update(first_order=first_order, is_last=t["idx"] == 1,
+             **{k: t[k] for k in ("alpha", "timestep", "idx", "cfg_scale")})
+    prefix = x[:, :fixed_frames].float() if fixed_frames > 0 else None
+    x = x.float()
+    old_d = torch.zeros_like(x)
+    for step in _as_steps(c, n):
+        x = _splice(prefix, x, fixed_frames)
+        denoised = denoise_fn(x, step).float()
+        if step["is_last"]:
+            x_new = denoised
+        elif step["first_order"]:
+            x_new = step["m1"] * x - step["m2"] * denoised
+        else:
+            denoised_d = step["m3"] * denoised - step["m4"] * old_d
+            x_new = step["m1"] * x - step["m2"] * denoised_d
+        x, old_d = x_new, denoised
+    return _splice(prefix, x, fixed_frames)
+
+
+def video_ddim_sample(denoise_fn: Callable, x: torch.Tensor,
+                      cfg: SamplerConfig, *,
+                      fixed_frames: int = 0) -> torch.Tensor:
+    """Deterministic Video-DDIM (samplers.py:349-387; sampling.py:
+    611-621): x <- a_t x + b_t denoised, a_t = sqrt((1 - an^2) / (1 -
+    a^2)), b_t = an - a a_t, in f64 on the host and then f32; a prefix
+    is held as in vpode_dpmpp2m_sample."""
+    t = sched.sampler_tables(cfg)
+    n = cfg.num_steps
+    a, an = t["alpha"], t["alpha_next"]
+    a_t = np.sqrt((1 - an ** 2) / (1 - a ** 2))
+    c = {"a_t": a_t, "b_t": an - a * a_t,
+         **{k: t[k] for k in ("alpha", "timestep", "idx", "cfg_scale")}}
+    prefix = x[:, :fixed_frames].float() if fixed_frames > 0 else None
+    x = x.float()
+    for step in _as_steps(c, n):
+        x = _splice(prefix, x, fixed_frames)
+        denoised = denoise_fn(x, step).float()
+        x = step["a_t"] * x + step["b_t"] * denoised
+    return _splice(prefix, x, fixed_frames)

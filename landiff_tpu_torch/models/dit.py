@@ -20,7 +20,10 @@ attention route). `quantize_int8` turns the four per-layer matrices into
 W8A8 leaves ({"q": int8 (in, out), "s": f32 (out,)}), which `_linear`
 multiplies in int8 (LANDIFF_DIT_INT8, pipeline/dif_infer.py). With
 LANDIFF_REMAT_SAVE_ATTN=1 the layer checkpoint keeps the flash out / lse
-(`_remat_policy`). Not ported yet: TP/SP variants and rotary3d.
+(`_remat_policy`). `pos_embed="rotary3d"` rotates q / k (and v with
+`rot_v`) after qk-LN and adds no sincos table. `control_mlp_adapter_
+forward` is the lighter control alternative. Not ported yet: the TP / SP
+variants (ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -90,6 +93,87 @@ def pos_embed_table(cfg: DiTConfig) -> np.ndarray:
                    np.float32)
     out[cfg.text_length:] = pe
     return out
+
+
+# ---------------------------------------------------------------------------
+# Rotary 3-D positions (Rotary3DPositionEmbeddingMixin, dit_video_concat.py:
+# 275-385): per head-dim axis split t: Dk/4, h: 3Dk/8, w: 3Dk/8,
+# pairwise-interleaved frequencies, applied to the video slice of q / k
+# (and v with rot_v) after qk-LN
+
+
+@functools.lru_cache(maxsize=4)
+def rotary3d_tables(cfg: DiTConfig):
+    """(video_tokens, head_dim) f32 cos / sin tables (dit.py:101-127):
+    freqs per axis 1/theta^(2i/dim), each repeated twice in place, over the
+    (T, H, W) grid."""
+    Dk = cfg.head_dim
+    dim_t, dim_h = Dk // 4, Dk // 8 * 3
+    dim_w = dim_h
+
+    def freqs(dim):
+        idx = np.arange(0, dim, 2, dtype=np.float32)[: dim // 2]
+        return (1.0 / cfg.rope_theta ** (idx / dim)).astype(np.float32)
+
+    T = cfg.latent_frames
+    hh = cfg.latent_height // cfg.patch_size
+    ww = cfg.latent_width // cfg.patch_size
+    ft = np.outer(np.arange(T, dtype=np.float32), freqs(dim_t))
+    fh = np.outer(np.arange(hh, dtype=np.float32), freqs(dim_h))
+    fw = np.outer(np.arange(ww, dtype=np.float32), freqs(dim_w))
+    ft, fh, fw = (np.repeat(a, 2, axis=-1) for a in (ft, fh, fw))
+    f = np.concatenate([
+        np.broadcast_to(ft[:, None, None, :], (T, hh, ww, dim_t)),
+        np.broadcast_to(fh[None, :, None, :], (T, hh, ww, dim_h)),
+        np.broadcast_to(fw[None, None, :, :], (T, hh, ww, dim_w)),
+    ], axis=-1).reshape(T * hh * ww, Dk)
+    return np.cos(f), np.sin(f)
+
+
+@functools.lru_cache(maxsize=8)
+def _rotary3d_on(cfg: DiTConfig, device: str, dtype):
+    """(text_length + video_tokens, head_dim) cos and signed-sin tables on
+    the device in the compute dtype, copied once: the text rows are the
+    identity (cos 1, sin 0), and each pair's first sin is negated, so that
+    the rotation is t * cos + swap(t) * sin with swap the exchange within
+    each pair."""
+    cos, sin = rotary3d_tables(cfg)
+    text = np.zeros((cfg.text_length, cfg.head_dim), np.float32)
+    cos = np.concatenate([text + 1.0, cos])
+    sin = np.concatenate([text, sin])
+    sin[:, 0::2] = -sin[:, 0::2]
+    return (torch.from_numpy(cos).to(device, dtype),
+            torch.from_numpy(sin).to(device, dtype))
+
+
+def _apply_rotary3d(t, cos, sin, offset: int = 0):
+    """t: (B, S_local, H, Dk) holding positions [offset, offset + S_local)
+    of the [text|video] sequence; cos / sin: `_rotary3d_on`'s tables
+    (positions past them take the last row, as JAX clamps). JAX's t * cos
+    + rotate_half(t) * sin on the video positions and t on the text ones
+    (dit.py:130-149; rotate_half: (x0, x1) -> (-x1, x0) in each pair, not
+    the GPT rope's half split), with the negation moved into the table and
+    the select into its identity rows: the same products and sums, bit for
+    bit but for the sign of a zero on a text row, in four passes over t
+    instead of seven."""
+    S = t.shape[1]
+    rows = (offset + torch.arange(S, device=t.device)).clamp(
+        max=cos.shape[0] - 1)
+    swapped = t.unflatten(-1, (-1, 2)).flip(-1).flatten(-2)
+    return t * cos[rows][None, :, None] + swapped * sin[rows][None, :, None]
+
+
+def _maybe_rotary(q, k, v, cfg: DiTConfig, offset: int = 0):
+    """Rotary3D on q / k (v with rot_v) after qk-LN (dit.py:152-162); the
+    identity under the sincos table."""
+    if cfg.pos_embed != "rotary3d":
+        return q, k, v
+    cos, sin = _rotary3d_on(cfg, str(q.device), q.dtype)
+    q = _apply_rotary3d(q, cos, sin, offset)
+    k = _apply_rotary3d(k, cos, sin, offset)
+    if cfg.rot_v:
+        v = _apply_rotary3d(v, cos, sin, offset)
+    return q, k, v
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +274,7 @@ def _layer(p, x, emb, cfg: DiTConfig, attn_impl="auto"):
     if cfg.qk_ln:
         q = layer_norm(q, p["q_ln_w"], p["q_ln_b"], 1e-6)
         k = layer_norm(k, p["k_ln_w"], p["k_ln_b"], 1e-6)
+    q, k, v = _maybe_rotary(q, k, v, cfg)
     attn = (attn_impl(q, k, v) if callable(attn_impl)
             else attention(q, k, v, impl=attn_impl)).reshape(B, S, D)
     x = x + gate_msa * _linear(p, "attn_out", attn)
@@ -199,19 +284,29 @@ def _layer(p, x, emb, cfg: DiTConfig, attn_impl="auto"):
     return x + gate_mlp * _linear(p, "mlp1", h)
 
 
-def _embed_inputs(params, x, timesteps, context, cfg: DiTConfig,
-                  compute_dtype):
-    """patchify + text proj + pos table; time embedding MLP."""
+def _patchify(params, x, context, cfg: DiTConfig, dt):
+    """Per-frame patch conv + text projection -> the [text|video]
+    sequence (B, S, D)."""
     B, T, C, Hh, Ww = x.shape
-    dt = compute_dtype
     P = cfg.patch_size
     emb = F.conv2d(x.to(dt).reshape(B * T, C, Hh, Ww),
                    params["patch_w"].to(dt), stride=P)  # (B*T, D, h, w)
     emb = emb.permute(0, 2, 3, 1) + params["patch_b"].to(dt)
     emb = emb.reshape(B, -1, cfg.hidden_size)
     text = _linear(params, "text_proj", context.to(dt))
-    h = torch.cat([text, emb], dim=1)
-    h = h + _pos_embed_on(cfg, str(h.device), dt)[None, :h.shape[1]]
+    return torch.cat([text, emb], dim=1)
+
+
+def _embed_inputs(params, x, timesteps, context, cfg: DiTConfig,
+                  compute_dtype):
+    """patchify + text proj + pos table; time embedding MLP. Under
+    rotary3d no table is added, and the learnable `pos_embedding` leaf is
+    never read (dit.py:454-461; the reference's position_embedding_forward
+    returns None)."""
+    dt = compute_dtype
+    h = _patchify(params, x, context, cfg, dt)
+    if cfg.pos_embed != "rotary3d":
+        h = h + _pos_embed_on(cfg, str(h.device), dt)[None, :h.shape[1]]
     t_emb = timestep_embedding(timesteps, cfg.hidden_size, dtype=dt)
     e = _linear(params["time_mlp"], "fc0", t_emb)
     e = _linear(params["time_mlp"], "fc1", F.silu(e))
@@ -312,6 +407,23 @@ def control_warp_forward(main_params, control_params, x, timesteps, context,
                    compute_dtype=compute_dtype, remat=remat)
 
 
+def control_mlp_adapter_forward(params, x, context, cfg: DiTConfig, *,
+                                compute_dtype=torch.bfloat16):
+    """ControlMLPAdapter (dit.py:716; dit_video_concat.py:1030-1161): patch
+    embed, then per layer a residual LN -> D->2D -> SiLU -> 2D->D adapter
+    tapped through a zero-init linear. As in the reference, x is embedded
+    without the semantic feature. Returns the list of taps (B, S, D)."""
+    dt = compute_dtype
+    hidden = _patchify(params, x, context, cfg, dt)
+    outs = []
+    for p in params["adapters"]:
+        h = layer_norm(hidden, p["ln_w"], p["ln_b"], 1e-5)
+        h = F.silu(_linear(p, "fc0", h))
+        hidden = hidden + _linear(p, "fc1", h)
+        outs.append(hidden @ p["zero_linear_w"].to(dt))
+    return outs
+
+
 # ---------------------------------------------------------------------------
 # init (random weights built on the device; the layout the bridge gives)
 
@@ -363,6 +475,10 @@ def init(gen: torch.Generator, cfg: DiTConfig, *, control: bool = False,
                    for _ in range(n_layers)],
         "final_ln_w": o(D), "final_ln_b": z(D),
     }
+    if cfg.pos_embed == "rotary3d" and cfg.learnable_pos_embed:
+        # the reference's zeros (1, S, D) parameter, never added
+        # (dit.py:818-827): a checkpoint key only
+        params["pos_embedding"] = z(1, cfg.text_length + cfg.video_tokens, D)
     if not control:
         # the control net has no final head (EmptyFinalLayerMixin)
         params["final"] = {
@@ -372,3 +488,24 @@ def init(gen: torch.Generator, cfg: DiTConfig, *, control: bool = False,
             "linear_b": z(P * P * cfg.out_channels),
         }
     return params
+
+
+def init_mlp_adapter(gen: torch.Generator, cfg: DiTConfig,
+                     dtype=torch.float32):
+    """Random ControlMLPAdapter parameters (dit.py:743), zero-init taps,
+    the patch kernel OIHW."""
+    D, P = cfg.hidden_size, cfg.patch_size
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=gen.device)
+    nrm = lambda *s: _normal(gen, s, 0.02, dtype)
+    adapters = [{
+        "ln_w": torch.ones((D,), dtype=dtype, device=gen.device),
+        "ln_b": z(D),
+        "fc0_w": nrm(D, 2 * D), "fc0_b": z(2 * D),
+        "fc1_w": nrm(2 * D, D), "fc1_b": z(D),
+        "zero_linear_w": z(D, D),
+    } for _ in range(cfg.control_layers)]
+    return {
+        "patch_w": nrm(D, cfg.in_channels, P, P), "patch_b": z(D),
+        "text_proj_w": nrm(cfg.text_dim, D), "text_proj_b": z(D),
+        "adapters": adapters,
+    }

@@ -274,6 +274,30 @@ def assemble_prompt(params, cfg: LLMConfig, text_feats, micro_feats,
                       text_feats.to(compute_dtype), soi], dim=0)
 
 
+def gt_first_frame_prefix_len(cfg: LLMConfig, soi_index: int) -> int:
+    """Prompt length when the ground-truth first I-frame is given
+    (use_gt_first_frame, lm_model.py:337-343; lm.py:108): the prompt runs
+    through [SOI][gt I x iframe_len][EOI][SOP]."""
+    return soi_index + cfg.iframe_len + 2 + 1
+
+
+def assemble_prompt_with_gt_iframe(params, cfg: LLMConfig, text_feats,
+                                   micro_feats, gt_codes,
+                                   compute_dtype=torch.bfloat16):
+    """The use_gt_first_frame prompt (lm_model.py:337-349; lm.py:259):
+    [BOS][micro x2][text][SOI][gt I codes][EOI][SOP]. Sampling starts at
+    the first P token; the caller prepends gt_codes to the sampled
+    codes."""
+    vocab = Vocab(cfg.codebook_size)
+    base = assemble_prompt(params, cfg, text_feats, micro_feats,
+                           compute_dtype)
+    emb = params["tok_emb"].to(compute_dtype)
+    gt = emb[torch.as_tensor(np.asarray(gt_codes), dtype=torch.long,
+                             device=emb.device)]
+    return torch.cat([base, gt, emb[vocab.END_OF_IFRAME][None],
+                      emb[vocab.START_OF_PFRAME][None]], dim=0)
+
+
 # ---------------------------------------------------------------------------
 # Constrained AR sampling
 

@@ -33,6 +33,12 @@ def layer_norm(x: torch.Tensor, weight=None, bias=None,
     return out
 
 
+def qk_layer_norm(q, k, q_w, q_b, k_w, k_b, eps: float = 1e-5):
+    """Per-head-dim LayerNorm on q and k (norms.py:78). The default eps is
+    1e-5; the DiT's own qk-LN uses 1e-6 (models/dit.py `_layer`)."""
+    return layer_norm(q, q_w, q_b, eps), layer_norm(k, k_w, k_b, eps)
+
+
 def group_norm(x: torch.Tensor, weight, bias, num_groups: int = 32,
                eps: float = 1e-6) -> torch.Tensor:
     """GroupNorm with channels at axis 1 (NCHW / NCTHW): statistics over

@@ -50,20 +50,30 @@ def _axis_freqs(theta: float, n_cis: int, denom_dim: int) -> np.ndarray:
 
 
 def _rope3d_angles(cfg: Rope3DConfig, t_pos, h_pos, w_pos) -> np.ndarray:
-    """Angles (N, dim//2) for integer position arrays (pos_emb.py:231-258):
-    the multiple=16 layout, [t: dim/8 | h: 3dim/16 | w: 3dim/16] channels
-    (the only one the released configs use)."""
-    if cfg.multiple != 16:
-        raise NotImplementedError(f"rope multiple {cfg.multiple} is not "
-                                  "ported (16 is)")
+    """Angles for integer position arrays (pos_emb.py:223-258).
+
+    multiple=16 (the released configs): [t: dim/8 | h: 3dim/16 | w:
+    3dim/16] channels, (N, dim//2). multiple=6: interleaved (t, h, w)
+    triples over dim//6 bands, freqs theta**(-6i/dim), (N, 3 * (dim//6)):
+    narrower than dim//2 where dim/2 is not a multiple of 3, as in the
+    reference."""
     dim, theta = cfg.dim, cfg.theta_base
-    t_dim = dim // 4
-    hw_dim = dim // 8 * 3
-    t_f = _axis_freqs(theta, t_dim // 2, t_dim)
-    hw_f = _axis_freqs(theta, hw_dim // 2, hw_dim)
     pos = [np.asarray(p, dtype=np.float32) for p in (t_pos, h_pos, w_pos)]
-    return np.concatenate([np.outer(pos[0], t_f), np.outer(pos[1], hw_f),
-                           np.outer(pos[2], hw_f)], axis=-1).astype(np.float32)
+    if cfg.multiple == 16:
+        t_dim = dim // 4
+        hw_dim = dim // 8 * 3
+        t_f = _axis_freqs(theta, t_dim // 2, t_dim)
+        hw_f = _axis_freqs(theta, hw_dim // 2, hw_dim)
+        return np.concatenate([np.outer(pos[0], t_f), np.outer(pos[1], hw_f),
+                               np.outer(pos[2], hw_f)],
+                              axis=-1).astype(np.float32)
+    if cfg.multiple == 6:
+        n = dim // 6
+        f = 1.0 / (theta ** (np.arange(0, dim, 6)[:n].astype(np.float32)
+                             / dim))
+        ang = np.stack([np.outer(p, f) for p in pos], axis=-1)
+        return ang.reshape(len(pos[0]), -1).astype(np.float32)
+    raise ValueError(f"multiple must be 6 or 16, got {cfg.multiple}")
 
 
 @functools.lru_cache(maxsize=8)

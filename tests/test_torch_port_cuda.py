@@ -810,3 +810,115 @@ def test_loader_on_the_card(dev, tmp_path):
     half = tree_leaves(tload.load_vae(tmp_path, cfg, dtype=torch.bfloat16,
                                       device="cuda"))
     assert all(t.dtype == torch.bfloat16 and t.is_cuda for t in half)
+
+
+@pytest.mark.parametrize("rot_v", [False, True])
+def test_rotary3d_dit_on_the_card(dev, rot_v):
+    """A tiny pos_embed="rotary3d" control_warp_forward (one head of 64,
+    the kernels' width) in bf16 on the card through the exact forward
+    kernel (80 positions are one q block: the int8 kernel's "cached" rule
+    needs two; chip_smoke.py's rotary3d phase runs the int8 one at full
+    width), against the port's own CPU route (the kernel's plain
+    version): the rotation itself equals the CPU's bit for bit; each
+    layer's attention call, on the rotated q / k (/ v) it was given, is
+    within this file's kernel limits of its plain version; the output is
+    within 2e-2 relative RMS of the CPU's (bf16 GEMMs rounded in another
+    order, carried through three layers); one launch per layer."""
+    import dataclasses
+
+    from landiff_tpu_torch import config as tcfg
+    from landiff_tpu_torch.models import dit as tdit
+    from landiff_tpu_torch.pipeline import dif_infer as tdi
+    from landiff_tpu_torch.utils import fill_zero_leaves, tree_map
+
+    full = tcfg.tiny_test_config()
+    full = dataclasses.replace(full, dit=dataclasses.replace(
+        full.dit, num_heads=1, pos_embed="rotary3d", rot_v=rot_v))
+    cfg = full.dit
+    gen = torch.Generator().manual_seed(0)
+    params = fill_zero_leaves(tdi.init_params(gen, full), gen)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((2, cfg.latent_frames, cfg.in_channels,
+                     cfg.latent_height, cfg.latent_width), generator=g)
+    sem = torch.randn(x.shape, generator=g)
+    ctx = torch.randn((2, cfg.text_length, cfg.text_dim), generator=g)
+    ts = torch.tensor([700.0, 80.0])
+
+    qkv = torch.randn((3, 2, cfg.text_length + cfg.video_tokens, 1, 64),
+                      generator=g).bfloat16()
+    rot_cpu = tdit._maybe_rotary(*qkv, cfg)
+    rot_dev = tdit._maybe_rotary(*qkv.to(dev), cfg)
+    for a, b in zip(rot_dev, rot_cpu):
+        assert torch.equal(a.cpu(), b)
+
+    calls = []
+
+    def attn(q, k, v):
+        out = TA.attention(q, k, v, impl="pallas")
+        calls.append((q, k, v, out))
+        return out
+
+    def run(device, attn_impl):
+        p = tree_map(lambda t: t.to(device), params)
+        with torch.inference_mode():
+            return tdit.control_warp_forward(
+                p["main"], p["control"], x.to(device), ts.to(device),
+                ctx.to(device), cfg, sem.to(device), attn_impl=attn_impl)
+
+    TA.reset_launch_counts()
+    out = run(dev, attn)
+    torch.cuda.synchronize()
+    n_layers = cfg.num_layers + cfg.control_layers
+    assert {k: n for k, n in TA.LAUNCHES.items() if n} == \
+        {"flash_fwd_exact": n_layers}
+    assert len(calls) == n_layers
+    for q, k, v, o in calls:
+        ref, _ = TA.flash_exact_plain(q, k, v)
+        steps, rel_rms = TA.kernel_error(o, ref)
+        assert steps <= _TOL_STEPS and rel_rms <= _TOL_RMS, (steps, rel_rms)
+    want = run("cpu", "pallas")
+    assert bool(torch.isfinite(out.float()).all())
+    rel = ((out.float().cpu() - want.float()).norm()
+           / want.float().norm()).item()
+    print("rotary3d tiny DiT, card vs CPU: relative RMS", rel)
+    assert rel <= 2e-2, rel
+    sincos = dataclasses.replace(cfg, pos_embed="sincos3d", rot_v=False)
+    with torch.inference_mode():
+        p = tree_map(lambda t: t.to(dev), params)
+        other = tdit.control_warp_forward(
+            p["main"], p["control"], x.to(dev), ts.to(dev), ctx.to(dev),
+            sincos, sem.to(dev), attn_impl="pallas")
+    assert ((other.float() - out.float()).norm()
+            / out.float().norm()).item() > 0.1
+
+
+def test_theia_conv_transpose2d_on_the_card(dev, monkeypatch):
+    """theia_translate's transposed conv (the bridged OIHW kernel, axes
+    swapped, the crop for output_padding) and a 16 -> 64 light-conv head on
+    the card against the CPU in f32 (TF32 off): 1e-5 relative + absolute
+    for the conv, 1e-4 for the head (convs and LayerNorms summed in
+    another order)."""
+    from landiff_tpu_torch.models import theia_translate as ttt
+    from landiff_tpu_torch.utils import fill_zero_leaves, tree_map
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 16, 14, 14), generator=g)
+    p = {"w": torch.randn((24, 16, 3, 3), generator=g) * 0.1,
+         "b": torch.randn((24,), generator=g)}
+    pd = tree_map(lambda t: t.to(dev), p)
+    for stride, padding, outpad in ((1, 0, 0), (2, 1, 0), (2, 0, 1),
+                                    (2, 1, 1), (1, 0, 2)):
+        want = ttt.conv_transpose2d(p, x, stride=stride, padding=padding,
+                                    output_padding=outpad)
+        got = ttt.conv_transpose2d(pd, x.to(dev), stride=stride,
+                                   padding=padding, output_padding=outpad)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    head = fill_zero_leaves(ttt.light_conv_head_init(
+        g, (16, 16, 16), (12, 64, 64)), g, scale=0.3)
+    tokens = torch.randn((2, 1 + 16 * 16, 16), generator=g)
+    want = ttt.head_forward(head, tokens)
+    got = ttt.head_forward(tree_map(lambda t: t.to(dev) if isinstance(
+        t, torch.Tensor) else t, head), tokens.to(dev))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
