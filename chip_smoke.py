@@ -17,6 +17,7 @@
                                              # the pipeline for 6b
     python3 chip_smoke.py --only variants    # the pipeline, then 5b and
                                              # 5c (seeded codes)
+    python3 chip_smoke.py --only serving     # the pipeline, then 8h
 
 Phases, in order; any failure exits nonzero before the last line:
   1. device:  the card's name and power limit; TF32 off for matmuls and
@@ -124,6 +125,26 @@ Phases, in order; any failure exits nonzero before the last line:
               infer_video.generate: 2 x 1,218 codes, 19 latent frames, 73
               frames at 480 x 720, finite, in [0, 1]; seconds per phase and
               per segment; 2 * (12 + 45 * steps) int8 launches.
+  8h. serving: the serving engine (serving/scheduler.py) over the
+              resident wrappers, no rebuild, behind serving/app.py's
+              handler on a ThreadingHTTPServer at 127.0.0.1:0: three
+              concurrent POST /generate with different prompts: one
+              stage-1 batch of 3 (/stats), HTTP 200 with a 49-frame
+              720 x 480 GIF each, 1,218 valid codes and a video as in 5
+              per request, 12 + 45 * steps int8 launches per request and
+              no other forward; each request's stage 2 equal, bit for
+              bit, to a direct call of the stage-2 wrapper on its codes
+              and seed, with memory_allocated steady between requests;
+              with LANDIFF_OFFLOAD=1 two calls on the first request's
+              codes: at least 95 % of the moved trees' bytes freed, both
+              videos equal to the call without the knob, the offload's
+              and restage's seconds and the decode's peak with and
+              without the knob; one request's DiT model call under
+              observability.trace and named_scope("serving_request"):
+              the Chrome trace holds the scope and the int8 flash
+              kernel's 45 device events. Seconds (stage 1 of the batch
+              against phase 5's warm request, stage 2, end to end) and
+              peak memory beside nvidia-smi's line.
   8f. tokenize: the pipelines are freed; video -> codes at full width
               (vq.encode_to_index: Theia 12 x 768, TiTok 12 x 768, VQ
               2,048 x 16) on a seeded 13-frame 480 x 720 clip, first and
@@ -269,6 +290,13 @@ PEAK_EXP2 = 132 * 16 * 1.98e9
 
 def log(*a):
     print(*a, flush=True)
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def check(cond, msg):
@@ -1535,13 +1563,14 @@ def phase_video(cfg, llm, dif, steps):
     try:
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        codes = []
+        codes, stage1_s = [], []
         for i, (prompt, seed) in enumerate(requests):
             llm.sample_cfg = dataclasses.replace(llm.sample_cfg, seed=seed)
             res = infer_video.generate(llm, dif, prompt, seed=seed)
             check_codes(res["codes"], cfg, f"request {i}")
             check_video(res["video"])
             codes.append(res["codes"])
+            stage1_s.append(res["stage1_s"])
             log(json.dumps({
                 "phase": "video", "request": i, "warm": i > 0,
                 "fused_adaln": True, "stage1_s": res["stage1_s"],
@@ -1604,7 +1633,7 @@ def phase_video(cfg, llm, dif, steps):
                     "decode_steps_per_s":
                         decode_steps / llm.phase_seconds["sample"],
                     "vs_single_calls_bf16": agree}))
-    return launches, codes[0]
+    return launches, codes[0], stage1_s[-1]
 
 
 def _dit_call_inputs(cfg, seed):
@@ -2188,6 +2217,259 @@ def phase_long_video(cfg, llm, dif, steps):
         "launches": launches,
         "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "video_mean": float(video.mean()), "video_std": float(video.std())}))
+    return launches
+
+
+SERVING_PROMPTS = (("a lighthouse in a storm at night", 11),
+                   ("a red fox jumping over a frozen stream", 12),
+                   ("a hot air balloon above a canyon", 13))
+
+
+def _post(url, form, timeout):
+    """POST a form to the local server, past any proxy the environment
+    names: (status, body, seconds)."""
+    import urllib.parse
+    import urllib.request
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    t0 = time.perf_counter()
+    with opener.open(url, data=urllib.parse.urlencode(form).encode(),
+                     timeout=timeout) as r:
+        return r.status, r.read().decode(), time.perf_counter() - t0
+
+
+def phase_serving(cfg, llm, dif, steps, stage1_one_s=None):
+    """The serving engine over the resident wrappers (no rebuild), through
+    its HTTP server: three concurrent POST /generate with different
+    prompts; then the offload and the profiler trace. See the module
+    docstring (8h)."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+    from PIL import Image
+
+    from landiff_tpu_torch import observability
+    from landiff_tpu_torch.diffusion import engine as E
+    from landiff_tpu_torch.pipeline import dif_infer, llm_infer
+    from landiff_tpu_torch.serving import app
+    from landiff_tpu_torch.serving.scheduler import ServingEngine
+    from landiff_tpu_torch.utils import tree_leaves
+
+    for knob in ("LANDIFF_FUSED_ADALN", "LANDIFF_OFFLOAD"):
+        os.environ.pop(knob, None)
+    t_phase = time.perf_counter()
+    per_request = 12 + 45 * steps
+    gb = lambda n: n / 1e9
+    if stage1_one_s is None:          # --only serving: one single request
+        t0 = time.perf_counter()
+        llm(llm_infer.CodeTask("one.npy", SERVING_PROMPTS[0][0]))
+        stage1_one_s = time.perf_counter() - t0
+
+    # 1. three concurrent requests through the HTTP server; the engine's
+    # results are kept as they go out
+    eng = ServingEngine(llm, dif, max_batch=8, linger_s=2.0)
+    served = {}
+    generate = eng.generate
+
+    def recording(prompt, seed=42, fps=8):
+        served[prompt] = res = generate(prompt, seed=seed, fps=fps)
+        return res
+
+    eng.generate = recording
+    sc = llm.sample_cfg
+    app._PIPELINE.clear()
+    app._PIPELINE.update(engine=eng,
+                         engine_key=(sc.cfg_scale, sc.motion_score))
+    server = ThreadingHTTPServer(("127.0.0.1", 0), app._Handler)
+    serve = threading.Thread(target=server.serve_forever, daemon=True)
+    serve.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    answers, errors = {}, []
+
+    def client(prompt, seed):
+        try:
+            answers[prompt] = _post(url + "/generate", {
+                "prompt": prompt, "cfg_scale": repr(sc.cfg_scale),
+                "motion": repr(sc.motion_score), "seed": seed}, 600)
+        except Exception as e:  # reported below, in the main thread
+            errors.append(repr(e))
+
+    try:
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        clients = [threading.Thread(target=client, args=r)
+                   for r in SERVING_PROMPTS]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=900)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        check(not errors and not any(c.is_alive() for c in clients),
+              f"serving clients: {errors}")
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        with opener.open(url + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        serve.join(timeout=60)
+        eng.shutdown()
+        app._PIPELINE.clear()
+    check(stats["stage1_batch_sizes"] == [3] and stats["requests"] == 3,
+          f"stage-1 batches {stats}")
+    check(launches["flash_fwd_int8"] == 3 * per_request,
+          f"int8 launches {launches['flash_fwd_int8']}, want "
+          f"{3 * per_request}")
+    check(launches["flash_fwd_exact"] == 0 and launches["adaln"] == 0,
+          f"exact / adaLN kernels ran on the served path: {launches}")
+    check_no_variant(launches)
+    gifs = {}
+    for prompt, _ in SERVING_PROMPTS:
+        status, page, _ = answers[prompt]
+        check(status == 200, f"HTTP {status}")
+        gif = base64.b64decode(page.split("data:image/gif;base64,")[1]
+                               .split('"')[0])
+        img = Image.open(io.BytesIO(gif))
+        check_codes(served[prompt]["codes"], cfg, f"served {prompt!r}")
+        check_video(served[prompt]["video"])
+        _, _, T, H, W = served[prompt]["video"].shape
+        check(img.format == "GIF" and img.n_frames == T
+              and img.size == (W, H),
+              f"answer image {img.format} {img.n_frames} {img.size}")
+        gifs[prompt] = len(gif)
+
+    # 2. each request's stage 2 again, directly, on its codes and seed
+    # (the decode's peak read by a wrapper); memory between requests
+    # steady; then the offload twice on the first request's codes
+    decodes = []
+    decode = E.decode_first_stage
+
+    def timed_decode(*a, **kw):
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = decode(*a, **kw)
+        torch.cuda.synchronize()
+        decodes.append({"allocated_at_start_gb": gb(start),
+                        "peak_gb": gb(torch.cuda.max_memory_allocated())})
+        return out
+
+    offload_mem = {}
+    offload = dif.offload_diffusion_params
+
+    def measured_offload():
+        torch.cuda.synchronize()
+        offload_mem["before"] = torch.cuda.memory_allocated()
+        offload()
+        offload_mem["after"] = torch.cuda.memory_allocated()
+
+    moved = sum(t.numel() * t.element_size() for k in
+                ("main", "control", "semantic")
+                for t in tree_leaves(dif.params[k]))
+    task = lambda prompt, seed: dif_infer.VideoTask(
+        "s.mp4", prompt, seed, semantic_token=served[prompt]["codes"])
+    E.decode_first_stage = timed_decode
+    dif.offload_diffusion_params = measured_offload
+    between, offload_runs = [], []
+    try:
+        for prompt, seed in SERVING_PROMPTS:
+            direct = dif(task(prompt, seed)).result
+            check(np.array_equal(direct, served[prompt]["video"]),
+                  f"served stage 2 of {prompt!r} differs from a direct call")
+            between.append(torch.cuda.memory_allocated())
+        os.environ["LANDIFF_OFFLOAD"] = "1"
+        prompt, seed = SERVING_PROMPTS[0]
+        for i in range(2):
+            video = dif(task(prompt, seed)).result
+            check(dif.offloaded, "the knob left the trees on the card")
+            check(np.array_equal(video, served[prompt]["video"]),
+                  f"offloaded call {i} differs from the call without it")
+            offload_runs.append({k: dif.phase_seconds.get(k) for k in
+                                 ("restage", "offload", "denoise", "vae")})
+            if i == 0:
+                freed = offload_mem["before"] - offload_mem["after"]
+                check(freed >= 0.95 * moved,
+                      f"offload freed {freed} of {moved} bytes")
+    finally:
+        os.environ.pop("LANDIFF_OFFLOAD", None)
+        E.decode_first_stage = decode
+        del dif.offload_diffusion_params
+        dif.restage_diffusion_params()
+    check(max(between) - min(between) <= 2 ** 20,
+          f"memory between requests not steady: {between}")
+    check(len(decodes) == 5, f"{len(decodes)} decodes")
+
+    # 3. one request's DiT model call (CFG batch 2, 45 layers) under the
+    # profiler: a whole request's trace (T5, VAE) would be tens of MB
+    from landiff_tpu_torch.models import dit
+
+    x, sem, ctx = _dit_call_inputs(cfg, 9)
+    ts = torch.tensor([500.0, 500.0], device="cuda")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        reset_counts()
+        with observability.trace(tmp, device="cuda"), \
+                observability.named_scope("serving_request"), \
+                torch.inference_mode():
+            traced = dit.control_warp_forward(
+                dif.params["main"], dif.params["control"], x, ts, ctx,
+                cfg.dit, sem)
+            torch.cuda.synchronize()
+        trace_launches = read_counts()["flash_fwd_int8"]
+        (path,) = Path(tmp).glob("*.json")
+        trace_bytes = path.stat().st_size
+        events = json.loads(path.read_text())["traceEvents"]
+    scope = [e for e in events if e.get("name") == "serving_request"]
+    int8_kernels = [e for e in events
+                    if str(e.get("cat", "")).lower() == "kernel"
+                    and "flash_fwd_kernel" in e.get("name", "")
+                    and ("<true, false, false>" in e["name"]
+                         or "ILb1ELb0ELb0E" in e["name"])]
+    check(bool(torch.isfinite(traced.float()).all()),
+          "traced model call not finite")
+    check(scope, "the trace holds no serving_request scope")
+    check(len(int8_kernels) == trace_launches == 45,
+          f"{len(int8_kernels)} int8 flash kernels in the trace, "
+          f"{trace_launches} launches")
+
+    log(json.dumps({
+        "phase": "serving", "card": nvidia_smi(),
+        "http_requests": {p: {"status": answers[p][0],
+                              "end_to_end_s": answers[p][2],
+                              "stage1_s": served[p]["stage1_s"],
+                              "stage2_s": served[p]["stage2_s"],
+                              "stage2_phases": served[p]["stage2_phases"],
+                              "gif_bytes": gifs[p]}
+                          for p, _ in SERVING_PROMPTS},
+        "stats": stats,
+        "stage1_batch_of_3_s": max(served[p]["stage1_s"]
+                                   for p, _ in SERVING_PROMPTS),
+        "stage1_one_request_s": stage1_one_s,
+        "launches": launches,
+        "int8_launches_per_request": launches["flash_fwd_int8"] / 3,
+        "peak_gpu_mem_gb": gb(peak),
+        "allocated_before_after_gb": [gb(mem_before), gb(mem_after)],
+        "allocated_between_direct_requests_gb": [gb(b) for b in between],
+        "offload": {"moved_gb": gb(moved),
+                    "allocated_before_gb": gb(offload_mem["before"]),
+                    "allocated_after_gb": gb(offload_mem["after"]),
+                    "freed_share": (offload_mem["before"]
+                                    - offload_mem["after"]) / moved,
+                    "runs": offload_runs},
+        "decode_peaks": {"without_knob": decodes[:3],
+                         "with_knob": decodes[3:]},
+        "trace": {"bytes": trace_bytes, "events": len(events),
+                  "int8_kernels": len(int8_kernels),
+                  "scope_ms": scope[0].get("dur", 0) / 1e3},
+        "seconds": time.perf_counter() - t_phase}))
     return launches
 
 
@@ -3228,7 +3510,8 @@ def main():
                     help="denoise steps per request (the release uses 50)")
     ap.add_argument("--only", choices=("flash_fwd", "flash_bwd", "f32",
                                        "stage1_batch", "long_video", "ckpt",
-                                       "train", "tokenizer", "variants"),
+                                       "train", "tokenizer", "variants",
+                                       "serving"),
                     help="build, then only this kernel's cases at the "
                          "main-path shapes, or only the batched decoding "
                          "check at full width (no pipeline, no last "
@@ -3248,9 +3531,7 @@ def main():
 
     t_start = time.perf_counter()
     # 1. device
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
+    smi = [nvidia_smi()]
     log(smi[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3286,6 +3567,10 @@ def main():
     if args.only == "long_video":
         cfg, llm, dif = build_full(args.steps)
         phase_long_video(cfg, llm, dif, args.steps)
+        return
+    if args.only == "serving":
+        cfg, llm, dif = build_full(args.steps)
+        phase_serving(cfg, llm, dif, args.steps)
         return
     if args.only in ("ckpt", "train"):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3336,7 +3621,8 @@ def main():
     enc = phase_encoder_mask(rates)
     # 4. the pipeline; 5. prompt -> codes -> video; 6. stage 2 alone
     cfg, llm, dif = build_full(args.steps)
-    video_launches, video_codes = phase_video(cfg, llm, dif, args.steps)
+    video_launches, video_codes, stage1_one_s = phase_video(
+        cfg, llm, dif, args.steps)
     # 5b. Rotary3D model calls; 5c. the other samplers from those codes
     rotary_launches = phase_rotary3d(cfg, dif.params)
     sampler_launches = phase_samplers(cfg, dif, video_codes, args.steps)
@@ -3354,6 +3640,9 @@ def main():
     # 8b. the fast serving configuration; 8c. a two-segment video
     fast_launches = phase_fast(cfg, llm, dif)
     phase_long_video(cfg, llm, dif, args.steps)
+    # 8h. the serving engine and its HTTP server, the offload, the trace
+    serving_launches = phase_serving(cfg, llm, dif, args.steps,
+                                     stage1_one_s)
     del llm, dif
     gc.collect()
     torch.cuda.empty_cache()
@@ -3461,6 +3750,8 @@ def main():
         tokenize_launches["flash_fwd_int8"]
     by_name["flash_fwd_int8"]["launches_prefix_video"] = \
         prefix_launches["flash_fwd_int8"]
+    by_name["flash_fwd_int8"]["launches_serving"] = \
+        serving_launches["flash_fwd_int8"]
     by_name["flash_fwd_int8"]["launches_rotary3d_call"] = \
         rotary_launches["flash_fwd_int8"]
     by_name["flash_fwd_int8"]["launches_samplers"] = {

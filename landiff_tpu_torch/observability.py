@@ -1,12 +1,15 @@
-"""Observability (counterpart of landiff_tpu/observability.py): step
-timers, a JSONL metrics logger, device memory and determinism. Not ported
-yet: the profiler `trace` context and `named_scope`.
+"""Observability (counterpart of landiff_tpu/observability.py): profiler
+traces and named scopes, step timers, a JSONL metrics logger, device
+memory and determinism.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
+import os
+import tempfile
 import time
 from pathlib import Path
 
@@ -14,6 +17,36 @@ import numpy as np
 import torch
 
 logger = logging.getLogger("landiff_tpu_torch")
+
+
+@contextlib.contextmanager
+def trace(trace_dir: str | None = None, device="cuda"):
+    """Profile the block with torch.profiler (host activity, and the
+    device's where `device` is a CUDA device) and write a Chrome-trace JSON
+    into `trace_dir` (a new temporary directory by default); yields the
+    directory. View it in chrome://tracing or Perfetto."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trace_dir = trace_dir or tempfile.mkdtemp(prefix="landiff_trace_")
+    Path(trace_dir).mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield trace_dir
+    finally:
+        prof.stop()
+        path = Path(trace_dir) / f"trace_{os.getpid()}_{time.time_ns()}.json"
+        prof.export_chrome_trace(str(path))
+        logger.info("profiler trace written to %s", path)
+
+
+def named_scope(name: str):
+    """Annotate a region for the profiler (the reference's
+    @torch.profiler.record_function, blocks.py:143)."""
+    return torch.profiler.record_function(name)
 
 
 class StepTimer:

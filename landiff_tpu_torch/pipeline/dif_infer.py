@@ -8,13 +8,16 @@ the main and control DiTs are quantized to W8A8 once, at construction;
 LANDIFF_STEP_REUSE / LANDIFF_CFG_WINDOW (LANDIFF_FAST=2) reach the sampler
 through engine.sample_latents. A prefix video (image-to-video,
 continuation) is VAE-encoded to the clean latents the sampler holds over
-the first frames. Not ported yet: the mesh / TP path and parameter
-offload.
+the first frames. With LANDIFF_OFFLOAD=1 the diffusion trees (main,
+control, semantic) leave the device after the denoise and before the VAE
+decode, and come back at the start of the next call. Not ported yet: the
+mesh / TP path (ROADMAP item 15).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from dataclasses import dataclass
 
@@ -49,8 +52,9 @@ class CogModelInferWrapper:
     conditioner, "vae": VAE, "t5": stage-2 T5}, tensors on `device`.
 
     After each call, `phase_seconds` holds the host seconds (synchronised
-    on the device) of its phases: t5, vae_encode (with a prefix video),
-    semantic, denoise, vae."""
+    on the device) of its phases: restage (after an offload), t5,
+    vae_encode (with a prefix video), semantic, denoise, offload (with
+    LANDIFF_OFFLOAD=1), vae."""
 
     def __init__(self, params, cfg: LanDiffConfig,
                  tokenizer_dir: str | None = None,
@@ -67,12 +71,42 @@ class CogModelInferWrapper:
         self.compute_dtype = compute_dtype
         self.device = torch.device(device)
         self.phase_seconds: dict[str, float] = {}
+        self.offloaded = False
         # stage-2 T5: max_length 226, padding to max, no attention mask
         # (encoders/modules.py:271-289)
         self.text = T5Text(tokenizer_dir or cfg.t5.model_name or None,
                            max_length=cfg.dit.text_length,
                            padding_side="right",
                            require_real=require_real_tokenizer)
+
+    def offload_diffusion_params(self):
+        """Move the diffusion trees (main, control, semantic) to host
+        memory, freeing their device memory before the VAE decode: the
+        reference's model.cpu() / cuda() swap (infer_video.py:83-85). Pinned
+        host memory, so that the restage copies at full rate. The trees'
+        dicts and lists stay the same objects, so a holder of a subtree
+        keeps no device tensor alive; a closure over the leaves themselves
+        (the denoise closure) must be dropped first."""
+        for k in _OFFLOADED:
+            if k in self.params:
+                _move_tree_(self.params[k], torch.device("cpu"))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.offloaded = True
+
+    def restage_diffusion_params(self):
+        """Bring offloaded diffusion trees back to the wrapper's device
+        (JAX restages host arrays at the next jitted call; the port does it
+        here, at the start of a call). Idempotent; dtypes and containers
+        are kept."""
+        if not self.offloaded:
+            return
+        for k in _OFFLOADED:
+            if k in self.params:
+                _move_tree_(self.params[k], self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.offloaded = False
 
     def encode_text(self, prompt: str) -> torch.Tensor:
         ids, _ = self.text([prompt], pad_to_max=True)
@@ -111,6 +145,9 @@ class CogModelInferWrapper:
 
         self.phase_seconds = {}
         t0 = time.perf_counter()
+        if self.offloaded:
+            self.restage_diffusion_params()
+            t0 = self._mark("restage", t0)
         context = self.encode_text(task.prompt)
         uc_context = torch.zeros_like(context)   # force_uc_zero_embeddings
         t0 = self._mark("t5", t0)
@@ -133,6 +170,10 @@ class CogModelInferWrapper:
             denoise_fn, cfg.sampler, cfg.dit, generator=gen,
             init_noise=init_noise, step_noise=step_noise, prefix=prefix)
         t0 = self._mark("denoise", t0)
+        if os.environ.get("LANDIFF_OFFLOAD") == "1":
+            del denoise_fn      # its closure holds the DiT trees
+            self.offload_diffusion_params()
+            t0 = self._mark("offload", t0)
         video = engine.decode_first_stage(self.params["vae"], latents,
                                           cfg.vae,
                                           compute_dtype=self.compute_dtype)
@@ -142,6 +183,24 @@ class CogModelInferWrapper:
         return dataclasses.replace(task,
                                    result=vid8.astype(np.float32) / 255.0,
                                    latent=latents.float().cpu().numpy())
+
+
+_OFFLOADED = ("main", "control", "semantic")
+
+
+def _move_tree_(tree, device: torch.device):
+    """Move every tensor leaf of a tree of dicts and lists to `device` in
+    place, into pinned host memory when it leaves a CUDA device."""
+    for k, v in (tree.items() if isinstance(tree, dict)
+                 else enumerate(tree)):
+        if isinstance(v, (dict, list)):
+            _move_tree_(v, device)
+        elif isinstance(v, torch.Tensor) and v.device != device:
+            if device.type == "cpu" and v.is_cuda:
+                host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                tree[k] = host.copy_(v, non_blocking=True)
+            else:
+                tree[k] = v.to(device, non_blocking=True)
 
 
 def init_params(gen: torch.Generator, cfg: LanDiffConfig,

@@ -11,8 +11,10 @@ runs the whole pipeline with a tiny random-init config (no checkpoints).
 video file. A checkpoint tree (`ckpt_dir`, or the resolved LANDIFF_HOME /
 <repo>/ckpts/LanDiff in `main`) is loaded through ckpt/load.py; a prompt
 of more than one segment (`--num-frames 26`: two) streams through
-pipeline/long_video.py. Not ported yet: device meshes (ROADMAP item 15)
-and LANDIFF_OFFLOAD (item 16).
+pipeline/long_video.py. LANDIFF_OFFLOAD=1 moves the diffusion trees to
+host memory before the VAE decode on both paths (dif_infer.py). The
+serving engine and its HTTP server over the same pipeline are in
+serving/. Not ported yet: device meshes (ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -121,14 +123,16 @@ def generate(llm, dif, prompt: str, seed: int = 42, fps: int = 8) -> dict:
 
 def _generate_long(dif, code_task, prompt: str, seed: int, fps: int,
                    stem: str, now):
-    """Stage 2 of a multi-segment request (JAX infer_video.py:96-135)."""
-    if os.environ.get("LANDIFF_OFFLOAD") == "1":
-        raise NotImplementedError(
-            "LANDIFF_OFFLOAD (moving the diffusion parameters off the "
-            "device before the decode) is not ported yet: ROADMAP item 16")
+    """Stage 2 of a multi-segment request (JAX infer_video.py:96-135).
+    With LANDIFF_OFFLOAD=1 the diffusion trees leave the device after the
+    last segment, before the decode (JAX :119-121)."""
     cfg = dif.cfg
     phases = {}
     t0 = now()
+    if dif.offloaded:
+        dif.restage_diffusion_params()
+        phases["restage"] = now() - t0
+        t0 = now()
     with torch.inference_mode():
         context = dif.encode_text(prompt)
         t = phases["t5"] = now() - t0
@@ -147,6 +151,10 @@ def _generate_long(dif, code_task, prompt: str, seed: int, fps: int,
             code_task.result, generator=gen,
             prefix_latents=min(7, cfg.dit.latent_frames - 1),
             compute_dtype=dif.compute_dtype, on_segment=on_segment)
+        if os.environ.get("LANDIFF_OFFLOAD") == "1":
+            t = now()
+            dif.offload_diffusion_params()
+            phases["offload"] = now() - t
         t = now()
         video = engine.decode_first_stage(dif.params["vae"], latents,
                                           cfg.vae,

@@ -18,6 +18,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from landiff_tpu_torch import bridge
@@ -200,6 +201,18 @@ def fast_compiles():
         yield
     finally:
         jax.config.update("jax_disable_most_optimizations", before)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fast_jax_compiles():
+    """Autouse in every module that imports it: the module's JAX programs
+    compile under fast_compiles() (the same HLO; XLA's backend
+    optimizations off, which takes most of a tiny-config compile), and
+    the compiled programs are dropped when the module ends, so that no
+    later test of the JAX package runs one of them."""
+    with fast_compiles():
+        yield
+    jax.clear_caches()
 
 
 def gumbel_steps(seed: int, steps: int, vocab: int) -> torch.Tensor:

@@ -19,6 +19,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu.config import DiTConfig, TiTokConfig
 from landiff_tpu.models import dit as dit_lib
 from landiff_tpu.models import titok as titok_lib

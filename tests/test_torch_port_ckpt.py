@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu.ckpt import convert as jconvert
 from landiff_tpu.ckpt import load as jload

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu.diffusion import conditioner as jcond
 from landiff_tpu_torch.diffusion import conditioner as tcond
 

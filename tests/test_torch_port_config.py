@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from _torch_port_helpers import stage2_params
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu import utils as jutils
 from landiff_tpu.pipeline import dif_infer as jdi

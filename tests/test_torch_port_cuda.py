@@ -34,7 +34,11 @@ bit for bit; their variants within attention.f32_variant_limits.
 The adaLN kernel and its plain version both compute in f32 and round
 once: within one bf16 step per element in bf16 (steps taken at the
 element's own size, not below that at 2^-7) and 1e-5 relative + 1e-5
-absolute in f32."""
+absolute in f32.
+
+The tiny serving engine and LANDIFF_OFFLOAD run on the card too: the
+served videos equal infer_video.generate's to the bit, and the offload
+frees at least the moved trees' bytes."""
 
 import functools
 
@@ -922,3 +926,71 @@ def test_theia_conv_transpose2d_on_the_card(dev, monkeypatch):
     got = ttt.head_forward(tree_map(lambda t: t.to(dev) if isinstance(
         t, torch.Tensor) else t, head), tokens.to(dev))
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_serving_engine_on_the_card(dev):
+    """The tiny serving engine (f32) on the card: two concurrent requests
+    make one stage-1 batch, and each answer is infer_video.generate's for
+    the same prompt and seeds, codes and video to the bit."""
+    import threading
+
+    import numpy as np
+
+    from landiff_tpu_torch.pipeline import infer_video
+    from landiff_tpu_torch.serving.scheduler import ServingEngine
+
+    eng = ServingEngine.build(tiny=True, device="cuda", linger_s=1.0)
+    prompts = ("a cat playing piano", "a dog surfing")
+    out = {}
+    try:
+        threads = [threading.Thread(
+            target=lambda p: out.__setitem__(p, eng.generate(p, seed=5)),
+            args=(p,)) for p in prompts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads) and len(out) == 2
+        assert eng.stats()["stage1_batch_sizes"] == [2]
+        for p in prompts:
+            want = infer_video.generate(eng.llm, eng.dif, p, seed=5)
+            np.testing.assert_array_equal(out[p]["codes"], want["codes"])
+            np.testing.assert_array_equal(out[p]["video"], want["video"])
+    finally:
+        eng.shutdown()
+
+
+def test_offload_frees_the_diffusion_trees_on_the_card(dev, monkeypatch):
+    """LANDIFF_OFFLOAD=1 on the card: after a call the main, control and
+    semantic trees are in pinned host memory and memory_allocated has
+    fallen by their bytes; the next call restages them and both give the
+    video of a call without the knob, bit for bit."""
+    import numpy as np
+
+    from landiff_tpu_torch import config as tcfg
+    from landiff_tpu_torch.pipeline import dif_infer
+    from landiff_tpu_torch.utils import fill_zero_leaves, tree_leaves
+
+    cfg = tcfg.tiny_test_config()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    w = dif_infer.CogModelInferWrapper(
+        fill_zero_leaves(dif_infer.init_params(gen, cfg), gen), cfg,
+        compute_dtype=torch.float32, device="cuda")
+    codes = np.random.default_rng(3).integers(
+        0, cfg.tokenizer.vq.codebook_size, cfg.tokenizer.titok.latent_tokens)
+    task = dif_infer.VideoTask("x.mp4", "a red panda", 3, semantic_token=codes)
+    want = w(task).result
+    trees = ("main", "control", "semantic")
+    moved = sum(t.numel() * t.element_size() for k in trees
+                for t in tree_leaves(w.params[k]))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    monkeypatch.setenv("LANDIFF_OFFLOAD", "1")
+    for _ in range(2):
+        np.testing.assert_array_equal(w(task).result, want)
+        assert resident - torch.cuda.memory_allocated() >= moved
+        assert all(t.device.type == "cpu" and t.is_pinned()
+                   for k in trees for t in tree_leaves(w.params[k]))
+    w.restage_diffusion_params()
+    assert all(t.is_cuda for k in trees for t in tree_leaves(w.params[k]))
+    assert torch.cuda.memory_allocated() == resident

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from _torch_port_helpers import assert_close, randn, stage2_params
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu.models import dit as jdit
 from landiff_tpu_torch import config as tcfg

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from _torch_port_helpers import gumbel_steps, stage1_params
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu.pipeline import llm_infer as jli
 from landiff_tpu_torch import config as tcfg
@@ -100,9 +101,11 @@ def test_infer_batch_matches_single_calls_and_jax():
 
 
 def test_unported_options_are_refused(monkeypatch):
-    """What is not ported raises, naming its ROADMAP item. The fast
-    configuration's options (int8_decode, int4_decode, LANDIFF_FAST) are
-    ported and build quantized wrappers instead."""
+    """What is not ported raises, naming its ROADMAP item (the serving
+    engine's and server's --mesh too). The fast configuration's options
+    (int8_decode, int4_decode, LANDIFF_FAST) are ported and build
+    quantized wrappers instead; LANDIFF_OFFLOAD runs on the long-video
+    path."""
     _, t1 = stage1_params()
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         tli.ArModelInferWrapper(t1, TC.llm, TC.t5, device="cpu",
@@ -119,14 +122,27 @@ def test_unported_options_are_refused(monkeypatch):
         tiv.build_pipeline(TC, sc, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         tiv.run("x", tiny=True, mesh_spec="data=2", device="cpu")
-    # two segments of codes: the long-video path (item 11) is ported; its
-    # offload branch is not
+    from landiff_tpu_torch.serving import app, scheduler
+
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        scheduler.ServingEngine.build(tiny=True, mesh_spec="model=2",
+                                      device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        app.main(["--tiny", "--device", "cpu", "--mesh", "model=2"])
+    # two segments of codes: the long-video path (item 11) offloads the
+    # diffusion trees before its decode and restages them for the next
     llm, dif = tiv.build_pipeline(
         TC, tcfg.ARSampleConfig(num_frames=2 * TC.llm.frames_per_segment),
         compute_dtype=torch.float32, device="cpu")
+    want = tiv.generate(llm, dif, "x")
     monkeypatch.setenv("LANDIFF_OFFLOAD", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        tiv.generate(llm, dif, "x")
+    for i in range(2):
+        got = tiv.generate(llm, dif, "x")
+        assert dif.offloaded and "offload" in got["stage2_phases"]
+        assert ("restage" in got["stage2_phases"]) == (i == 1)
+        np.testing.assert_array_equal(got["video"], want["video"])
+    assert len(got["codes"]) == 2 * TC.tokenizer.titok.latent_tokens
+    assert "segment_1" in got["stage2_phases"]
 
 
 def test_run_and_main_write_codes_and_video(tmp_path, monkeypatch, capsys):

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from _torch_port_helpers import fast_jit, randn
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu.ops import attention as JA
 from landiff_tpu.ops import masks as JM
 from landiff_tpu_torch.ops import attention as TA

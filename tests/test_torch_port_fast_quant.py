@@ -20,6 +20,7 @@ import torch
 from _torch_port_helpers import (assert_close, fast_compiles, fast_jit,
                                  gumbel_steps, randn, stage1_params,
                                  stage2_params)
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu.models import dit as jdit
 from landiff_tpu.models import gpt as jgpt

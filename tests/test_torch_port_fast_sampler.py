@@ -13,6 +13,7 @@ import torch
 
 from _torch_port_helpers import (assert_close, fast_compiles, fast_jit,
                                  randn, sampler_noises, stage2_params)
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu.diffusion import engine as jeng
 from landiff_tpu.diffusion import samplers as jsamp

@@ -22,6 +22,7 @@ import torch
 
 from _torch_port_helpers import (assert_close, check_ablation_variant,
                                  fast_jit, randn, stage2_params)
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu.ops import attention as JA
 from landiff_tpu.ops import masks as JM
 from landiff_tpu_torch import config as tcfg

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from _torch_port_helpers import assert_close, fast_compiles
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu.diffusion import k_samplers as jks
 from landiff_tpu.diffusion import thresholding as jth
 from landiff_tpu_torch.diffusion import k_samplers as tks

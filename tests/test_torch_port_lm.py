@@ -16,6 +16,7 @@ from hypothesis import strategies as st
 
 from _torch_port_helpers import (assert_close, gumbel_steps, randn,
                                  stage1_params)
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu import utils as jutils
 from landiff_tpu.models import gpt as jgpt

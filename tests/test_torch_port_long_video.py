@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from _torch_port_helpers import fast_compiles, fast_jit, randn, stage2_params
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu.pipeline import long_video as jlv
 from landiff_tpu_torch import config as tcfg

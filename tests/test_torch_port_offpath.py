@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from _torch_port_helpers import assert_close
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu.models import lfq as jlfq
 from landiff_tpu.models import theia_translate as jtt
 from landiff_tpu.models import token_sequence as jts

@@ -12,6 +12,7 @@ import torch
 
 from _torch_port_helpers import (gumbel_steps, randn, sampler_noises,
                                  stage1_params, stage2_params)
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu.pipeline import dif_infer as jdi
 from landiff_tpu.pipeline import llm_infer as jli

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from _torch_port_helpers import fast_compiles, to_jax_layout
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu.data import prepare as jprep
 from landiff_tpu.models import t5 as jt5
 from landiff_tpu.models import vae as jvae

@@ -20,6 +20,7 @@ import torch
 
 from _torch_port_helpers import (assert_close, dit_loss_draws, fast_jit,
                                  randn, stage2_params, train_dit_params)
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu.models import dit as jdit
 from landiff_tpu.training import diffusion_loss as jdl

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import torch
 
 from _torch_port_helpers import assert_close, randn, sampler_noises
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu.diffusion import samplers as jsamp
 from landiff_tpu_torch import config as tcfg

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from _torch_port_helpers import assert_close, stage2_params
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu.models import semantic_cond as jsc
 from landiff_tpu_torch import config as tcfg

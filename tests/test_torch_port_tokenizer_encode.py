@@ -23,6 +23,7 @@ import torch
 
 from _torch_port_helpers import (assert_close, fast_jit, randn,
                                  to_jax_layout)
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu.models import semantic_cond as jsc
 from landiff_tpu.models import theia as jtheia

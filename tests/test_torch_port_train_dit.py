@@ -30,6 +30,7 @@ import torch
 
 from _torch_port_helpers import (assert_close, dit_loss_draws, fast_jit,
                                  randn, train_dit_params)
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu.training import diffusion_loss as jdl
 from landiff_tpu.training import sr as jsr

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from _torch_port_helpers import randn
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu.data import loader as jloader
 from landiff_tpu.training import eval_log as jeval
 from landiff_tpu.training import train as jtrain

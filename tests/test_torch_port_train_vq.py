@@ -22,6 +22,7 @@ import torch
 
 from _torch_port_helpers import (assert_close, fast_compiles, fast_jit,
                                  randn, to_jax_layout)
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu.training import ema as jema
 from landiff_tpu.training import train as jtrain

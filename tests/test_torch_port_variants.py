@@ -18,6 +18,7 @@ import torch
 
 from _torch_port_helpers import (assert_close, randn, stage1_params,
                                  to_jax_layout)
+from _torch_port_helpers import fast_jax_compiles  # noqa: F401 (autouse)
 from landiff_tpu import config as jcfg
 from landiff_tpu.models import dit as jdit
 from landiff_tpu.models import lm as jlm
