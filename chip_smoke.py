@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (landiff_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py              # 4 denoise steps per request
+    python3 chip_smoke.py              # 2 denoise steps per request
     python3 chip_smoke.py --steps 50   # the released sampler's 50 steps
     python3 chip_smoke.py --only flash_bwd   # build, then that kernel's
                                              # cases alone (flash_fwd:
@@ -18,6 +18,7 @@
     python3 chip_smoke.py --only variants    # the pipeline, then 5b and
                                              # 5c (seeded codes)
     python3 chip_smoke.py --only serving     # the pipeline, then 8h
+    python3 chip_smoke.py --only tp          # the pipeline, then 8i
 
 Phases, in order; any failure exits nonzero before the last line:
   1. device:  the card's name and power limit; TF32 off for matmuls and
@@ -84,8 +85,10 @@ Phases, in order; any failure exits nonzero before the last line:
               with LANDIFF_FUSED_ADALN=1 for two prompts: 1,218 valid
               codes, the video's shape and range, 90 * steps adaLN
               launches and 12 + 45 * steps int8 launches per request;
-              then stage 1 alone: a repeated (prompt, seed) gives the same
-              codes, another seed others; one infer_batch of both prompts
+              then stage 1 alone (one semantic frame, the first GPT_CUT
+              GPT blocks): a repeated (prompt, seed) gives the
+              same codes, another seed others; one infer_batch of both
+              prompts
               gives valid codes (its agreement with the single calls in
               bf16 is printed), and at the tiny config in f32 it gives
               exactly the codes of the single calls.
@@ -118,16 +121,21 @@ Phases, in order; any failure exits nonzero before the last line:
               LANDIFF_ATTN_INT8_PV=1, set for this phase only): wrappers
               built from the resident parameters (W8A8 main and control
               DiTs, int8 GPT block linears), one prompt -> codes -> video
-              at 50 steps: 1,218 valid codes, the video's shape and range,
-              28 model calls (22 with two rows, 6 with one), 45 * 28 + 12
-              int8_pv launches and no other forward.
+              at FAST_STEPS (26, not the release's 50): 1,218 valid codes, the
+              video's shape and range, the model calls the sampler's reuse
+              and window schedules give (16: 14 with two rows, 2 with
+              one), 45 per call + 12 int8_pv launches and no other
+              forward.
   8c. long video: a two-segment request (num_frames 26) through
-              infer_video.generate: 2 x 1,218 codes, 19 latent frames, 73
+              infer_video.generate, stage 1 on the first GPT_CUT (6) GPT
+              blocks: 2 x 1,218 codes, 19 latent frames, 73
               frames at 480 x 720, finite, in [0, 1]; seconds per phase and
               per segment; 2 * (12 + 45 * steps) int8 launches.
   8h. serving: the serving engine (serving/scheduler.py) over the
-              resident wrappers, no rebuild, behind serving/app.py's
-              handler on a ThreadingHTTPServer at 127.0.0.1:0: three
+              resident wrappers, no rebuild, stage 1 on the first GPT_CUT
+              GPT blocks (its one-request reading too), behind
+              serving/app.py's handler on a ThreadingHTTPServer at
+              127.0.0.1:0: three
               concurrent POST /generate with different prompts: one
               stage-1 batch of 3 (/stats), HTTP 200 with a 49-frame
               720 x 480 GIF each, 1,218 valid codes and a video as in 5
@@ -145,6 +153,21 @@ Phases, in order; any failure exits nonzero before the last line:
               kernel's 45 device events. Seconds (stage 1 of the batch
               against phase 5's warm request, stage 2, end to end) and
               peak memory beside nvidia-smi's line.
+  8i. tp:     tensor-parallel inference with the ranks as processes
+              sharing the card (device exchange buffers, gloo barriers:
+              times are readings of that layout, not speed): model=2 at full
+              width (15 heads a rank) built from the resident trees after
+              they go to host memory: one model call against the
+              unsharded one (corr > 0.999, mean relative drift < 0.03),
+              45 int8 launches and 90 all-reduces a rank, each rank's
+              parameter bytes equal to parallel.plan's; one whole request
+              at 2 denoise steps (1,218 codes equal on every rank, a
+              video as in 5, 102 int8 launches a rank; its first code
+              apart from phase 5's first request printed); model=4 at 2 +
+              1 layers, heads padded to 32, bf16 and W8A8 calls against
+              the unsharded ones; the int8 forward at 15 heads and at 8
+              with 2 padded ones against its plain version, the padded
+              heads exactly 0 (phase_tp).
   8f. tokenize: the pipelines are freed; video -> codes at full width
               (vq.encode_to_index: Theia 12 x 768, TiTok 12 x 768, VQ
               2,048 x 16) on a seeded 13-frame 480 x 720 clip, first and
@@ -210,6 +233,7 @@ Then one JSON line with every kernel's numbers, and the last line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1546,7 +1570,7 @@ def check_codes(codes, cfg, what):
 def phase_video(cfg, llm, dif, steps):
     """prompt -> codes -> video through infer_video.generate with the
     fused adaLN knob set; then stage 1 alone for repeatability and the
-    batched decode."""
+    batched decode, at one frame on the first GPT_CUT GPT blocks."""
     import torch
 
     from landiff_tpu_torch.models import lm
@@ -1600,24 +1624,41 @@ def phase_video(cfg, llm, dif, steps):
                     "peak_gpu_mem_gb": torch.cuda.max_memory_allocated()
                     / 1e9}))
 
-    # stage 1 alone: repeat, another seed, one batched decode
+    # stage 1 alone, at one semantic frame (the I-frame's draws, a quarter
+    # of a video's) and on the first GPT_CUT blocks: the repeat, the seed
+    # and the batch need no more, and the script's time limit does: a
+    # repeat, another seed, one batched decode
     (pa, sa), (pb, sb) = requests
     task = lambda p: llm_infer.CodeTask("x.npy", p)
-    llm.sample_cfg = dataclasses.replace(llm.sample_cfg, seed=sa)
-    again = llm(task(pa)).result
-    check(np.array_equal(again, codes[0]),
-          "a repeated (prompt, seed) gave other codes")
-    single_b = llm(task(pb)).result              # prompt b under seed a
-    check_codes(single_b, cfg, "prompt b, seed a")
-    check(not np.array_equal(single_b, codes[1]),
-          "another seed gave the same codes")
-    t0 = time.perf_counter()
-    batch = llm.infer_batch([task(pa), task(pb)])
-    batch_s = time.perf_counter() - t0
+    saved = dataclasses.replace(llm.sample_cfg, seed=sa)
+    short_steps = lm.video_frames_to_code_len(cfg.llm, 1)
+
+    def short(seed, prompt):
+        llm.sample_cfg = dataclasses.replace(saved, seed=seed, num_frames=1)
+        got = llm(task(prompt)).result
+        check(len(got) == short_steps - 2 and got.min() >= 0
+              and got.max() < cfg.llm.codebook_size
+              and len(np.unique(got)) > 1,
+              f"one-frame codes of {prompt!r}, seed {seed}: {got}")
+        return got
+
+    with gpt_depth(llm, GPT_CUT):
+        try:
+            first = short(sa, pa)
+            check(np.array_equal(short(sa, pa), first),
+                  "a repeated (prompt, seed) gave other codes")
+            single_b = short(sa, pb)             # prompt b under seed a
+            check(not np.array_equal(short(sb, pa), first),
+                  "another seed gave the same codes")
+            llm.sample_cfg = dataclasses.replace(saved, num_frames=1)
+            t0 = time.perf_counter()
+            batch = llm.infer_batch([task(pa), task(pb)])
+            batch_s = time.perf_counter() - t0
+        finally:
+            llm.sample_cfg = saved
     agree = []
-    for got, want, name in ((batch[0].result, codes[0], "a"),
-                            (batch[1].result, single_b, "b")):
-        check_codes(got, cfg, f"batched prompt {name}")
+    for got, want in ((batch[0].result, first), (batch[1].result, single_b)):
+        check(got.shape == want.shape, f"batched codes {got.shape}")
         same = got == want
         agree.append({"equal": bool(same.all()),
                       "first_difference": None if same.all()
@@ -1628,10 +1669,11 @@ def phase_video(cfg, llm, dif, steps):
     # logits carry that rounding times the guidance scale, and one flipped
     # draw changes every later token: the agreement is reported, and the
     # equality is held in f32 below.
-    log(json.dumps({"phase": "stage1_batch", "seconds": batch_s,
+    log(json.dumps({"phase": "stage1_batch", "num_frames": 1,
+                    "decode_steps": short_steps, "seconds": batch_s,
                     "phase_seconds": llm.phase_seconds,
                     "decode_steps_per_s":
-                        decode_steps / llm.phase_seconds["sample"],
+                        short_steps / llm.phase_seconds["sample"],
                     "vs_single_calls_bf16": agree}))
     return launches, codes[0], stage1_s[-1]
 
@@ -2168,10 +2210,44 @@ def phase_dit_call_f32():
     return launches
 
 
-FAST_STEPS = 50
-# per 50-step video: 28 model calls x 45 DiT layers + 12 TiTok decoder
-# layers, all on the int8 route
-FAST_PV_LAUNCHES = 45 * 28 + 12
+# the fast phase's denoise steps: 26, not the release's 50 (to keep the
+# script inside its time): the guidance window [2, 44) then
+# leaves steps 0 and 1 to the cond row alone, and reuse skips every
+# second middle step
+FAST_STEPS = 26
+
+
+def fast_rows() -> list:
+    """The batch rows of each model call of a FAST_STEPS video under
+    LANDIFF_FAST=2 (reuse every 2nd step, window [2, 44)), from the
+    sampler's own schedules."""
+    from landiff_tpu_torch.diffusion import samplers
+
+    compute = samplers.reuse_compute_schedule(FAST_STEPS, 2)
+    full = samplers.cfg_window_schedule(FAST_STEPS, 2, 44)
+    return [2 if full[i] else 1 for i in range(FAST_STEPS) if compute[i]]
+
+
+# stage 1 is bound by the host (1,476 launches a decode step), so a full
+# decode costs 35-55 s by the host; the long-video, serving and tp
+# requests decode with the first GPT_CUT of the 24 GPT blocks, to keep
+# the script inside its time limit (a depth cut: widths, schedule
+# and codes as before)
+GPT_CUT = 6
+
+
+@contextlib.contextmanager
+def gpt_depth(llm, layers):
+    """The resident stage-1 wrapper with only its first `layers` GPT
+    blocks while the block runs."""
+    gpt = llm.params["lm"]["gpt"]
+    blocks, llm_cfg = gpt["blocks"], llm.llm_cfg
+    gpt["blocks"] = blocks[:layers]
+    llm.llm_cfg = dataclasses.replace(llm_cfg, num_layers=layers)
+    try:
+        yield
+    finally:
+        gpt["blocks"], llm.llm_cfg = blocks, llm_cfg
 
 
 def phase_long_video(cfg, llm, dif, steps):
@@ -2189,8 +2265,9 @@ def phase_long_video(cfg, llm, dif, steps):
     try:
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        res = infer_video.generate(llm, dif, "a kite over a windy hill",
-                                   seed=5)
+        with gpt_depth(llm, GPT_CUT):
+            res = infer_video.generate(llm, dif, "a kite over a windy hill",
+                                       seed=5)
         launches = read_counts()
     finally:
         llm.sample_cfg = saved
@@ -2218,6 +2295,314 @@ def phase_long_video(cfg, llm, dif, steps):
         "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "video_mean": float(video.mean()), "video_std": float(video.std())}))
     return launches
+
+
+# tensor parallelism on one card: ranks share the device (gloo barriers,
+# device exchange buffers), so every time here is a reading of that
+# layout, not a speed; the drift limits are the W8A8 gate's
+# (diffusion/drift.GATES)
+TP_LIMITS = {"corr": 0.999, "rel": 0.03}
+TP_PROMPT = ("a corgi running along a beach at sunset", 1)   # phase 5's first
+
+
+def _to_host(tree):
+    """Every tensor of a tree of dicts and lists to (pageable) host
+    memory, in place."""
+    for k, v in (tree.items() if isinstance(tree, dict)
+                 else enumerate(tree)):
+        if isinstance(v, (dict, list)):
+            _to_host(v)
+        elif hasattr(v, "is_cuda") and v.is_cuda:
+            tree[k] = v.cpu()
+
+
+def _tp_drift(ref, got, what):
+    from landiff_tpu_torch.diffusion import drift
+
+    d = drift.drift(ref.float().cpu().numpy(), got.float().cpu().numpy())
+    check(bool(np.isfinite(d["corr"])) and d["corr"] > TP_LIMITS["corr"]
+          and d["rel"] < TP_LIMITS["rel"],
+          f"{what}: drift {d} outside {TP_LIMITS}")
+    return d
+
+
+def _tp_call(mesh, key, dit_cfg, x, ts, ctx, sem):
+    """One sharded CFG-batch-2 model call: (output, seconds, per-rank
+    reports of that call)."""
+    import torch
+
+    from landiff_tpu_torch.parallel import tp_infer
+
+    mesh.run(tp_infer.rank_report, True)
+    t0 = time.perf_counter()
+    out = mesh.run(tp_infer.model_call, key, x, ts, ctx, sem, dit_cfg,
+                   torch.bfloat16)[0]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, seconds, mesh.run(tp_infer.rank_report, True)
+
+
+def _check_tp_ranks(reports, layers, what):
+    for rep in reports:
+        n = rep["launches"]
+        check(n["flash_fwd_int8"] == layers,
+              f"{what}: rank {rep['rank']} int8 launches "
+              f"{n['flash_fwd_int8']}, want {layers}")
+        check(sum(n.values()) == layers,
+              f"{what}: rank {rep['rank']} ran other flash kernels {n}")
+        check(rep["collectives"]["all_reduce"] == 2 * layers,
+              f"{what}: rank {rep['rank']} all-reduces "
+              f"{rep['collectives']}, want {2 * layers}")
+
+
+def _padded_head_case(H, pads, seed):
+    """The int8 forward at a tensor-parallel rank's head count against its
+    plain version; the last `pads` heads as zero-padded ones arrive
+    (q, k the qk-LN bias, v zero): their output must be exactly 0."""
+    import torch
+
+    from landiff_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (2, 17776, H, 64)
+    q = (torch.randn(shape, generator=g, device="cuda") * 1.5).bfloat16()
+    k = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    v = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    if pads:
+        bias = (torch.randn(64, generator=g, device="cuda") * 0.1).bfloat16()
+        q[:, :, H - pads:] = bias
+        k[:, :, H - pads:] = bias
+        v[:, :, H - pads:] = 0
+    out, _ = A.flash_fwd_int8(q, k, v)
+    ref, _ = A.flash_int8_plain(q, k, v)
+    steps, rel_rms = A.kernel_error(out, ref)
+    lim = A.variant_limits(ref, v, int8_pv=False, exp_bf16=False,
+                           tol_steps=KERNEL_TOL_STEPS,
+                           tol_rms=KERNEL_TOL_RMS, lse_tol=LSE_TOL)
+    err = (out.float() - ref.float()).abs().max().item()
+    pad_max = out[:, :, H - pads:].float().abs().max().item() if pads else 0.0
+    check(bool(torch.isfinite(out.float()).all()), f"H={H}: not finite")
+    check(err <= lim["max_abs"] and rel_rms <= lim["rel_rms"],
+          f"H={H}: int8 forward {err} / {rel_rms} off its plain version")
+    check(pad_max == 0.0, f"H={H}: padded heads give {pad_max}, not 0")
+    return {"H": H, "padded_heads": pads, "max_abs_err": err,
+            "rel_rms_err": rel_rms, "max_bf16_steps": steps,
+            "padded_heads_max_abs": pad_max}
+
+
+def phase_tp(cfg, llm, dif):
+    """Tensor-parallel inference on the one card (ROADMAP item 15a): ranks
+    as processes sharing cuda:0, exchanging through device buffers with
+    gloo barriers on the host (parallel/mesh.Group).
+
+    (a) make_mesh(model=2) at full width: the resident unsharded
+    references first (one CFG-batch-2 model call; the codes of phase 5's
+    first request with stage 1 cut to its first GPT_CUT blocks), then the
+    mesh wrappers shard both stages from the resident trees (15 of 30
+    heads a rank; the GPT's blocks cut so), which are dropped as their
+    shards land. One sharded model call against the unsharded
+    one (drift limits TP_LIMITS); each rank: 45 int8 flash launches, 90
+    all-reduces, its parameter bytes equal to parallel.plan's, its peak
+    memory. Then one whole request through infer_video.generate at 2
+    denoise steps: 1,218 codes in range (the stage-1 wrapper checks that
+    every rank drew the same), a finite (1, 3, 49, 480, 720) video in
+    [0, 1], 12 + 45 x 2 int8 launches a rank; the first code that differs
+    from the unsharded request is printed, not held.
+    (b) make_mesh(model=4) at full width, depth cut to 2 + 1 DiT layers:
+    heads padded 30 -> 32 (8 a rank), one sharded call in bf16 and one
+    under W8A8 (after the prep) against the unsharded bf16 / W8A8 calls;
+    3 launches and 6 all-reduces a rank; the DiT bytes against plan.
+    Then the int8 forward itself at 15 heads and at 8 with 2 padded ones
+    against its plain version, the padded heads' output exactly 0.
+    The resident llm / dif wrappers are left without their trees."""
+    import gc
+
+    import torch
+
+    from landiff_tpu_torch.config import MeshConfig
+    from landiff_tpu_torch.models import dit
+    from landiff_tpu_torch.parallel import mesh as mesh_lib
+    from landiff_tpu_torch.parallel import plan as plan_lib
+    from landiff_tpu_torch.parallel import tp_infer
+    from landiff_tpu_torch.pipeline import dif_infer, infer_video, llm_infer
+    from landiff_tpu_torch.utils import fill_zero_leaves
+
+    t_phase = time.perf_counter()
+    d = cfg.dit
+    prompt, seed = TP_PROMPT
+    x, sem, ctx = _dit_call_inputs(cfg, 13)
+    ts = torch.tensor([500.0, 500.0], device="cuda")
+    with torch.inference_mode():
+        ref = dit.control_warp_forward(dif.params["main"],
+                                       dif.params["control"], x, ts, ctx, d,
+                                       sem)
+    # stage 1 at GPT_CUT of its 24 blocks from here on (llm is not used
+    # after this phase): the unsharded request's codes at that depth
+    gpt = llm.params["lm"]["gpt"]
+    gpt["blocks"] = gpt["blocks"][:GPT_CUT]
+    llm.llm_cfg = dataclasses.replace(llm.llm_cfg, num_layers=GPT_CUT)
+    sample_cfg = dataclasses.replace(llm.sample_cfg, seed=seed)
+    llm.sample_cfg = sample_cfg
+    ref_codes = llm(llm_infer.CodeTask("x.npy", prompt)).result
+    # the objects of the earlier phases out of the collector's scans: rank
+    # 0 paces every rank, twice per GPT block a decode step
+    gc.collect()
+    gc.freeze()
+    # the card cannot hold the resident stages and every rank's shards at
+    # once: the stage-2 T5 (19 GB in f32) waits in host memory, and each
+    # stage's resident trees are dropped once the mesh holds its shards
+    # (the wrappers llm / dif are not used after this phase)
+    t0 = time.perf_counter()
+    _to_host(dif.params["t5"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    to_host_s = time.perf_counter() - t0
+    # plan's per-rank bytes of the trees the wrappers shard: the DiT
+    # shards are bf16, as plan() counts them; the T5s and the lm keep the
+    # dtypes of the trees they are cut from
+    mcfg = MeshConfig(model=2)
+    bf16 = plan_lib.plan(mcfg, cfg)["components"]
+    want = {("stage2", "main"): bf16["dit_main"]["per_chip_bytes"],
+            ("stage2", "control"): bf16["dit_control"]["per_chip_bytes"]}
+    for (stage, c), tree in ((("stage2", "t5"), dif.params["t5"]),
+                             (("stage1", "lm"), llm.params["lm"]),
+                             (("stage1", "t5"), llm.params["t5"])):
+        want[(stage, c)] = plan_lib.component_bytes(c, tree, cfg, mcfg)[1]
+
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_mesh(mcfg, devices=["cuda:0"] * 2)
+    out = {"phase": "tp", "mesh": "model=2", "backend": mesh.backend,
+           "layout": "2 ranks (processes) sharing cuda:0; device "
+                     "exchange buffers, gloo barriers; times are not "
+                     "speed readings",
+           "device_total_memory": torch.cuda.get_device_properties(0)
+           .total_memory, "t5_to_host_s": to_host_s}
+    try:
+        tp_llm = llm_infer.ArModelInferWrapper(
+            llm.params, llm.llm_cfg, cfg.t5, sample_cfg,
+            compute_dtype=torch.bfloat16, mesh=mesh, device="cuda")
+        llm.params = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg2 = dataclasses.replace(cfg, sampler=dataclasses.replace(
+            cfg.sampler, num_steps=2))
+        tp_dif = dif_infer.CogModelInferWrapper(
+            dif.params, cfg2, compute_dtype=torch.bfloat16, mesh=mesh,
+            device="cuda")
+        dif.params = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        got, call_s, reports = _tp_call(mesh, tp_dif.key, d, x, ts, ctx,
+                                        sem)
+        _check_tp_ranks(reports, d.num_layers + d.control_layers,
+                        "model=2 call")
+        out["model_call"] = {"seconds": call_s,
+                             "drift": _tp_drift(ref, got, "model=2 call")}
+        keys = {"stage1": tp_llm.key, "stage2": tp_dif.key}
+        out["ranks"] = []
+        for rep in reports:
+            held = {f"{s}/{c}": rep["param_bytes"][keys[s]][c]
+                    for s, c in want}
+            for (s, c), n in want.items():
+                check(held[f"{s}/{c}"] == n,
+                      f"rank {rep['rank']} holds {held[f'{s}/{c}']} bytes "
+                      f"of {s}/{c}, plan says {n}")
+            out["ranks"].append({
+                "rank": rep["rank"], "launches": rep["launches"],
+                "collectives": rep["collectives"], "param_bytes": held,
+                "semantic_bytes": rep["param_bytes"][keys["stage2"]][
+                    "semantic"],
+                "max_memory_allocated": rep["max_memory_allocated"]})
+        out["plan_bytes"] = {f"{s}/{c}": n for (s, c), n in want.items()}
+        log(json.dumps(out))
+
+        t0 = time.perf_counter()
+        res = infer_video.generate(tp_llm, tp_dif, prompt, seed=seed)
+        out["request_s"] = time.perf_counter() - t0
+        reports = mesh.run(tp_infer.rank_report, True)
+        check_codes(res["codes"], cfg, "tp request")
+        check_video(res["video"], res["latent"])
+        for rep in reports:
+            n = rep["launches"]["flash_fwd_int8"]
+            check(n == 12 + 45 * 2,
+                  f"tp request: rank {rep['rank']} int8 launches {n}")
+        same = res["codes"] == ref_codes
+        out["request"] = {
+            "stage1_s": res["stage1_s"], "stage2_s": res["stage2_s"],
+            "stage1_phase_seconds": tp_llm.phase_seconds,
+            "stage2_phase_seconds": res["stage2_phases"],
+            "ranks_codes_equal": True,
+            "vs_unsharded_codes": {
+                "equal": bool(same.all()),
+                "first_difference": None if same.all()
+                else int(np.argmin(same)), "share_equal": float(same.mean())},
+            "launches_per_rank": [r["launches"] for r in reports],
+            "collectives_per_rank": [r["collectives"] for r in reports],
+            "max_memory_allocated": [r["max_memory_allocated"]
+                                     for r in reports],
+            "video_mean": float(res["video"].mean()),
+            "video_std": float(res["video"].std())}
+    finally:
+        mesh.close()
+        gc.unfreeze()
+    tp_launches = [r["launches"]["flash_fwd_int8"] for r in out["ranks"]]
+    del tp_llm, tp_dif, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps(out))
+
+    # (b) model=4, heads padded 30 -> 32, depth cut
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(d, num_layers=2, control_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    params = fill_zero_leaves({"main": dit.init(gen, cut),
+                               "control": dit.init(gen, cut, control=True)},
+                              gen)
+    with torch.inference_mode():
+        refs = {False: dit.control_warp_forward(
+            params["main"], params["control"], x, ts, ctx, cut, sem),
+            True: dit.control_warp_forward(
+                dit.quantize_int8(params["main"]),
+                dit.quantize_int8(params["control"]), x, ts, ctx, cut, sem)}
+    mesh = mesh_lib.make_mesh(MeshConfig(model=4), devices=["cuda:0"] * 4)
+    out = {"phase": "tp", "mesh": "model=4", "backend": mesh.backend,
+           "depth": "2 + 1 DiT layers", "heads_per_rank": 8}
+    try:
+        plan4 = plan_lib.plan(mesh.cfg, dataclasses.replace(cfg, dit=cut))
+        for int8 in (False, True):
+            key = f"tp4/{'w8a8' if int8 else 'bf16'}"
+            for k in ("main", "control"):
+                mesh_lib.load(mesh, key, k, tp_infer.dit_shards(
+                    params[k], cut, mesh.cfg, mesh.devices, int8=int8,
+                    dtype=torch.bfloat16))
+            got, call_s, reports = _tp_call(mesh, key, cut, x, ts, ctx, sem)
+            _check_tp_ranks(reports, 3, f"model=4 {key}")
+            entry = {"seconds": call_s,
+                     "drift": _tp_drift(refs[int8], got, f"model=4 {key}"),
+                     "max_memory_allocated": [r["max_memory_allocated"]
+                                              for r in reports]}
+            if not int8:
+                for rep in reports:
+                    for c, name in (("main", "dit_main"),
+                                    ("control", "dit_control")):
+                        n = plan4["components"][name]["per_chip_bytes"]
+                        check(rep["param_bytes"][key][c] == n,
+                              f"model=4 rank {rep['rank']} {c} bytes "
+                              f"{rep['param_bytes'][key][c]}, plan {n}")
+                entry["param_bytes_per_rank"] = {
+                    c: reports[0]["param_bytes"][key][c]
+                    for c in ("main", "control")}
+            out[key] = entry
+    finally:
+        mesh.close()
+    out["kernel_at_tp_heads"] = [_padded_head_case(15, 0, 31),
+                                 _padded_head_case(8, 2, 32)]
+    out["seconds"] = time.perf_counter() - t0
+    log(json.dumps(out))
+    log(json.dumps({"phase": "tp", "seconds": time.perf_counter() - t_phase}))
+    return tp_launches
 
 
 SERVING_PROMPTS = (("a lighthouse in a storm at night", 11),
@@ -2264,7 +2649,7 @@ def phase_serving(cfg, llm, dif, steps, stage1_one_s=None):
     t_phase = time.perf_counter()
     per_request = 12 + 45 * steps
     gb = lambda n: n / 1e9
-    if stage1_one_s is None:          # --only serving: one single request
+    if stage1_one_s is None:      # one single request at the same depth
         t0 = time.perf_counter()
         llm(llm_infer.CodeTask("one.npy", SERVING_PROMPTS[0][0]))
         stage1_one_s = time.perf_counter() - t0
@@ -2926,7 +3311,7 @@ def phase_fast(cfg, llm, dif):
     and LANDIFF_ATTN_INT8_PV=1, set for this phase only. The wrappers are
     built by their constructors from the resident parameters (they
     quantize: the f32 main and control DiTs, the bf16 GPT blocks), and one
-    prompt goes to a video through infer_video.generate at the released 50
+    prompt goes to a video through infer_video.generate at FAST_STEPS
     steps. The model calls are counted by their batch rows."""
     import torch
 
@@ -2976,10 +3361,11 @@ def phase_fast(cfg, llm, dif):
             dit_lib.control_warp_forward = orig
     check_codes(res["codes"], cfg, "fast")
     check_video(res["video"])
-    check(len(rows) == 28 and rows.count(2) == 22 and rows.count(1) == 6,
-          f"fast path model calls by rows {rows}")
+    check(rows == fast_rows(), f"fast path model calls by rows {rows}, "
+          f"want {fast_rows()}")
     want = {k: 0 for k in launches}
-    want["flash_fwd_int8_pv"] = FAST_PV_LAUNCHES
+    # 45 DiT layers a model call + 12 TiTok decoder layers, all int8_pv
+    want["flash_fwd_int8_pv"] = 45 * len(rows) + 12
     check(launches == want, f"fast launches {launches}, want {want}")
     decode_steps = lm.video_frames_to_code_len(cfg.llm,
                                                fllm.sample_cfg.num_frames)
@@ -3506,12 +3892,12 @@ def bwd_entry(bwd, launches):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, default=4,
+    ap.add_argument("--steps", type=int, default=2,
                     help="denoise steps per request (the release uses 50)")
     ap.add_argument("--only", choices=("flash_fwd", "flash_bwd", "f32",
                                        "stage1_batch", "long_video", "ckpt",
                                        "train", "tokenizer", "variants",
-                                       "serving"),
+                                       "serving", "tp"),
                     help="build, then only this kernel's cases at the "
                          "main-path shapes, or only the batched decoding "
                          "check at full width (no pipeline, no last "
@@ -3570,7 +3956,12 @@ def main():
         return
     if args.only == "serving":
         cfg, llm, dif = build_full(args.steps)
-        phase_serving(cfg, llm, dif, args.steps)
+        with gpt_depth(llm, GPT_CUT):
+            phase_serving(cfg, llm, dif, args.steps)
+        return
+    if args.only == "tp":
+        cfg, llm, dif = build_full(args.steps)
+        phase_tp(cfg, llm, dif)
         return
     if args.only in ("ckpt", "train"):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3621,7 +4012,7 @@ def main():
     enc = phase_encoder_mask(rates)
     # 4. the pipeline; 5. prompt -> codes -> video; 6. stage 2 alone
     cfg, llm, dif = build_full(args.steps)
-    video_launches, video_codes, stage1_one_s = phase_video(
+    video_launches, video_codes, _ = phase_video(
         cfg, llm, dif, args.steps)
     # 5b. Rotary3D model calls; 5c. the other samplers from those codes
     rotary_launches = phase_rotary3d(cfg, dif.params)
@@ -3641,8 +4032,11 @@ def main():
     fast_launches = phase_fast(cfg, llm, dif)
     phase_long_video(cfg, llm, dif, args.steps)
     # 8h. the serving engine and its HTTP server, the offload, the trace
-    serving_launches = phase_serving(cfg, llm, dif, args.steps,
-                                     stage1_one_s)
+    with gpt_depth(llm, GPT_CUT):
+        serving_launches = phase_serving(cfg, llm, dif, args.steps)
+    # 8i. tensor-parallel inference, ranks sharing the card (their trees
+    # leave the card: llm / dif are not used after this)
+    tp_launches = phase_tp(cfg, llm, dif)
     del llm, dif
     gc.collect()
     torch.cuda.empty_cache()
@@ -3752,6 +4146,8 @@ def main():
         prefix_launches["flash_fwd_int8"]
     by_name["flash_fwd_int8"]["launches_serving"] = \
         serving_launches["flash_fwd_int8"]
+    by_name["flash_fwd_int8"]["launches_tp_model_call_per_rank"] = \
+        tp_launches
     by_name["flash_fwd_int8"]["launches_rotary3d_call"] = \
         rotary_launches["flash_fwd_int8"]
     by_name["flash_fwd_int8"]["launches_samplers"] = {

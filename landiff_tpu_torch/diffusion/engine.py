@@ -41,7 +41,7 @@ def make_denoise_fn(main_params, control_params, sem_params,
                     dit_cfg: DiTConfig, sampler_cfg: SamplerConfig,
                     tok_cfg: TokenizerConfig, sem_cfg: SemanticCondConfig,
                     context, uc_context, semantic_tokens, *,
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16, net=None):
     """The per-step denoise closure.
 
     context / uc_context: (B, 226, 4096); semantic_tokens: (B, L). Returns
@@ -49,13 +49,15 @@ def make_denoise_fn(main_params, control_params, sem_params,
     DynamicCFG combination (engine.py:99-123), with its twin
     denoise_fn.cond_only(x, step): the cond row alone, batch B, no CFG
     combination (engine.py:125-145), for steps outside a guidance
-    window."""
+    window. net: the network call net(x2, ts, ctx2, sem2) -> output in
+    place of control_warp_forward on the parameters (the tensor-parallel
+    one, parallel/tp_infer.py); the closure then has no cond_only twin."""
     sem = sc_lib.semantic_feature_from_tokens(
         sem_params, semantic_tokens, tok_cfg, sem_cfg,
         forward_t=dit_cfg.latent_frames, compute_dtype=compute_dtype)
     ctx2 = torch.cat([uc_context, context], dim=0)          # [uc, c]
     return _denoise_closure(main_params, control_params, dit_cfg,
-                            sampler_cfg, ctx2, sem, compute_dtype)
+                            sampler_cfg, ctx2, sem, compute_dtype, net)
 
 
 def update_bundle_tokens(denoise_fn, sem_params, semantic_tokens,
@@ -64,17 +66,19 @@ def update_bundle_tokens(denoise_fn, sem_params, semantic_tokens,
                          compute_dtype=torch.bfloat16):
     """The denoise closure of the next long-video segment (engine.py:73):
     only the semantic feature is computed again, from that segment's
-    tokens; parameters, text context and schedule tables are shared."""
-    main_params, control_params, sampler_cfg, ctx2 = denoise_fn.shared
+    tokens; parameters, text context, schedule tables and the network
+    (a tensor-parallel one too: JAX's update_tp_bundle) are shared."""
+    main_params, control_params, sampler_cfg, ctx2, net = denoise_fn.shared
     sem = sc_lib.semantic_feature_from_tokens(
         sem_params, semantic_tokens, tok_cfg, sem_cfg,
         forward_t=dit_cfg.latent_frames, compute_dtype=compute_dtype)
     return _denoise_closure(main_params, control_params, dit_cfg,
-                            sampler_cfg, ctx2, sem, compute_dtype)
+                            sampler_cfg, ctx2, sem, compute_dtype, net)
 
 
 def _denoise_closure(main_params, control_params, dit_cfg: DiTConfig,
-                     sampler_cfg: SamplerConfig, ctx2, sem, compute_dtype):
+                     sampler_cfg: SamplerConfig, ctx2, sem, compute_dtype,
+                     net=None):
     q_alpha = denoiser_quantized_alphas(sampler_cfg).astype(np.float32)
     alpha_table = schedule.sampler_tables(sampler_cfg)["alpha"].astype(
         np.float32)
@@ -87,15 +91,18 @@ def _denoise_closure(main_params, control_params, dit_cfg: DiTConfig,
         alpha = q_alpha[np.argmin(np.abs(a - alpha_table))]
         return float(alpha), float(-np.sqrt(np.float32(1.0) - alpha * alpha))
 
+    def whole_net(x2, ts, c2, s2):
+        return dit_lib.control_warp_forward(
+            main_params, control_params, x2, ts, c2, dit_cfg, s2,
+            compute_dtype=compute_dtype)
+
     def denoise_fn(x, step):
         B = x.shape[0]
         c_skip, c_out = scalings(step)
         x2 = torch.cat([x, x], dim=0)
         ts = torch.full((2 * B,), float(step["timestep"]),
                         dtype=torch.float32, device=x.device)
-        net_out = dit_lib.control_warp_forward(
-            main_params, control_params, x2.to(compute_dtype), ts, ctx2,
-            dit_cfg, sem2, compute_dtype=compute_dtype)
+        net_out = (net or whole_net)(x2.to(compute_dtype), ts, ctx2, sem2)
         denoised = net_out.float() * c_out + x2.float() * c_skip
         x_u, x_c = denoised[:B], denoised[B:]
         return x_u + step["cfg_scale"] * (x_c - x_u)
@@ -105,13 +112,12 @@ def _denoise_closure(main_params, control_params, dit_cfg: DiTConfig,
         c_skip, c_out = scalings(step)
         ts = torch.full((B,), float(step["timestep"]), dtype=torch.float32,
                         device=x.device)
-        net_out = dit_lib.control_warp_forward(
-            main_params, control_params, x.to(compute_dtype), ts,
-            ctx2[B:], dit_cfg, sem, compute_dtype=compute_dtype)
+        net_out = whole_net(x.to(compute_dtype), ts, ctx2[B:], sem)
         return net_out.float() * c_out + x.float() * c_skip
 
-    denoise_fn.cond_only = cond_only
-    denoise_fn.shared = (main_params, control_params, sampler_cfg, ctx2)
+    if net is None:
+        denoise_fn.cond_only = cond_only
+    denoise_fn.shared = (main_params, control_params, sampler_cfg, ctx2, net)
     return denoise_fn
 
 

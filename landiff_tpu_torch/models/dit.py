@@ -22,8 +22,10 @@ multiplies in int8 (LANDIFF_DIT_INT8, pipeline/dif_infer.py). With
 LANDIFF_REMAT_SAVE_ATTN=1 the layer checkpoint keeps the flash out / lse
 (`_remat_policy`). `pos_embed="rotary3d"` rotates q / k (and v with
 `rot_v`) after qk-LN and adds no sincos table. `control_mlp_adapter_
-forward` is the lighter control alternative. Not ported yet: the TP / SP
-variants (ROADMAP item 15).
+forward` is the lighter control alternative. `forward_tp` /
+`control_warp_forward_tp` run the Megatron tensor-parallel layers on one
+rank's heads (parallel/tp_infer.py); the sequence-parallel variants are
+ROADMAP item 15b.
 """
 
 from __future__ import annotations
@@ -405,6 +407,119 @@ def control_warp_forward(main_params, control_params, x, timesteps, context,
     return forward(main_params, x, timesteps, context, cfg,
                    control_outputs=ctrl, attn_impl=attn_impl,
                    compute_dtype=compute_dtype, remat=remat)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel forwards (dit.py:303-380, :592-655): run on every rank of
+# a `model` group with the rank's part of the tp-prepped layers
+# (parallel/tp_infer.prep_dit_tp); `group` is that mesh.Group
+
+
+def _layer_tp(p, x, emb, cfg: DiTConfig, attn_impl, group, sp_axis=None):
+    """Megatron variant of `_layer` on this rank's heads: qkv_w (D, 3,
+    H_local, Dk) column-parallel, attn_out_w (H_local, Dk, D)
+    row-parallel, mlp0 column- and mlp1 row-parallel; the hidden stream x
+    is whole on every rank. Exactly two all-reduces, after attn-out and
+    after mlp1, each followed by its bias, added once. qk-LN and Rotary3D
+    act per head; a zero-padded head (tp_infer.pad_heads) has v = 0 and
+    adds exactly nothing. As JAX's `_layer_tp`, LayerNorm and modulate
+    stay unfused: LANDIFF_FUSED_ADALN is not read. W8A8 leaves ({q, s},
+    tp_infer.quantize_layer_tp) take per-token scales of this rank's
+    features; the per-output scale of a row-parallel product applies
+    before the all-reduce, as JAX's. sp_axis (tokens over `time`) is
+    ROADMAP item 15b."""
+    if sp_axis is not None:
+        raise NotImplementedError(
+            "sequence parallelism is not ported yet: ROADMAP item 15b")
+    B, S, D = x.shape
+    tl = cfg.text_length
+    dt = x.dtype
+    w = p["qkv_w"]
+    _, _, Hl, Dk = (w["q"] if isinstance(w, dict) else w).shape
+    mods = _linear(p, "adaln", F.silu(emb.to(dt))).chunk(12, dim=-1)
+    is_text = (torch.arange(S, device=x.device) < tl)[None, :, None]
+
+    def sel(i):
+        return torch.where(is_text, mods[6 + i][:, None], mods[i][:, None])
+
+    h = layer_norm(x, p["ln1_w"], p["ln1_b"], 1e-6)
+    h = h * (1.0 + sel(1)) + sel(0)
+    if isinstance(w, dict):
+        qkv = _w8a8_matmul(h, w["q"].reshape(D, 3 * Hl * Dk),
+                           w["s"].reshape(-1))
+    else:
+        qkv = h @ w.reshape(D, 3 * Hl * Dk).to(dt)
+    qkv = (qkv + p["qkv_b"].reshape(-1).to(dt)).reshape(B, S, 3, Hl, Dk)
+    q, k, v = qkv.unbind(2)
+    v = v.contiguous()
+    if cfg.qk_ln:
+        q = layer_norm(q, p["q_ln_w"], p["q_ln_b"], 1e-6)
+        k = layer_norm(k, p["k_ln_w"], p["k_ln_b"], 1e-6)
+    q, k, v = _maybe_rotary(q, k, v, cfg)
+    attn = (attn_impl(q, k, v) if callable(attn_impl)
+            else attention(q, k, v, impl=attn_impl)).reshape(B, S, Hl * Dk)
+    wo = p["attn_out_w"]
+    if isinstance(wo, dict):
+        attn = _w8a8_matmul(attn, wo["q"].reshape(Hl * Dk, D), wo["s"])
+    else:
+        attn = attn @ wo.reshape(Hl * Dk, D).to(dt)
+    attn = group.all_reduce(attn) + p["attn_out_b"].to(dt)
+    x = x + sel(2) * attn
+
+    h = layer_norm(x, p["ln2_w"], p["ln2_b"], 1e-6)
+    h = h * (1.0 + sel(4)) + sel(3)
+    h = F.gelu(_linear(p, "mlp0", h), approximate="tanh")
+    w1 = p["mlp1_w"]
+    h = (_w8a8_matmul(h, w1["q"], w1["s"]) if isinstance(w1, dict)
+         else h @ w1.to(dt))
+    h = group.all_reduce(h) + p["mlp1_b"].to(dt)
+    return x + sel(5) * h
+
+
+def forward_tp(params, x, timesteps, context, cfg: DiTConfig, *, group,
+               control_outputs=None, attn_impl="auto",
+               compute_dtype=torch.bfloat16, sp_axis=None):
+    """`forward` with the tensor-parallel layers; the embeddings and the
+    final head are computed whole on every rank (small beside the
+    blocks)."""
+    h, emb = _embed_inputs(params, x, timesteps, context, cfg, compute_dtype)
+    for i, p in enumerate(params["layers"]):
+        h = _layer_tp(p, h, emb, cfg, attn_impl, group, sp_axis)
+        if control_outputs is not None and i < len(control_outputs):
+            h = h + control_outputs[i].to(h.dtype)
+    return _final_head(params, h, emb, cfg)
+
+
+def control_forward_tp(params, x, timesteps, context, cfg: DiTConfig,
+                       semantic_feature, *, group, attn_impl="auto",
+                       compute_dtype=torch.bfloat16, sp_axis=None):
+    """`control_forward` with the tensor-parallel layers; zero_linear
+    stays whole on every rank (D x D a layer, and its output joins the
+    whole main stream)."""
+    x = x.to(compute_dtype) + semantic_feature.to(compute_dtype)
+    h, emb = _embed_inputs(params, x, timesteps, context, cfg, compute_dtype)
+    outs = []
+    for p in params["layers"]:
+        h = _layer_tp(p, h, emb, cfg, attn_impl, group, sp_axis)
+        h = h @ p["zero_linear_w"].to(h.dtype)
+        outs.append(h)
+    return outs
+
+
+def control_warp_forward_tp(main_params, control_params, x, timesteps,
+                            context, cfg: DiTConfig, semantic_feature, *,
+                            group, attn_impl="auto",
+                            compute_dtype=torch.bfloat16, sp_axis=None):
+    """ControlDiffWarp.forward under tensor parallelism: 2 x (layers +
+    control layers) all-reduces."""
+    ctrl_cfg = dataclasses.replace(cfg, num_layers=cfg.control_layers)
+    ctrl = control_forward_tp(control_params, x, timesteps, context,
+                              ctrl_cfg, semantic_feature, group=group,
+                              attn_impl=attn_impl,
+                              compute_dtype=compute_dtype, sp_axis=sp_axis)
+    return forward_tp(main_params, x, timesteps, context, cfg, group=group,
+                      control_outputs=ctrl, attn_impl=attn_impl,
+                      compute_dtype=compute_dtype, sp_axis=sp_axis)
 
 
 def control_mlp_adapter_forward(params, x, context, cfg: DiTConfig, *,

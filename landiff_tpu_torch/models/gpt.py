@@ -15,6 +15,15 @@ dtype, norms accumulate in f32, the inference head runs in f32 on the last
 position. `quantize_int8` / `quantize_int4` make the weight-only
 quantized block linears of the fast decode (LANDIFF_DECODE_INT8 / _INT4,
 pipeline/llm_infer.py), which `_dot` reads.
+
+Tensor parallel at inference (`prefill` / `decode_step` with `tp=group`,
+parallel/mesh.GPT_RULES; the packed forward's is training's, ROADMAP item
+15b): a rank holds its heads of wqkv (split per head inside each of q, k
+and v: a contiguous column split would mix q and k heads), the matching
+rows of wo, its columns of w1 / w3 and rows of w2; one all-reduce after
+wo and one after w2, and the KV cache holds the rank's heads. A head that
+divides (vocab % model == 0) is split by columns and its logits gathered.
+The heads a rank holds are read off its weights.
 """
 
 from __future__ import annotations
@@ -44,8 +53,9 @@ class KVCache(NamedTuple):
 
     @classmethod
     def create(cls, cfg: LLMConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda"):
-        shape = (cfg.num_layers, batch, max_len, cfg.num_heads, cfg.head_dim)
+               dtype=torch.bfloat16, device="cuda", heads: int | None = None):
+        shape = (cfg.num_layers, batch, max_len, heads or cfg.num_heads,
+                 cfg.head_dim)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
@@ -79,12 +89,25 @@ def _dot(x, w):
 def _qkv(p, x, cfg: LLMConfig):
     B, S, _ = x.shape
     q, k, v = _dot(x, p["wqkv"]).chunk(3, dim=-1)
-    shp = (B, S, cfg.num_heads, cfg.head_dim)
+    shp = (B, S, -1, cfg.head_dim)
     return q.reshape(shp), k.reshape(shp), v.reshape(shp)
 
 
-def _mlp(p, x):
-    return _dot(gelu_tanh(_dot(x, p["w1"])) * _dot(x, p["w3"]), p["w2"])
+def _reduce(y, tp):
+    return y if tp is None else tp.all_reduce(y)
+
+
+def _mlp(p, x, tp=None):
+    return _reduce(
+        _dot(gelu_tanh(_dot(x, p["w1"])) * _dot(x, p["w3"]), p["w2"]), tp)
+
+
+def _logits(params, x, cfg: LLMConfig, tp=None):
+    """x @ head; a head split by columns gathers its logits."""
+    y = x @ params["head"].float()
+    if tp is not None and y.shape[-1] != cfg.vocab_size:
+        y = tp.all_gather(y, dim=-1)
+    return y
 
 
 def block_forward(p, x, cos, sin, cfg: LLMConfig, attn_impl="auto"):
@@ -121,12 +144,12 @@ def _bcast_rope(cos, sin):
 
 
 def block_decode(p, x, cos, sin, k_cache, v_cache, pos, cfg: LLMConfig,
-                 pad=None):
+                 pad=None, tp=None):
     """Single-token step. x: (B, 1, D); k_cache / v_cache: (B, S_max, H,
     Dk), written in place at `pos`; pos: 0-d or (1,) int64 tensor on the
     device, the index of the current token; pad: optional (B,) left-pad
     lengths (cache slots < pad[b] are masked out). Returns x."""
-    B, _, D = x.shape
+    B = x.shape[0]
     h = rms_norm(x, p["norm0"], cfg.norm_eps)
     q, k, v = _qkv(p, h, cfg)
     cos, sin = _bcast_rope(cos, sin)
@@ -146,13 +169,13 @@ def block_decode(p, x, cos, sin, k_cache, v_cache, pos, cfg: LLMConfig,
     s = torch.where(valid, s, -1e30)
     w = torch.softmax(s, dim=-1)
     attn = torch.einsum("bhqk,bkhd->bqhd", w.to(v_cache.dtype), v_cache)
-    x = x + _dot(attn.reshape(B, 1, D).to(x.dtype), p["wo"])
+    x = x + _reduce(_dot(attn.reshape(B, 1, -1).to(x.dtype), p["wo"]), tp)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    return x + _mlp(p, h)
+    return x + _mlp(p, h, tp)
 
 
 def prefill(params, features, cache: KVCache, cfg: LLMConfig, cos, sin,
-            compute_dtype=torch.bfloat16, pad=None):
+            compute_dtype=torch.bfloat16, pad=None, tp=None):
     """Run the prompt through all blocks, filling cache[:, :, :S] in place.
 
     pad: optional (B,) left-pad lengths for right-aligned batched prompts
@@ -179,16 +202,16 @@ def prefill(params, features, cache: KVCache, cfg: LLMConfig, cos, sin,
         k = apply_rope(k, cos, sin)
         # the dense reference, as the JAX prefill pins impl="xla"
         attn = mha_reference(q, k, v, mask=mask, mask_fn=mask_fn)
-        x = x + _dot(attn.reshape(x.shape), p["wo"])
+        x = x + _reduce(_dot(attn.reshape(*x.shape[:2], -1), p["wo"]), tp)
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        x = x + _mlp(p, h)
+        x = x + _mlp(p, h, tp)
         cache.k[i, :, :S] = k.to(cache.k.dtype)
         cache.v[i, :, :S] = v.to(cache.v.dtype)
-    return _head_last(params, x[:, -1:]), cache
+    return _head_last(params, x[:, -1:], cfg, tp), cache
 
 
 def decode_step(params, feature, cache: KVCache, pos, cfg: LLMConfig,
-                cos, sin, compute_dtype=torch.bfloat16, pad=None):
+                cos, sin, compute_dtype=torch.bfloat16, pad=None, tp=None):
     """One AR step. feature: (B, 1, D) embedding of the token at `pos` (a
     device tensor); cos/sin: (1, Dk/2) rope angles for `pos`, or
     (B, 1, Dk/2) per-row angles with `pad` (B,) for left-padded batches.
@@ -196,15 +219,15 @@ def decode_step(params, feature, cache: KVCache, pos, cfg: LLMConfig,
     x = feature.to(compute_dtype)
     for i, p in enumerate(params["blocks"]):
         x = block_decode(p, x, cos, sin, cache.k[i], cache.v[i], pos, cfg,
-                         pad=pad)
-    return _head_last(params, x), cache
+                         pad=pad, tp=tp)
+    return _head_last(params, x, cfg, tp), cache
 
 
-def _head_last(params, x_last):
+def _head_last(params, x_last, cfg: LLMConfig, tp=None):
     """f32 LayerNorm + head on the last position (transformer.py:112-118)."""
     x = x_last[:, -1].float()
     x = layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"])
-    return x @ params["head"].float()
+    return _logits(params, x, cfg, tp)
 
 
 def cast_blocks(params, dtype):

@@ -410,11 +410,16 @@ def _visual_codes(tokens, stop, schedule: SampleSchedule, cfg: LLMConfig):
     return np.clip(tokens[keep], 0, cfg.codebook_size - 1).astype(np.int32)
 
 
+def _local_heads(cfg: LLMConfig, tp) -> int:
+    return cfg.num_heads if tp is None else cfg.num_heads // tp.size
+
+
 @torch.inference_mode()
 def sample(params, cfg: LLMConfig, schedule: SampleSchedule, prompt_features,
            sample_cfg: ARSampleConfig, *, generator=None, gumbel=None,
            teacher_tokens=None, predict_eos: bool = False,
-           compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16):
+           compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+           tp=None):
     """Constrained AR decode (lm_model.py:293-516).
 
     Args:
@@ -429,6 +434,9 @@ def sample(params, cfg: LLMConfig, schedule: SampleSchedule, prompt_features,
       predict_eos: allow early termination when EOS is sampled at an
         allowed position (lm_model.py:455-462); codes after the stop are
         dropped.
+      tp: the mesh.Group of the `model` ranks when params["gpt"] holds
+        this rank's part (gpt.py); every host decision reads logits that
+        the all-reduces made equal on every rank.
     Returns: (num_visual,) int32 codes clamped to the visual range (shorter
     if predict_eos fired).
     """
@@ -448,10 +456,11 @@ def sample(params, cfg: LLMConfig, schedule: SampleSchedule, prompt_features,
     positions = torch.arange(st.full_len, device=dev)
     emb = params["tok_emb"]
 
-    cache = gpt.KVCache.create(cfg, rows, st.full_len, cache_dtype, dev)
+    cache = gpt.KVCache.create(cfg, rows, st.full_len, cache_dtype, dev,
+                               heads=_local_heads(cfg, tp))
     logits, cache = gpt.prefill(
         params["gpt"], prompt_features, cache, cfg, cos[:st.prefix_len],
-        sin[:st.prefix_len], compute_dtype=compute_dtype)
+        sin[:st.prefix_len], compute_dtype=compute_dtype, tp=tp)
 
     out = torch.zeros((st.full_len,), dtype=torch.int64, device=dev)
     stop = torch.full((), st.full_len, dtype=torch.int64, device=dev)
@@ -475,7 +484,7 @@ def sample(params, cfg: LLMConfig, schedule: SampleSchedule, prompt_features,
         feat = emb[fed][None, None].expand(rows, 1, -1)
         logits, cache = gpt.decode_step(
             params["gpt"], feat, cache, positions[i:i + 1], cfg,
-            cos[i:i + 1], sin[i:i + 1], compute_dtype=compute_dtype)
+            cos[i:i + 1], sin[i:i + 1], compute_dtype=compute_dtype, tp=tp)
     return _visual_codes(out.cpu().numpy(), stop.cpu(), schedule, cfg)
 
 
@@ -493,7 +502,8 @@ def sample(params, cfg: LLMConfig, schedule: SampleSchedule, prompt_features,
 def sample_batch(params, cfg: LLMConfig, schedule: SampleSchedule,
                  prompt_features, pad, sample_cfg: ARSampleConfig, *,
                  generators=None, gumbel=None, predict_eos: bool = False,
-                 compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+                 tp=None):
     """Constrained AR decode for N prompts at once.
 
     Args:
@@ -504,6 +514,7 @@ def sample_batch(params, cfg: LLMConfig, schedule: SampleSchedule,
       schedule: shared schedule built with prefix_len = P.
       generators / gumbel: N torch.Generators, one stream per prompt, or
         the (N, full_len - prefix_len, V) Gumbel noise itself.
+      tp: as `sample`'s.
     Returns: list of N (num_visual_n,) int32 code arrays (shorter per
     prompt if predict_eos fired).
     """
@@ -534,10 +545,11 @@ def sample_batch(params, cfg: LLMConfig, schedule: SampleSchedule,
     # per-row rope angles shifted by the left pad: buffer index j is the
     # row's logical position j - pad (padded slots clip to 0; masked anyway)
     ppos = (positions[None, :st.prefix_len] - pad[:, None]).clamp_min(0)
-    cache = gpt.KVCache.create(cfg, rows, st.full_len, cache_dtype, dev)
+    cache = gpt.KVCache.create(cfg, rows, st.full_len, cache_dtype, dev,
+                               heads=_local_heads(cfg, tp))
     logits, cache = gpt.prefill(
         params["gpt"], prompt_features, cache, cfg, cos[ppos], sin[ppos],
-        compute_dtype=compute_dtype, pad=pad)
+        compute_dtype=compute_dtype, pad=pad, tp=tp)
 
     out = torch.zeros((n_prompts, st.full_len), dtype=torch.int64, device=dev)
     stop = torch.full((n_prompts,), st.full_len, dtype=torch.int64,
@@ -560,7 +572,7 @@ def sample_batch(params, cfg: LLMConfig, schedule: SampleSchedule,
         dpos = (positions[i] - pad).clamp_min(0)[:, None]       # (R, 1)
         logits, cache = gpt.decode_step(
             params["gpt"], feat, cache, positions[i:i + 1], cfg, cos[dpos],
-            sin[dpos], compute_dtype=compute_dtype, pad=pad)
+            sin[dpos], compute_dtype=compute_dtype, pad=pad, tp=tp)
     tokens, stops = out.cpu().numpy(), stop.cpu().numpy()
     return [_visual_codes(tokens[n], stops[n], schedule, cfg)
             for n in range(n_prompts)]

@@ -9,6 +9,13 @@ landiff_tpu/models/t5.py; HF T5EncoderModel semantics):
 Parameters: {"embed": (V, D), "blocks": [{"attn": {"q","k","v","o"},
 "ln0", "rel_bias" (layer 0), "ff": {"wi_0","wi_1","wo"}, "ln1"}, ...],
 "final_ln": (D,)}, weight matrices (in, out).
+
+Tensor parallel (`encode(..., tp=group)`, parallel/mesh.T5_RULES as JAX
+llm_infer.py:87-90 and dif_infer.py:73-83 apply them): q / k / v / wi_0 /
+wi_1 column-parallel, o / wo row-parallel, so each rank runs its own
+heads and its part of the feed-forward, and one all-reduce closes each
+pair. The relative-position bias is sliced to the rank's heads (GSPMD
+does that unseen in JAX). The heads a rank holds are read off its q.
 """
 
 from __future__ import annotations
@@ -60,9 +67,10 @@ def compute_position_bias(rel_bias_table, q_len, kv_len, cfg: T5Config):
     return rel_bias_table[buckets].permute(2, 0, 1)[None]
 
 
-def _attn(x, p, position_bias, attn_mask, cfg: T5Config):
+def _attn(x, p, position_bias, attn_mask, cfg: T5Config, tp=None):
     B, S, _ = x.shape
-    H, Dk = cfg.num_heads, cfg.d_kv
+    Dk = cfg.d_kv
+    H = p["q"].shape[1] // Dk
     q = (x @ p["q"].to(x.dtype)).reshape(B, S, H, Dk)
     k = (x @ p["k"].to(x.dtype)).reshape(B, S, H, Dk)
     v = (x @ p["v"].to(x.dtype)).reshape(B, S, H, Dk)
@@ -73,30 +81,37 @@ def _attn(x, p, position_bias, attn_mask, cfg: T5Config):
         s = torch.where(attn_mask[:, None, None, :], s, -1e30)
     p_attn = torch.softmax(s, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", p_attn, v)
-    return out.reshape(B, S, H * Dk) @ p["o"].to(x.dtype)
+    out = out.reshape(B, S, H * Dk) @ p["o"].to(x.dtype)
+    return out if tp is None else tp.all_reduce(out)
 
 
-def _ff(x, p):
+def _ff(x, p, tp=None):
     h = gelu_new(x @ p["wi_0"].to(x.dtype)) * (x @ p["wi_1"].to(x.dtype))
-    return h @ p["wo"].to(x.dtype)
+    out = h @ p["wo"].to(x.dtype)
+    return out if tp is None else tp.all_reduce(out)
 
 
 def encode(params, input_ids, attn_mask, cfg: T5Config,
-           compute_dtype=torch.bfloat16):
+           compute_dtype=torch.bfloat16, tp=None):
     """T5 encoder forward: input_ids (B, S) -> (B, S, d_model) in
     compute_dtype. attn_mask: (B, S) bool (True = valid) or None.
-    Out-of-range ids clamp to the table, as a JAX gather does."""
+    Out-of-range ids clamp to the table, as a JAX gather does. tp: the
+    mesh.Group of the `model` ranks when params hold this rank's part
+    (T5_RULES); two all-reduces a block."""
     embed = params["embed"]
     ids = input_ids.to(embed.device).long().clamp(0, embed.shape[0] - 1)
     x = embed[ids].to(compute_dtype)
     S = ids.shape[1]
     pos_bias = compute_position_bias(params["blocks"][0]["rel_bias"], S, S,
                                      cfg)
+    if tp is not None:
+        hl = cfg.num_heads // tp.size
+        pos_bias = pos_bias[:, tp.rank * hl:(tp.rank + 1) * hl]
     for blk in params["blocks"]:
         h = t5_layer_norm(x, blk["ln0"], cfg.layer_norm_eps)
-        x = x + _attn(h, blk["attn"], pos_bias, attn_mask, cfg)
+        x = x + _attn(h, blk["attn"], pos_bias, attn_mask, cfg, tp)
         h = t5_layer_norm(x, blk["ln1"], cfg.layer_norm_eps)
-        x = x + _ff(h, blk["ff"])
+        x = x + _ff(h, blk["ff"], tp)
     return t5_layer_norm(x, params["final_ln"], cfg.layer_norm_eps)
 
 

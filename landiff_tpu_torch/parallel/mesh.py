@@ -1,0 +1,608 @@
+"""Device mesh, sharding rules and the ranks that carry them (counterpart
+of landiff_tpu/parallel/mesh.py).
+
+JAX drives every device of a mesh from one process and lets GSPMD insert
+the collectives. PyTorch needs a process per rank: `make_mesh` returns a
+`Mesh` whose rank 0 is the calling process and whose other ranks are
+worker processes it spawns (torch.multiprocessing, spawn). Rank 0 sends
+one command per stage call (`Mesh.run`): every rank runs the same
+function on its own shards, so every host decision is taken on values
+that are the same on every rank, and the collectives inside go through
+`Group`, which counts them per kind (`COLLECTIVES`, the counterpart of
+tp_infer.count_hlo_collectives). A rank's weights reach it once, as its
+shard (`load`).
+
+Ranks are laid out data-major, rank = d * model + m, as JAX reshapes the
+device list to (data, model, time). The `model` groups (one per data
+index) carry the Megatron all-reduces, the `data` groups (one per model
+index) the gather of the CFG rows.
+
+The backend follows from the layout alone: NCCL when every rank has a
+CUDA device of its own; gloo when the ranks are on the CPU or share a
+CUDA device (NCCL refuses two ranks on one device). On a shared CUDA
+device the data of a collective stays on the device, in exchange
+buffers every rank maps, ordered by interprocess CUDA events, and gloo
+carries only a barrier on the host (`Group`): that is this layout's
+collective. Its times are those of one
+device time-sliced between processes and of host barriers, not of any
+interconnect.
+
+Failures: a worker that raises sends its traceback and exits, which
+fails the collectives its peers wait in; a rank that stops answering
+fails them at the process groups' timeout. Either way rank 0 stops every
+worker and raises `MeshError`. Only the `data` and `model` axes are
+ported: a `time` axis (sequence / context parallelism) raises, naming
+ROADMAP item 15b, as do the training rules (TITOK_RULES, the trainer's
+DIT_RULES).
+"""
+
+from __future__ import annotations
+
+import atexit
+import datetime
+import os
+import queue
+import re
+import threading
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from landiff_tpu_torch.config import MeshConfig
+
+ITEM_15B = "ROADMAP item 15b"
+
+
+def refuse_time_axis(cfg: MeshConfig):
+    if cfg.time > 1:
+        raise NotImplementedError(
+            "a time axis (sequence / context parallelism) is not ported "
+            f"yet: {ITEM_15B}")
+
+
+def parse_mesh(spec: str | None) -> MeshConfig:
+    """'data=2,model=4' -> MeshConfig; None -> every visible GPU (one on a
+    machine without) on `data`, as JAX puts every device there."""
+    if not spec:
+        return MeshConfig(data=max(torch.cuda.device_count(), 1), model=1)
+    kv = dict(part.split("=") for part in spec.split(","))
+    return MeshConfig(**{k: int(v) for k, v in kv.items()})
+
+
+def make_mesh(cfg: MeshConfig | None = None, devices=None,
+              timeout_s: float = 300.0) -> "Mesh":
+    """The ranks of `cfg` (default: every device on `model`, as JAX),
+    one per device of `devices`: by default one per visible GPU, and more
+    ranks than GPUs are refused (JAX mesh.py:40). An explicit list may
+    name one device several times (["cuda:0"] * 2, ["cpu"] * 4), the
+    counterpart of JAX's virtual CPU devices."""
+    if devices is None:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    if cfg is None:
+        cfg = MeshConfig(data=1, model=len(devices), time=1)
+    refuse_time_axis(cfg)
+    if cfg.num_devices > len(devices):
+        raise ValueError(f"mesh {cfg} needs {cfg.num_devices} devices, "
+                         f"{len(devices)} given")
+    return Mesh(cfg, list(devices[:cfg.num_devices]), timeout_s)
+
+
+def as_mesh(mesh, device="cuda") -> "Mesh | None":
+    """A Mesh from a Mesh, a MeshConfig or a spec string, its ranks on
+    `device`'s type: one per GPU for cuda, all on the CPU for cpu."""
+    if mesh is None or isinstance(mesh, Mesh):
+        return mesh
+    cfg = mesh if isinstance(mesh, MeshConfig) else parse_mesh(mesh)
+    refuse_time_axis(cfg)
+    if torch.device(device).type == "cpu":
+        return make_mesh(cfg, devices=["cpu"] * cfg.num_devices)
+    return make_mesh(cfg)
+
+
+# ---------------------------------------------------------------------------
+# parameter sharding rules: (path regex, spec) lists, first match wins,
+# default replicated; a spec names the mesh axis of each dimension. Paths
+# are '/'-joined keys. Megatron: column-parallel on the out-features of
+# the first matrix of a pair, row-parallel on the in-features of the
+# second -> one all-reduce per pair.
+
+GPT_RULES = [
+    (r".*\bwqkv$", (None, "model")),
+    (r".*\bwo$", ("model", None)),
+    (r".*\bw1$", (None, "model")),
+    (r".*\bw3$", (None, "model")),
+    (r".*\bw2$", ("model", None)),
+    (r".*\bhead$", (None, "model")),
+]
+
+T5_RULES = [
+    (r".*attn/q$", (None, "model")),
+    (r".*attn/k$", (None, "model")),
+    (r".*attn/v$", (None, "model")),
+    (r".*attn/o$", ("model", None)),
+    (r".*ff/wi_0$", (None, "model")),
+    (r".*ff/wi_1$", (None, "model")),
+    (r".*ff/wo$", ("model", None)),
+]
+
+
+def map_with_path(fn, tree, *rest, path=()):
+    """fn(path, leaf, *leaves of `rest` at the same place) over trees of
+    dicts and lists; path is the tuple of keys (list indices as str)."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, *(r[k] for r in rest),
+                                 path=path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_path(fn, v, *(r[i] for r in rest),
+                              path=path + (str(i),))
+                for i, v in enumerate(tree)]
+    return fn(path, tree, *rest)
+
+
+def spec_for(path: str, rules) -> tuple:
+    for pat, spec in rules:
+        if re.match(pat, path):
+            return spec
+    return ()
+
+
+def axis_sizes(cfg: MeshConfig) -> dict:
+    return {"data": cfg.data, "model": cfg.model, "time": cfg.time}
+
+
+def fit_spec(spec: tuple, shape, cfg: MeshConfig | None) -> tuple:
+    """Drop the axes that do not divide their dimension (vocab 2,055 over
+    model=2): that dimension stays replicated (JAX mesh.py:110)."""
+    if cfg is None or not any(spec):
+        return spec
+    sizes = axis_sizes(cfg)
+    return tuple(ax if ax is not None and d < len(shape)
+                 and shape[d] % sizes[ax] == 0 else None
+                 for d, ax in enumerate(spec))
+
+
+def param_specs(params, rules, cfg: MeshConfig | None = None):
+    """The spec tree of `params` (JAX mesh.py:126). int8 {q, s} leaves
+    inherit their base weight's rule: q as the weight, s as the weight
+    without its first (contracted) dim; a rule matching the whole path
+    (T5's attn/q) wins."""
+    def spec(path, x):
+        s = spec_for("/".join(path), rules)
+        if not any(s) and path and path[-1] in ("q", "s"):
+            base = spec_for("/".join(path[:-1]), rules)
+            s = base if path[-1] == "q" else tuple(base[1:])
+        return fit_spec(s, tuple(getattr(x, "shape", ())), cfg)
+
+    return map_with_path(spec, params)
+
+
+def rank_coords(cfg: MeshConfig, rank: int) -> dict:
+    return {"data": rank // (cfg.model * cfg.time),
+            "model": rank // cfg.time % cfg.model, "time": rank % cfg.time}
+
+
+def shard_for_rank(tree, specs, cfg: MeshConfig, rank: int):
+    """Each leaf's part for `rank` (views): along every dimension with an
+    axis, the rank's equal part by its coordinate on that axis."""
+    coords, sizes = rank_coords(cfg, rank), axis_sizes(cfg)
+
+    def cut(path, x, spec):
+        for d, ax in enumerate(spec):
+            if ax is not None:
+                n = x.shape[d] // sizes[ax]
+                x = x.narrow(d, coords[ax] * n, n)
+        return x
+
+    return map_with_path(cut, tree, specs)
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes of the tensor leaves of a tree."""
+    out = []
+    map_with_path(lambda p, x: out.append(x.numel() * x.element_size())
+                  if isinstance(x, torch.Tensor) else None, tree)
+    return sum(out)
+
+
+def backend_for(devices) -> str:
+    """nccl iff every rank has a CUDA device of its own, else gloo."""
+    devs = [torch.device(d) for d in devices]
+    own = len({(d.type, d.index) for d in devs}) == len(devs)
+    cuda = all(d.type == "cuda" and d.index is not None for d in devs)
+    return "nccl" if own and cuda else "gloo"
+
+
+# ---------------------------------------------------------------------------
+# collectives
+
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
+
+# elements of one rank's f32 exchange buffer on a shared CUDA device (64
+# MB); a longer tensor goes over in parts
+SHARED_CAPACITY = 1 << 24
+
+
+def reset_collective_counts():
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+
+
+class Group:
+    """The ranks of one mesh axis at one coordinate of the others. Each
+    collective adds one to COLLECTIVES[kind] where it runs; in a group of
+    one rank it is the identity and counts nothing. (No broadcast: a
+    command hands every rank its inputs.)
+
+    On a shared CUDA device (`bufs`: two sets of one f32 buffer per
+    member, every member mapping all of them) a collective runs on the
+    device and the host never waits for it: each member writes its values
+    into its own buffer of the current set and records an interprocess
+    event; the members meet at a gloo barrier on the host, which orders
+    every record before every wait; each member's stream waits for the
+    others' events and combines every buffer in rank order (the same bits
+    on every rank: for 16-bit tensors an f32 sum, rounded once), then
+    records that it has read the set. The sets alternate: before a member
+    writes a set again, two parts later, its stream waits for every
+    member's read of it, recorded before the barrier of the part
+    between."""
+
+    def __init__(self, pg, size: int, rank: int):
+        self.pg, self.size, self.rank = pg, size, rank
+        self.bufs = None
+        self._turn = 0
+        self._flag = torch.zeros(1)
+
+    def make_events(self) -> dict:
+        """This member's interprocess events, (set, "written" | "read")
+        -> IPC handle, for open_events on every member."""
+        self._mine = {(t, k): torch.cuda.Event(interprocess=True)
+                      for t in (0, 1) for k in ("written", "read")}
+        return {key: ev.ipc_handle() for key, ev in self._mine.items()}
+
+    def open_events(self, handles: list):
+        """handles: every member's make_events(), in member order."""
+        dev = torch.cuda.current_device()
+        self.events = {key: [
+            self._mine[key] if j == self.rank
+            else torch.cuda.Event.from_ipc_handle(dev, h[key])
+            for j, h in enumerate(handles)] for key in self._mine}
+
+    def _exchange(self, flat: torch.Tensor, combine):
+        """combine(every member's f32 copy of `flat`, at most
+        SHARED_CAPACITY elements, in rank order), enqueued once every
+        member's copy is in its buffer."""
+        turn = self._turn
+        self._turn ^= 1
+        stream = torch.cuda.current_stream()
+
+        def wait(kind):
+            for j, ev in enumerate(self.events[(turn, kind)]):
+                if j != self.rank:
+                    stream.wait_event(ev)
+
+        bufs = self.bufs[turn]
+        n = flat.numel()
+        wait("read")
+        bufs[self.rank][:n].copy_(flat)
+        self.events[(turn, "written")][self.rank].record(stream)
+        self.pg.allreduce([self._flag]).wait()
+        wait("written")
+        out = combine([b[:n] for b in bufs])
+        self.events[(turn, "read")][self.rank].record(stream)
+        return out
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the group, in t's dtype, equal on every rank;
+        returns it (t itself when t is contiguous)."""
+        if self.size == 1:
+            return t
+        COLLECTIVES["all_reduce"] += 1
+        t = t.contiguous()
+        if self.bufs is None:
+            self.pg.allreduce([t]).wait()
+            return t
+        flat = t.view(-1)
+
+        def add(parts):
+            total = parts[0].clone()
+            for p in parts[1:]:
+                total += p
+            return total
+
+        for i in range(0, flat.numel(), SHARED_CAPACITY):
+            part = flat[i:i + SHARED_CAPACITY]
+            part.copy_(self._exchange(part, add))
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's t, concatenated along `dim` in rank order."""
+        if self.size == 1:
+            return t
+        COLLECTIVES["all_gather"] += 1
+        t = t.contiguous()
+        if self.bufs is None:
+            parts = [torch.empty_like(t) for _ in range(self.size)]
+            self.pg.allgather([parts], [t]).wait()
+            return torch.cat(parts, dim)
+        if t.numel() > SHARED_CAPACITY:
+            raise ValueError(f"all_gather of {t.numel()} elements on a "
+                             f"shared device takes at most "
+                             f"{SHARED_CAPACITY}")
+        return self._exchange(t.view(-1), lambda parts: torch.cat(
+            [p.to(t.dtype).view(t.shape) for p in parts], dim))
+
+
+def _process_group(store, prefix: str, rank: int, size: int, backend: str,
+                   timeout_s: float):
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store = dist.PrefixStore(prefix, store)
+    if backend == "nccl":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timeout
+        return dist.ProcessGroupNCCL(store, rank, size, opts)
+    opts = dist.ProcessGroupGloo._Options()
+    opts._timeout = timeout
+    opts._devices = [dist.ProcessGroupGloo.create_device(
+        hostname="127.0.0.1")]
+    return dist.ProcessGroupGloo(store, rank, size, opts)
+
+
+class RankContext:
+    """One rank's view of the mesh: its coordinates, device, groups, and
+    `state`, the trees its commands stored (weights, by key)."""
+
+    def __init__(self, cfg: MeshConfig, devices, rank: int, store,
+                 timeout_s: float):
+        self.cfg, self.rank = cfg, rank
+        self.coords = rank_coords(cfg, rank)
+        self.device = torch.device(devices[rank])
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        self.backend = backend_for(devices)
+        d, m, M = self.coords["data"], self.coords["model"], cfg.model
+        # the global ranks of each group, in member order
+        self.members = {"model": [d * M + j for j in range(M)],
+                        "data": [i * M + m for i in range(cfg.data)]}
+        self.groups = {}
+        for axis, index in (("model", d), ("data", m)):
+            ranks = self.members[axis]
+            pg = None if len(ranks) == 1 else _process_group(
+                store, f"{axis}{index}/", ranks.index(rank), len(ranks),
+                self.backend, timeout_s)
+            self.groups[axis] = Group(pg, len(ranks), ranks.index(rank))
+        self.model_group = self.groups["model"]
+        self.data_group = self.groups["data"]
+        self.state: dict = {}
+
+    def attach_buffers(self, bufs: torch.Tensor) -> dict:
+        """bufs (2, 2, ranks, SHARED_CAPACITY) f32 on the shared device:
+        the model groups exchange through bufs[0], the data groups through
+        bufs[1], in two alternating sets, each member through the row of
+        its global rank. Returns this rank's event handles per group."""
+        for axis, b in zip(("model", "data"), bufs):
+            self.groups[axis].bufs = [[s[r] for r in self.members[axis]]
+                                      for s in b]
+        return {axis: g.make_events() for axis, g in self.groups.items()
+                if g.size > 1}
+
+    def open_events(self, handles: list):
+        """handles: every rank's attach_buffers() result, in rank order."""
+        for axis, g in self.groups.items():
+            if g.size > 1:
+                g.open_events([handles[r][axis] for r in self.members[axis]])
+
+
+class MeshError(RuntimeError):
+    """A rank of the mesh failed or stopped answering; the mesh is closed."""
+
+
+class Mesh:
+    """data x model ranks: rank 0 in this process, the others in worker
+    processes stopped by close() and at exit. `run` executes one command
+    on every rank, one command at a time."""
+
+    def __init__(self, cfg: MeshConfig, devices, timeout_s: float = 300.0):
+        self.cfg = cfg
+        self.size = cfg.num_devices
+        self.devices = [str(torch.device(d)) for d in devices]
+        self.backend = backend_for(self.devices)
+        self.timeout_s = timeout_s
+        self._lock = threading.Lock()
+        self._closed = False
+        store = dist.TCPStore("127.0.0.1", 0, self.size, True,
+                              timeout=datetime.timedelta(seconds=timeout_s),
+                              wait_for_workers=False)
+        ctx = mp.get_context("spawn")
+        self._results = ctx.Queue()
+        self._cmds, self._procs = [], []
+        for r in range(1, self.size):
+            q = ctx.Queue()
+            p = ctx.Process(target=_worker_main, name=f"landiff-rank{r}",
+                            args=(r, cfg, self.devices, store.port,
+                                  timeout_s, q, self._results, os.getpid()),
+                            daemon=True)
+            p.start()
+            self._cmds.append(q)
+            self._procs.append(p)
+        atexit.register(self.close)
+        self._store = store
+        try:
+            self.ctx = RankContext(cfg, self.devices, 0, store, timeout_s)
+        except BaseException as e:
+            _, errs = self._collect(5.0)
+            self._stop()
+            raise MeshError(f"mesh {cfg} did not start: {errs}") from e
+        if self.backend == "gloo" and self.ctx.device.type == "cuda":
+            # ranks sharing a CUDA device exchange through buffers there,
+            # made here and mapped by every worker (CUDA IPC)
+            handles = self.run(_attach, torch.empty(
+                (2, 2, self.size, SHARED_CAPACITY), dtype=torch.float32,
+                device=self.ctx.device))
+            self.run(_open_events, handles)
+
+    def run(self, fn, *args, per_rank=None) -> list:
+        """fn(ctx, *args) on every rank, or fn(ctx, per_rank[r], *args);
+        returns the ranks' results in rank order. fn must be importable
+        (a module-level function of the port). Raises MeshError, and
+        closes the mesh, if any rank fails or a worker does not answer
+        within the timeout after rank 0's part."""
+        with self._lock:
+            if self._closed:
+                raise MeshError("the mesh is closed")
+
+            def argv(r):
+                return args if per_rank is None else (per_rank[r],) + args
+
+            for r in range(1, self.size):
+                self._cmds[r - 1].put((fn, argv(r)))
+            err0 = out0 = None
+            try:
+                out0 = fn(self.ctx, *argv(0))
+            except BaseException as e:     # reported with the workers'
+                err0 = e
+            outs, errs = self._collect(5.0 if err0 else self.timeout_s)
+            if err0 is None and not errs:
+                return [out0] + outs
+            self._stop()
+            what = [f"rank 0: {type(err0).__name__}: {err0}"] if err0 else []
+            what += [errs[r] for r in sorted(errs)]
+            raise MeshError(f"{getattr(fn, '__name__', fn)} failed on the "
+                            f"mesh:\n" + "\n".join(what)) from err0
+
+    def _collect(self, wait_s: float):
+        """The workers' answers to the last command: (results in rank
+        order, {rank: error text})."""
+        got, errs = {}, {}
+        deadline = time.monotonic() + wait_s
+        dead_at = None
+        while len(got) + len(errs) < self.size - 1:
+            try:
+                r, status, payload = self._results.get(timeout=0.2)
+                (got if status == "ok" else errs)[r] = payload
+                continue
+            except queue.Empty:
+                pass
+            missing = [r for r in range(1, self.size)
+                       if r not in got and r not in errs]
+            dead = [r for r in missing if not self._procs[r - 1].is_alive()]
+            if dead:
+                dead_at = dead_at or time.monotonic()
+                if time.monotonic() - dead_at > 2.0:   # its last words read
+                    for r in dead:
+                        errs[r] = (f"rank {r}: exited with code "
+                                   f"{self._procs[r - 1].exitcode}")
+            if time.monotonic() > deadline:
+                for r in missing:
+                    errs.setdefault(r, f"rank {r}: no answer within "
+                                       f"{wait_s:.0f} s")
+        return [got.get(r) for r in range(1, self.size)], errs
+
+    def _stop(self):
+        self._closed = True
+        for q in self._cmds:
+            try:
+                q.put(None)
+            except (OSError, ValueError):
+                pass
+        for p in self._procs:
+            p.join(timeout=5.0)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5.0)
+
+    def close(self):
+        """Stop the workers (idempotent)."""
+        if self._closed:
+            return
+        with self._lock:
+            self._stop()
+        atexit.unregister(self.close)
+
+
+def _worker_main(rank, cfg, devices, port, timeout_s, cmds, results,
+                 parent_pid):
+    """A worker rank: join the groups, then run commands until told to
+    stop, the parent is gone, or a command fails (its exit fails the
+    peers' pending collectives)."""
+    try:
+        if torch.device(devices[rank]).type == "cpu":
+            torch.set_num_threads(
+                max(1, (os.cpu_count() or 1) // cfg.num_devices))
+        store = dist.TCPStore("127.0.0.1", port, cfg.num_devices, False,
+                              timeout=datetime.timedelta(seconds=timeout_s))
+        ctx = RankContext(cfg, devices, rank, store, timeout_s)
+    except BaseException:
+        results.put((rank, "err", f"rank {rank}: {traceback.format_exc()}"))
+        return
+    while True:
+        try:
+            item = cmds.get(timeout=5.0)
+        except queue.Empty:
+            if os.getppid() != parent_pid:
+                return
+            continue
+        if item is None:
+            return
+        fn, args = item
+        try:
+            out = fn(ctx, *args)
+        except BaseException:
+            results.put((rank, "err",
+                         f"rank {rank}: {traceback.format_exc()}"))
+            return
+        results.put((rank, "ok", out))
+
+
+# ---------------------------------------------------------------------------
+# weights and arguments on the ranks
+
+
+def to_rank(ctx: RankContext, tree, copy: bool = False):
+    """The tensors of a command's argument on this rank's device; copy:
+    into memory this rank owns (a tensor from another process arrives as
+    a view of the sender's memory)."""
+    def move(path, x):
+        if isinstance(x, torch.Tensor):
+            return x.to(ctx.device, copy=copy)
+        return x
+
+    return map_with_path(move, tree)
+
+
+def release_cache(ctx: RankContext):
+    """Where the ranks share a CUDA device, return this rank's cached
+    blocks to it at the end of a stage command: the next stage runs in
+    other processes' allocators (rank 0's VAE decode after a denoise)."""
+    if ctx.backend == "gloo" and ctx.device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _attach(ctx: RankContext, bufs):
+    return ctx.attach_buffers(bufs)
+
+
+def _open_events(ctx: RankContext, handles):
+    ctx.open_events(handles)
+
+
+def _store(ctx: RankContext, tree, key: str, part: str):
+    ctx.state.setdefault(key, {})[part] = tree if ctx.rank == 0 \
+        else to_rank(ctx, tree, copy=True)
+
+
+def load(mesh: Mesh, key: str, part: str, shards: list):
+    """Store shards[r] (rank r's tree, tensors on any device) as
+    ctx.state[key][part] on every rank: each worker copies its own once;
+    rank 0 keeps its tree as given. On CUDA, rank 0 then lets go of the
+    other ranks' copies and returns the memory they held to the device,
+    where the next part's worker copies need it when the ranks share it;
+    a caller loads a model part by part to keep that transient small."""
+    mesh.run(_store, key, part, per_rank=shards)
+    if any(torch.device(d).type == "cuda" for d in mesh.devices):
+        del shards[1:]
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()

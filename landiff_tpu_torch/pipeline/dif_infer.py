@@ -3,15 +3,24 @@
 landiff/diffusion/dif_infer.py CogWrapper.forward :152-243, decode_latent
 :245-271, CogModelInferWrapper :274-302).
 
-Everything stays on one device. Under LANDIFF_DIT_INT8 (LANDIFF_FAST >= 1)
-the main and control DiTs are quantized to W8A8 once, at construction;
+Without a mesh everything stays on one device. Under LANDIFF_DIT_INT8
+(LANDIFF_FAST >= 1) the main and control DiTs are quantized to W8A8 once,
+at construction;
 LANDIFF_STEP_REUSE / LANDIFF_CFG_WINDOW (LANDIFF_FAST=2) reach the sampler
 through engine.sample_latents. A prefix video (image-to-video,
 continuation) is VAE-encoded to the clean latents the sampler holds over
 the first frames. With LANDIFF_OFFLOAD=1 the diffusion trees (main,
 control, semantic) leave the device after the denoise and before the VAE
-decode, and come back at the start of the next call. Not ported yet: the
-mesh / TP path (ROADMAP item 15).
+decode, and come back at the start of the next call.
+
+With a mesh (parallel/mesh.py) the main and control DiTs are laid out
+for tensor parallelism and sharded over its `model` ranks
+(parallel/tp_infer.py; W8A8 after that prep, never before), the T5 by
+T5_RULES, the semantic conditioner whole on every rank; the VAE stays in
+this process, rank 0. A call sends one T5 command and one denoise
+command (the context, the codes, the initial noise drawn here and the
+generator's state after it): every rank runs the sampler on its shards,
+and rank 0 decodes. LANDIFF_OFFLOAD moves every rank's diffusion shards.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ from landiff_tpu_torch.models import dit as dit_lib
 from landiff_tpu_torch.models import semantic_cond as sc_lib
 from landiff_tpu_torch.models import t5 as t5_lib
 from landiff_tpu_torch.models import vae as vae_lib
+from landiff_tpu_torch.parallel import mesh as mesh_lib
+from landiff_tpu_torch.parallel import tp_infer
 from landiff_tpu_torch.pipeline.text import T5Text
 from landiff_tpu_torch.utils import env_flag, seed_from_text
 
@@ -53,15 +64,27 @@ class CogModelInferWrapper:
 
     After each call, `phase_seconds` holds the host seconds (synchronised
     on the device) of its phases: restage (after an offload), t5,
-    vae_encode (with a prefix video), semantic, denoise, offload (with
-    LANDIFF_OFFLOAD=1), vae."""
+    vae_encode (with a prefix video), semantic (with a mesh inside
+    denoise), denoise, offload (with LANDIFF_OFFLOAD=1), vae.
+
+    mesh: a parallel.mesh.Mesh to shard onto (module docstring); the
+    ranks' trees are then this wrapper's `params` but "vae" (rank 0's
+    parts), and `device` is rank 0's."""
 
     def __init__(self, params, cfg: LanDiffConfig,
                  tokenizer_dir: str | None = None,
                  compute_dtype=torch.bfloat16,
-                 require_real_tokenizer: bool = False, device="cuda"):
+                 require_real_tokenizer: bool = False, mesh=None,
+                 device="cuda"):
         self.params = params
-        if env_flag("LANDIFF_DIT_INT8"):
+        self.mesh = mesh
+        if mesh is not None:
+            self.key = f"stage2/{id(self)}"
+            _load_on_mesh(mesh, self.key, params, cfg, compute_dtype)
+            self.params = {"vae": params["vae"],
+                           **mesh.ctx.state[self.key]}
+            device = mesh.ctx.device
+        elif env_flag("LANDIFF_DIT_INT8"):
             # W8A8 DiT linears (dif_infer.py:64-72): the quantized trees
             # replace main and control; the caller's trees are untouched
             self.params = dict(params)
@@ -101,6 +124,10 @@ class CogModelInferWrapper:
         are kept."""
         if not self.offloaded:
             return
+        if self.mesh is not None:
+            self.mesh.run(_move_rank, self.key, False)
+            self.offloaded = False
+            return
         for k in _OFFLOADED:
             if k in self.params:
                 _move_tree_(self.params[k], self.device)
@@ -110,10 +137,13 @@ class CogModelInferWrapper:
 
     def encode_text(self, prompt: str) -> torch.Tensor:
         ids, _ = self.text([prompt], pad_to_max=True)
+        ids = torch.from_numpy(ids).to(self.device)
         # the reference passes no attention mask: pads are attended (fp32)
-        return t5_lib.encode(self.params["t5"],
-                             torch.from_numpy(ids).to(self.device), None,
-                             self.cfg.t5, compute_dtype=torch.float32)
+        if self.mesh is not None:
+            return self.mesh.run(tp_infer.t5_encode, self.key, ids, None,
+                                 self.cfg.t5, torch.float32)[0]
+        return t5_lib.encode(self.params["t5"], ids, None, self.cfg.t5,
+                             compute_dtype=torch.float32)
 
     def _mark(self, name: str, t0: float) -> float:
         if self.device.type == "cuda":
@@ -160,15 +190,30 @@ class CogModelInferWrapper:
                 self.params["vae"], pv, cfg.vae,
                 compute_dtype=self.compute_dtype)
             t0 = self._mark("vae_encode", t0)
-        denoise_fn = engine.make_denoise_fn(
-            self.params["main"], self.params["control"],
-            self.params["semantic"], cfg.dit, cfg.sampler, cfg.tokenizer,
-            cfg.semantic_cond, context, uc_context, tokens,
-            compute_dtype=self.compute_dtype)
-        t0 = self._mark("semantic", t0)
-        latents = engine.sample_latents(
-            denoise_fn, cfg.sampler, cfg.dit, generator=gen,
-            init_noise=init_noise, step_noise=step_noise, prefix=prefix)
+        if self.mesh is not None:
+            # the draw sample_latents makes first, made here; the ranks
+            # go on from the generator's state after it
+            if init_noise is None:
+                d = cfg.dit
+                init_noise = torch.randn(
+                    (1, d.latent_frames, d.in_channels, d.latent_height,
+                     d.latent_width), generator=gen, device=self.device)
+            latents = self.mesh.run(
+                _denoise_rank, self.key, cfg, self.compute_dtype, context,
+                uc_context, tokens, torch.as_tensor(init_noise).to(
+                    self.device), gen.get_state().numpy(), step_noise,
+                prefix)[0]
+            denoise_fn = None
+        else:
+            denoise_fn = engine.make_denoise_fn(
+                self.params["main"], self.params["control"],
+                self.params["semantic"], cfg.dit, cfg.sampler, cfg.tokenizer,
+                cfg.semantic_cond, context, uc_context, tokens,
+                compute_dtype=self.compute_dtype)
+            t0 = self._mark("semantic", t0)
+            latents = engine.sample_latents(
+                denoise_fn, cfg.sampler, cfg.dit, generator=gen,
+                init_noise=init_noise, step_noise=step_noise, prefix=prefix)
         t0 = self._mark("denoise", t0)
         if os.environ.get("LANDIFF_OFFLOAD") == "1":
             del denoise_fn      # its closure holds the DiT trees
@@ -201,6 +246,55 @@ def _move_tree_(tree, device: torch.device):
                 tree[k] = host.copy_(v, non_blocking=True)
             else:
                 tree[k] = v.to(device, non_blocking=True)
+
+
+def _load_on_mesh(mesh, key, params, cfg: LanDiffConfig, compute_dtype):
+    """Every rank's stage-2 trees under `key`, one part at a time: the T5
+    by T5_RULES; main and control in the tp layout (W8A8 after the prep
+    under LANDIFF_DIT_INT8, JAX dif_infer.py:65-72), cast to the compute
+    dtype; the semantic conditioner whole."""
+    int8 = env_flag("LANDIFF_DIT_INT8")
+    mesh_lib.load(mesh, key, "t5", tp_infer.t5_shards(
+        params["t5"], cfg.t5, mesh.cfg, mesh.devices))
+    for k in ("main", "control"):
+        mesh_lib.load(mesh, key, k, tp_infer.dit_shards(
+            params[k], cfg.dit, mesh.cfg, mesh.devices, int8=int8,
+            dtype=compute_dtype))
+    mesh_lib.load(mesh, key, "semantic",
+                  tp_infer.replicated(params["semantic"], mesh.devices))
+
+
+def _denoise_rank(ctx, key, cfg: LanDiffConfig, compute_dtype, context,
+                  uc_context, tokens, init_noise, gen_state, step_noise,
+                  prefix):
+    """A rank's part of a denoise command: the sampler's whole loop on its
+    shards, from the same initial noise and generator state as every
+    other rank; rank 0 returns the latents."""
+    st = ctx.state[key]
+    context, uc_context, tokens, init_noise, step_noise, prefix = \
+        mesh_lib.to_rank(ctx, [context, uc_context, tokens, init_noise,
+                               step_noise, prefix])
+    gen = torch.Generator(device=ctx.device)
+    gen.set_state(torch.from_numpy(gen_state))
+    with torch.inference_mode():
+        denoise_fn = tp_infer.make_tp_denoise_fn(
+            ctx, st["main"], st["control"], st["semantic"], cfg.dit,
+            cfg.sampler, cfg.tokenizer, cfg.semantic_cond, context,
+            uc_context, tokens, compute_dtype=compute_dtype)
+        latents = engine.sample_latents(
+            denoise_fn, cfg.sampler, cfg.dit, generator=gen,
+            init_noise=init_noise, step_noise=step_noise, prefix=prefix)
+    del denoise_fn
+    mesh_lib.release_cache(ctx)
+    return latents if ctx.rank == 0 else None
+
+
+def _move_rank(ctx, key, to_host: bool):
+    for k in _OFFLOADED:
+        _move_tree_(ctx.state[key][k],
+                    torch.device("cpu") if to_host else ctx.device)
+    if ctx.device.type == "cuda":
+        torch.cuda.synchronize(ctx.device)
 
 
 def init_params(gen: torch.Generator, cfg: LanDiffConfig,

@@ -14,7 +14,12 @@ of more than one segment (`--num-frames 26`: two) streams through
 pipeline/long_video.py. LANDIFF_OFFLOAD=1 moves the diffusion trees to
 host memory before the VAE decode on both paths (dif_infer.py). The
 serving engine and its HTTP server over the same pipeline are in
-serving/. Not ported yet: device meshes (ROADMAP item 15).
+serving/. `--mesh data=D,model=N` (`mesh=` / `mesh_spec=`) runs both
+stages tensor-parallel over that many ranks (parallel/mesh.py): one per
+GPU by default, or all on the CPU with `--device cpu`; a `time` axis is
+ROADMAP item 15b.
+
+    python -m landiff_tpu_torch.pipeline.infer_video --prompt "..." --tiny --device cpu --mesh model=2
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from landiff_tpu_torch.config import ARSampleConfig, LanDiffConfig, \
     tiny_test_config
 from landiff_tpu_torch.diffusion import engine
+from landiff_tpu_torch.parallel import mesh as mesh_lib
 from landiff_tpu_torch.pipeline import dif_infer, llm_infer, long_video
 from landiff_tpu_torch.utils import save_video_tensor, seed_from_text
 
@@ -47,10 +53,13 @@ def build_pipeline(cfg: LanDiffConfig, sample_cfg: ARSampleConfig,
     `seed` on `device`. require_real_tokenizer (default: whether a
     checkpoint is loaded, as JAX's :56-62) makes a missing tokenizer an
     error; a caller that loads a tree without tokenizer files (a
-    synthetic one) passes False and gets the byte-level fallback."""
+    synthetic one) passes False and gets the byte-level fallback. mesh: a
+    parallel.mesh.Mesh, a MeshConfig or a spec "data=D,model=N" (ranks
+    on `device`: one per GPU for cuda, all on the CPU for cpu); both
+    wrappers shard onto it."""
+    mesh = mesh_lib.as_mesh(mesh, device)
     if mesh is not None:
-        raise NotImplementedError(
-            "device meshes are not ported yet: ROADMAP item 15")
+        device = str(mesh.ctx.device)
     if require_real_tokenizer is None:
         require_real_tokenizer = ckpt_dir is not None
     # stage 1 first: its wrapper keeps the compute-dtype copy of the large
@@ -67,13 +76,15 @@ def build_pipeline(cfg: LanDiffConfig, sample_cfg: ARSampleConfig,
     llm = llm_infer.ArModelInferWrapper(
         llm_params, cfg.llm, cfg.t5, sample_cfg, tokenizer_dir=tok_dir,
         compute_dtype=compute_dtype,
-        require_real_tokenizer=require_real_tokenizer, device=device)
+        require_real_tokenizer=require_real_tokenizer, mesh=mesh,
+        device=device)
     del llm_params
     dif_params = (ckpt_load.load_stage2(ckpt_dir, cfg, device=device)
                   if ckpt_dir is not None else dif_infer.init_params(gen, cfg))
     dif = dif_infer.CogModelInferWrapper(
         dif_params, cfg, tokenizer_dir=tok_dir, compute_dtype=compute_dtype,
-        require_real_tokenizer=require_real_tokenizer, device=device)
+        require_real_tokenizer=require_real_tokenizer, mesh=mesh,
+        device=device)
     return llm, dif
 
 
@@ -150,7 +161,8 @@ def _generate_long(dif, code_task, prompt: str, seed: int, fps: int,
             dif.params, cfg, context, torch.zeros_like(context),
             code_task.result, generator=gen,
             prefix_latents=min(7, cfg.dit.latent_frames - 1),
-            compute_dtype=dif.compute_dtype, on_segment=on_segment)
+            compute_dtype=dif.compute_dtype, on_segment=on_segment,
+            mesh=dif if dif.mesh is not None else None)
         if os.environ.get("LANDIFF_OFFLOAD") == "1":
             t = now()
             dif.offload_diffusion_params()
@@ -175,9 +187,6 @@ def run(prompt: str, output_dir: str = "results", seed: int = 42,
         num_frames: int = 13, tiny: bool = False,
         ckpt_dir: str | None = None, fps: int = 8,
         mesh_spec: str | None = None, device="cuda"):
-    if mesh_spec:
-        raise NotImplementedError(
-            "device meshes are not ported yet: ROADMAP item 15")
     cfg = tiny_test_config() if tiny else LanDiffConfig()
     if tiny and num_frames % cfg.llm.frames_per_segment != 0:
         # tiny config uses a smaller segment; map "one segment" semantics
@@ -187,8 +196,13 @@ def run(prompt: str, output_dir: str = "results", seed: int = 42,
                                 num_frames=num_frames, seed=seed)
     dtype = torch.float32 if tiny else torch.bfloat16
     llm, dif = build_pipeline(cfg, sample_cfg, seed, ckpt_dir,
-                              compute_dtype=dtype, device=device)
-    res = generate(llm, dif, prompt, seed, fps)
+                              compute_dtype=dtype, mesh=mesh_spec or None,
+                              device=device)
+    try:
+        res = generate(llm, dif, prompt, seed, fps)
+    finally:
+        if dif.mesh is not None:
+            dif.mesh.close()
 
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -216,7 +230,8 @@ def main(argv=None):
                         help="tiny random-init config (no ckpts; smoke)")
     parser.add_argument("--fps", type=int, default=8)
     parser.add_argument("--mesh", default=None,
-                        help="device mesh (not ported yet)")
+                        help="tensor-parallel mesh, e.g. model=2 or "
+                             "data=2,model=2 (ranks on --device)")
     parser.add_argument("--device", default="cuda",
                         help="torch device of both stages (cuda, cpu)")
     args = parser.parse_args(argv)

@@ -14,10 +14,17 @@ latent frames of the chunk before it. Draws come from one
 torch.Generator in a fixed order (per segment: the initial latents, then
 per step the sdedit prefix draw and the step's noise), or from `noises`,
 the seam through which a test feeds the JAX key chain's draws.
+
+With `mesh=` (a stage-2 wrapper built with a mesh) the whole loop is one
+command: every rank runs it on its shards from the same generator state,
+each segment's closure made from the first with only the semantic
+feature new (engine.update_bundle_tokens, JAX's update_tp_bundle), so no
+weight moves between segments.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 
 import numpy as np
@@ -25,6 +32,8 @@ import torch
 
 from landiff_tpu_torch.config import LanDiffConfig
 from landiff_tpu_torch.diffusion import engine
+from landiff_tpu_torch.parallel import mesh as mesh_lib
+from landiff_tpu_torch.parallel import tp_infer
 
 logger = logging.getLogger("landiff_tpu_torch.long_video")
 
@@ -35,7 +44,8 @@ def generate_long_video_latents(params, cfg: LanDiffConfig, context,
                                 prefix_latents: int = 7,
                                 sdedit: bool = False,
                                 compute_dtype=torch.bfloat16,
-                                noises=None, mesh=None, on_segment=None):
+                                noises=None, mesh=None, on_segment=None,
+                                rank=None):
     """codes: flat semantic token stream, a multiple of the tokens per
     segment. Returns latents (1, T_total, C, H', W') f32 on the
     generator's device, T_total = 13 + (n_segments - 1) * (13 -
@@ -44,10 +54,20 @@ def generate_long_video_latents(params, cfg: LanDiffConfig, context,
     noises: optional list, per segment, of {"init": initial latents,
     "steps": per-step noises, "prefix": per-step sdedit prefix draws}
     replacing the generator's draws. on_segment: optional callback
-    (seg_index, latents) after each segment's device work is done."""
+    (seg_index, latents) after each segment's device work is done.
+    mesh: a CogModelInferWrapper built with a mesh, whose sharded trees
+    run the loop on every rank (`params` is then not read, and
+    on_segment is called once, at the end). rank: the RankContext when
+    this call is one rank's part of that command."""
     if mesh is not None:
-        raise NotImplementedError(
-            "device meshes are not ported yet: ROADMAP item 15")
+        latents = mesh.mesh.run(
+            _long_video_rank, mesh.key, cfg, context, uc_context,
+            np.asarray(codes), generator.get_state().numpy(),
+            prefix_latents, sdedit, compute_dtype, noises)[0]
+        if on_segment is not None:
+            on_segment(len(np.asarray(codes).reshape(-1))
+                       // cfg.tokenizer.titok.latent_tokens - 1, latents)
+        return latents
     seg_tokens = cfg.tokenizer.titok.latent_tokens
     codes = np.asarray(codes).reshape(-1)
     if len(codes) % seg_tokens:
@@ -64,7 +84,9 @@ def generate_long_video_latents(params, cfg: LanDiffConfig, context,
                 1, -1).to(device)
         # one closure; per segment only the semantic feature changes
         if denoise_fn is None:
-            denoise_fn = engine.make_denoise_fn(
+            make = engine.make_denoise_fn if rank is None else \
+                functools.partial(tp_infer.make_tp_denoise_fn, rank)
+            denoise_fn = make(
                 params["main"], params["control"], params["semantic"],
                 cfg.dit, cfg.sampler, cfg.tokenizer, cfg.semantic_cond,
                 context, uc_context, tokens, compute_dtype=compute_dtype)
@@ -93,6 +115,22 @@ def generate_long_video_latents(params, cfg: LanDiffConfig, context,
         logger.info("segment %d/%d: latents %s", seg + 1, n_seg,
                     tuple(all_latents.shape))
     return all_latents
+
+
+def _long_video_rank(ctx, key, cfg, context, uc_context, codes, gen_state,
+                     prefix_latents, sdedit, compute_dtype, noises):
+    """A rank's part of a long-video command; rank 0 returns the latents."""
+    context, uc_context, noises = mesh_lib.to_rank(
+        ctx, [context, uc_context, noises])
+    gen = torch.Generator(device=ctx.device)
+    gen.set_state(torch.from_numpy(gen_state))
+    with torch.inference_mode():
+        latents = generate_long_video_latents(
+            ctx.state[key], cfg, context, uc_context, codes, generator=gen,
+            prefix_latents=prefix_latents, sdedit=sdedit,
+            compute_dtype=compute_dtype, noises=noises, rank=ctx)
+    mesh_lib.release_cache(ctx)
+    return latents if ctx.rank == 0 else None
 
 
 def generate_long_video(params, cfg: LanDiffConfig, context, uc_context,

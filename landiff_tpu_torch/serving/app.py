@@ -9,9 +9,11 @@ POST /generate (the video as an animated GIF in the page). Both stages
 stay on the card, built once into a resident ServingEngine
 (serving/scheduler.py) that coalesces concurrent stage-1 decodes into one
 batched AR loop; a changed slider rebuilds it, after the old one is freed.
+With `--mesh data=D,model=N` the engine's stages are tensor-parallel over
+that many ranks (serving/scheduler.py); the server stays in rank 0.
 
 Run: python -m landiff_tpu_torch.serving.app [--tiny] [--device cpu]
-[--port 7860]
+[--port 7860] [--mesh model=2]
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+
+from landiff_tpu_torch.parallel import mesh as mesh_lib
 
 logger = logging.getLogger("landiff_tpu_torch.serving")
 
@@ -58,6 +62,7 @@ def _engine(cfg_scale: float, motion_score: float):
                 cfg_scale=cfg_scale, motion_score=motion_score,
                 max_batch=_PIPELINE.get("max_batch", 8),
                 linger_s=_PIPELINE.get("linger_s", 0.05),
+                mesh_spec=_PIPELINE.get("mesh_spec"),
                 device=_PIPELINE.get("device", "cuda"))
             _PIPELINE["engine_key"] = key
         return _PIPELINE["engine"]
@@ -171,7 +176,8 @@ def main(argv=None):
                         help="tiny random-init config (no ckpts; smoke)")
     parser.add_argument("--ckpt-dir", default=None)
     parser.add_argument("--mesh", default=None,
-                        help="device mesh (not ported yet)")
+                        help="tensor-parallel mesh, e.g. model=2 (ranks on "
+                             "--device)")
     parser.add_argument("--max-batch", type=int, default=8,
                         help="stage-1 micro-batch cap (batched AR decode)")
     parser.add_argument("--batch-window-ms", type=float, default=50.0,
@@ -179,15 +185,15 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device of both stages (cuda, cpu)")
     args = parser.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "device meshes are not ported yet: ROADMAP item 15")
+    if args.mesh:           # a time axis is refused before anything runs
+        mesh_lib.refuse_time_axis(mesh_lib.parse_mesh(args.mesh))
     logging.basicConfig(level=logging.INFO)
     _PIPELINE["tiny"] = args.tiny
     _PIPELINE["ckpt_dir"] = args.ckpt_dir
     _PIPELINE["max_batch"] = args.max_batch
     _PIPELINE["linger_s"] = args.batch_window_ms / 1000.0
     _PIPELINE["device"] = args.device
+    _PIPELINE["mesh_spec"] = args.mesh
     try:
         launch_gradio(args.port)
     except ImportError:

@@ -21,6 +21,12 @@ Pieces:
     coalesce) FIFO under a device lock. Per-request seconds and the batch
     sizes are exposed via `stats()`.
 
+With a mesh (`build(mesh_spec=...)`) the wrappers are tensor-parallel
+over its ranks (parallel/mesh.py); the engine and its threads stay in
+rank 0, a stage-1 batch is one stage-1 command, a stage 2 one denoise
+command, and the mesh runs one command at a time. shutdown() stops the
+mesh's workers.
+
 The worker thread and the callers' threads run device work off the main
 thread; `torch.inference_mode` is thread-local, and the wrappers' own
 decorators (`ArModelInferWrapper.__call__` / `infer_batch`,
@@ -142,14 +148,12 @@ class ServingEngine:
         """Both stages through infer_video.build_pipeline: f32 with the
         tiny config (one tiny segment), else bf16. require_real_tokenizer
         as build_pipeline's (a checkpoint tree without tokenizer files, a
-        synthetic one, passes False)."""
+        synthetic one, passes False). mesh_spec: "data=D,model=N", ranks
+        on `device` (one per GPU for cuda)."""
         from landiff_tpu_torch.config import ARSampleConfig, LanDiffConfig, \
             tiny_test_config
         from landiff_tpu_torch.pipeline.infer_video import build_pipeline
 
-        if mesh_spec:
-            raise NotImplementedError(
-                "device meshes are not ported yet: ROADMAP item 15")
         cfg = tiny_test_config() if tiny else LanDiffConfig()
         if tiny:
             num_frames = cfg.llm.frames_per_segment
@@ -159,7 +163,8 @@ class ServingEngine:
         dtype = torch.float32 if tiny else torch.bfloat16
         llm, dif = build_pipeline(
             cfg, sample_cfg, seed, ckpt_dir, compute_dtype=dtype,
-            device=device, require_real_tokenizer=require_real_tokenizer)
+            mesh=mesh_spec or None, device=device,
+            require_real_tokenizer=require_real_tokenizer)
         return cls(llm, dif, max_batch=max_batch, linger_s=linger_s)
 
     def _now(self) -> float:
@@ -200,3 +205,5 @@ class ServingEngine:
 
     def shutdown(self):
         self.batcher.shutdown()
+        if self.dif.mesh is not None:
+            self.dif.mesh.close()

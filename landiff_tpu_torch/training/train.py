@@ -14,8 +14,8 @@ one entry point for the trainable components:
                 training/vq_train.make_train_step (EMA codebook, k-means
                 init from the first batch)
 
-One process on one device (`--device`, default cuda); a mesh of more than
-one device is not ported yet. Checkpoint / resume through
+One process on one device (`--device`, default cuda); a training mesh of
+more than one device is ROADMAP item 15b. Checkpoint / resume through
 training/checkpoint.py, metrics as JSONL (observability.MetricsLogger).
 Sequences of 2,048 positions or more go through the flash kernels, which
 take bfloat16 (--bf16) and float32 (the default; the f32 kernels of
@@ -185,8 +185,8 @@ def _setup_lm(cfg: LanDiffConfig, optimizer, device, dtype,
     return (params, opt_state), run
 
 
-_MESH_NOT_PORTED = ("a mesh of more than one device is not ported yet "
-                    "(ROADMAP item 15); run without --mesh")
+_MESH_NOT_PORTED = ("a training mesh of more than one device is not ported "
+                    "yet (ROADMAP item 15b); run without --mesh")
 
 
 def _setup_vq(cfg: LanDiffConfig, optimizer, device, dtype):

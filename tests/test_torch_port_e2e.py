@@ -101,15 +101,22 @@ def test_infer_batch_matches_single_calls_and_jax():
 
 
 def test_unported_options_are_refused(monkeypatch):
-    """What is not ported raises, naming its ROADMAP item (the serving
-    engine's and server's --mesh too). The fast configuration's options
+    """What is not ported raises, naming its ROADMAP item: a `time` mesh
+    axis (sequence / context parallelism) wherever a mesh is taken, and
+    the trainer's --mesh, are item 15b; `data` / `model` meshes run
+    (tests/test_torch_port_tp.py). The fast configuration's options
     (int8_decode, int4_decode, LANDIFF_FAST) are ported and build
     quantized wrappers instead; LANDIFF_OFFLOAD runs on the long-video
     path."""
+    from landiff_tpu_torch.parallel import mesh as tmesh
+    from landiff_tpu_torch.training import train as ttrain
+
     _, t1 = stage1_params()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        tli.ArModelInferWrapper(t1, TC.llm, TC.t5, device="cpu",
-                                mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
+        tmesh.make_mesh(tcfg.MeshConfig(time=2), devices=["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
+        ttrain.train("dit", "/nowhere", tiny=True, mesh_spec="model=2",
+                     device="cpu")
     for kw, key in ((dict(int8_decode=True), "q"),
                     (dict(int4_decode=True), "q4")):
         w = tli.ArModelInferWrapper(t1, TC.llm, TC.t5, device="cpu", **kw)
@@ -118,17 +125,18 @@ def test_unported_options_are_refused(monkeypatch):
     # checkpoints (item 10) are ported: a missing tree is a missing file
     with pytest.raises(FileNotFoundError, match="nowhere"):
         tiv.build_pipeline(TC, sc, ckpt_dir="/nowhere", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        tiv.build_pipeline(TC, sc, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        tiv.run("x", tiny=True, mesh_spec="data=2", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
+        tiv.build_pipeline(TC, sc, mesh=tcfg.MeshConfig(time=2),
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
+        tiv.run("x", tiny=True, mesh_spec="data=1,time=2", device="cpu")
     from landiff_tpu_torch.serving import app, scheduler
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        scheduler.ServingEngine.build(tiny=True, mesh_spec="model=2",
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
+        scheduler.ServingEngine.build(tiny=True, mesh_spec="model=2,time=2",
                                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        app.main(["--tiny", "--device", "cpu", "--mesh", "model=2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
+        app.main(["--tiny", "--device", "cpu", "--mesh", "time=2"])
     # two segments of codes: the long-video path (item 11) offloads the
     # diffusion trees before its decode and restages them for the next
     llm, dif = tiv.build_pipeline(
