@@ -19,6 +19,7 @@
                                              # 5c (seeded codes)
     python3 chip_smoke.py --only serving     # the pipeline, then 8h
     python3 chip_smoke.py --only tp          # the pipeline, then 8i
+    python3 chip_smoke.py --only sp          # 8j (builds what it needs)
 
 Phases, in order; any failure exits nonzero before the last line:
   1. device:  the card's name and power limit; TF32 off for matmuls and
@@ -168,6 +169,19 @@ Phases, in order; any failure exits nonzero before the last line:
               the unsharded ones; the int8 forward at 15 heads and at 8
               with 2 padded ones against its plain version, the padded
               heads exactly 0 (phase_tp).
+  8j. sp:     sequence / context-parallel inference, ranks sharing the
+              card as in 8i: data=1,time=2 ring attention at the DiT
+              shape in the exact, int8 and f32 int8 forms against the
+              ring of their plain versions and against one kernel call;
+              the context-parallel VAE decode of 13 latents at full width
+              against the whole decode (and, read only, the streaming
+              one), peak per rank; wrappers at full width on the mesh
+              (stage 1 unsharded in rank 0 on GPT_CUT blocks): one model
+              call against the unsharded one (90 int8 launches and 90
+              ring shifts a rank), one request at --steps through
+              infer_video.generate (LANDIFF_OFFLOAD=1) decoded
+              context-parallel; then
+              model=2,time=2 at 2 + 1 layers in bf16 and W8A8 (phase_sp).
   8f. tokenize: the pipelines are freed; video -> codes at full width
               (vq.encode_to_index: Theia 12 x 768, TiTok 12 x 768, VQ
               2,048 x 16) on a seeded 13-frame 480 x 720 clip, first and
@@ -2605,6 +2619,387 @@ def phase_tp(cfg, llm, dif):
     return tp_launches
 
 
+# sequence / context parallelism on one card: the ranks share it, as in
+# the tp phase, so every time here is a reading of that layout, not a
+# speed. The ring against one kernel call over the whole sequence: each
+# hop's p is rounded to bf16 at that hop's running max, each hop's output
+# is rounded to bf16 before the merge, and the merged output is rounded
+# again. Readings on an H100 at the DiT shape, time=2 (exact and int8):
+# 0.5 bf16 steps at the largest output, relative RMS 3.0e-3; the limits
+# are twice them and more (f32 forms: no bf16 rounding; readings 5.7e-7
+# max relative, 3.9e-7 RMS; limits three times F32_TOL's)
+RING_SINGLE_TOL = {"steps": 3.0, "rel_rms": 6e-3}
+RING_SINGLE_F32_TOL = {"max_rel": 3e-5, "rel_rms": 1.5e-5}
+SP_PROMPT = ("a paper boat drifting down a rain gutter", 5)
+
+
+def _plain_ring(q, k, v, n, hop, dtype):
+    """The ring of n ranks run in this process with a plain hop(q, k, v)
+    -> (out, lse (B, H, Sq) log2), in the order the ranks merge (at hop j
+    rank r holds rank r - j's block), merged in `dtype` as
+    ring_attention._merge merges."""
+    import torch
+
+    from landiff_tpu_torch.parallel import ring_attention as R
+
+    s = q.shape[1] // n
+    part = lambda x, r: x[:, r * s:(r + 1) * s].contiguous()
+    outs = []
+    for r in range(n):
+        out = lse = None
+        for j in range(n):
+            o, l = hop(part(q, r), part(k, (r - j) % n), part(v, (r - j) % n))
+            o, l = o.to(dtype), l.transpose(1, 2).to(dtype)
+            out, lse = (o, l) if out is None else R._merge(out, lse, o, l,
+                                                           base2=True)
+        outs.append(out)
+    return torch.cat(outs, dim=1)
+
+
+def _ring_case(mesh, int8: bool, f32: bool, seed: int):
+    """Ring attention at the DiT shape (B=2 S=17,776 H=30 D=64) over the
+    mesh's time ranks through the flash forward (int8 scores or exact,
+    bf16 or f32): against the same ring with the kernels' plain versions
+    as hops in this process (bf16: the plain versions, merged in f32, the
+    result rounded to bf16: the kernel limits and one step of that last
+    rounding; f32: the float64 references, merged in float64: F32_TOL),
+    and against one kernel call over the whole sequence (RING_SINGLE_TOL).
+    Per rank: one launch a hop, 2 shifts a hop after the first."""
+    import torch
+
+    from landiff_tpu_torch.ops import attention as A
+    from landiff_tpu_torch.parallel import ring_attention as R
+    from landiff_tpu_torch.parallel import tp_infer
+
+    n = mesh.cfg.time
+    dt = torch.float32 if f32 else torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (2, 17776, 30, 64)
+    q = (torch.randn(shape, generator=g, device="cuda") * 1.5).to(dt)
+    k, v = (torch.randn(shape, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    kname = A.variant_name(int8, f32=f32)
+    mesh.run(tp_infer.rank_report, True)
+    out = R.ring_attention(q, k, v, mesh, impl="pallas", int8_scores=int8,
+                           int8_pv=False)
+    reports = mesh.run(tp_infer.rank_report, True)
+    t0 = time.perf_counter()
+    R.ring_attention(q, k, v, mesh, impl="pallas", int8_scores=int8,
+                     int8_pv=False)
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    mesh.run(tp_infer.rank_report, True)
+    for rep in reports:
+        got = {kk: c for kk, c in rep["launches"].items() if c}
+        check(got == {kname: n}, f"ring {kname}: rank {rep['rank']} "
+              f"launched {got}, want {n} of {kname}")
+        check(rep["collectives"]["ring_shift"] == 2 * (n - 1),
+              f"ring {kname}: rank {rep['rank']} {rep['collectives']}")
+    t0 = time.perf_counter()
+    if f32:
+        hop = (A.int8_f64_reference if int8 else
+               lambda a, b, c: A.f64_reference(A.flash_exact_plain, a, b, c))
+        ref = _plain_ring(q, k, v, n, hop, torch.float64)
+    else:
+        hop = A.flash_int8_plain if int8 else A.flash_exact_plain
+        ref = _plain_ring(q, k, v, n, hop, torch.float32).to(dt)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    single = A.flash_attention(q, k, v, int8_scores=int8, int8_pv=False,
+                               exp_bf16=False)
+    entry = {"form": kname, "shape": list(shape), "time": n,
+             "ring_s": ring_s, "plain_ring_s": plain_s,
+             "launches_per_rank": [r["launches"][kname] for r in reports],
+             "shifts_per_rank": [r["collectives"]["ring_shift"]
+                                 for r in reports]}
+    check(bool(torch.isfinite(out.float()).all()), f"ring {kname}: finite")
+    if f32:
+        max_rel, rms = A.kernel_error_rel(out, ref)
+        tol = A.F32_TOL["fwd"]
+        check(max_rel <= tol["max_rel"] and rms <= tol["rel_rms"],
+              f"ring {kname}: {max_rel} / {rms} off the plain ring, "
+              f"limits {tol}")
+        s_rel, s_rms = A.kernel_error_rel(out, single)
+        check(s_rel <= RING_SINGLE_F32_TOL["max_rel"]
+              and s_rms <= RING_SINGLE_F32_TOL["rel_rms"],
+              f"ring {kname}: {s_rel} / {s_rms} off one call")
+        entry.update(vs_plain={"max_rel_err": max_rel, "rel_rms_err": rms,
+                               "limits": tol},
+                     vs_single_call={"max_rel_err": s_rel,
+                                     "rel_rms_err": s_rms,
+                                     "limits": RING_SINGLE_F32_TOL})
+    else:
+        steps, rms = A.kernel_error(out, ref)
+        lim = A.variant_limits(ref, v, int8_pv=False, exp_bf16=False,
+                               tol_steps=KERNEL_TOL_STEPS + 1.0,
+                               tol_rms=KERNEL_TOL_RMS, lse_tol=LSE_TOL)
+        err = (out.float() - ref.float()).abs().max().item()
+        check(err <= lim["max_abs"] and rms <= lim["rel_rms"],
+              f"ring {kname}: {err} ({steps} steps) / {rms} off the plain "
+              f"ring, limits {lim}")
+        s_steps, s_rms = A.kernel_error(out, single)
+        check(s_steps <= RING_SINGLE_TOL["steps"]
+              and s_rms <= RING_SINGLE_TOL["rel_rms"],
+              f"ring {kname}: {s_steps} steps / {s_rms} off one call")
+        entry.update(vs_plain={"max_abs_err": err, "max_bf16_steps": steps,
+                               "rel_rms_err": rms, "limits": lim},
+                     vs_single_call={"max_bf16_steps": s_steps,
+                                     "rel_rms_err": s_rms,
+                                     "limits": RING_SINGLE_TOL})
+    log(json.dumps({"phase": "sp", "case": "ring", **entry}))
+    return entry
+
+
+def _cp_decode_case(mesh, cfg):
+    """The VAE decode of 13 latents at full width (LanDiffConfig().vae,
+    random weights from a seed), bf16: context-parallel over the mesh's
+    time ranks against the whole decode in this process (the same
+    function: the whole video's GroupNorm statistics; the W8A8 gate's
+    limits, TP_LIMITS) and, as a reading, against the streaming decode
+    the unsharded request takes (its statistics per chunk); seconds and
+    peak memory per rank."""
+    import torch
+
+    from landiff_tpu_torch.diffusion import drift
+    from landiff_tpu_torch.models import vae
+    from landiff_tpu_torch.parallel import tp_infer, vae_cp
+
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    p = vae.init_decoder(gen, cfg.vae)
+    d = cfg.dit
+    z = torch.randn((1, d.out_channels, d.latent_frames, d.latent_height,
+                     d.latent_width), generator=gen, device="cuda")
+    out = {"latents": list(z.shape)}
+    for name, fn in (
+            ("whole", lambda: vae.decode(p, z, cfg.vae)[0].float()),
+            ("streaming", lambda: vae.decode_streaming(p, z, cfg.vae))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            video = fn()
+            torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if name == "whole":
+            whole = video
+        else:
+            stream = video
+        del video
+    torch.cuda.empty_cache()
+    mesh.run(tp_infer.rank_report, True)
+    t0 = time.perf_counter()
+    cp = vae_cp.decode_temporal_cp(p, z, cfg.vae, mesh).float()
+    torch.cuda.synchronize()
+    reports = mesh.run(tp_infer.rank_report, True)
+    check(cp.shape == whole.shape == (1, 3, 49, 480, 720),
+          f"cp decode {tuple(cp.shape)}")
+    check(bool(torch.isfinite(cp).all()), "cp decode not finite")
+    out["cp"] = {
+        "seconds": time.perf_counter() - t0,
+        "max_memory_allocated": [r["max_memory_allocated"] for r in reports],
+        "collectives_per_rank": [r["collectives"] for r in reports],
+        "vs_whole": _tp_drift(whole, cp, "cp decode vs whole"),
+        "vs_streaming_reading": drift.drift(stream.cpu().numpy(),
+                                            cp.cpu().numpy())}
+    del whole, stream, cp, p
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "sp", "case": "cp_decode", **out}))
+    return out
+
+
+def phase_sp(steps):
+    """Sequence / context-parallel inference on the one card (ROADMAP item
+    15b, its inference half): ranks as processes sharing cuda:0, as in the
+    tp phase (device exchange buffers, gloo barriers; readings of that
+    layout, not speed).
+
+    (a) data=1,time=2: ring attention at the DiT shape in the exact and
+    int8 bf16 forms and the int8 f32 form (_ring_case); the CP decode of
+    13 latents at full VAE width (_cp_decode_case). Then the wrappers at
+    full width on the mesh (random weights from a seed, zero leaves
+    filled; stage 1 on the first GPT_CUT GPT blocks, unsharded in rank 0
+    as a mesh without `model` leaves it; rank 0's DiT replica is the
+    wrapper's own tree): one model call against the unsharded call on
+    rank 0's trees (TP_LIMITS), 90 int8 launches, 90 ring shifts, one
+    all-gather and no all-reduce a rank, the DiT bytes per rank equal to
+    plan's; one request through infer_video.generate at `steps` denoise
+    steps with LANDIFF_OFFLOAD=1 (every rank's DiT trees leave the card
+    before the two ranks decode beside rank 0's T5s): 1,218 codes, a
+    video as in 5 from the CP decode, 12 + 90 x steps int8 launches a
+    rank. (b) model=2,time=2 at 2 + 1 DiT layers
+    (15 heads a rank, tokens over two): bf16 and W8A8 calls against the
+    unsharded ones (TP_LIMITS), 6 launches, 6 all-reduces and 6 ring
+    shifts a rank. Returns the per-rank launches on the path."""
+    import gc
+
+    import torch
+
+    from landiff_tpu_torch.config import ARSampleConfig, LanDiffConfig, \
+        MeshConfig
+    from landiff_tpu_torch.models import dit
+    from landiff_tpu_torch.parallel import mesh as mesh_lib
+    from landiff_tpu_torch.parallel import plan as plan_lib
+    from landiff_tpu_torch.parallel import tp_infer
+    from landiff_tpu_torch.pipeline import dif_infer, infer_video, llm_infer
+    from landiff_tpu_torch.utils import fill_zero_leaves
+
+    t_phase = time.perf_counter()
+    cfg = LanDiffConfig()
+    cfg = dataclasses.replace(
+        cfg, sampler=dataclasses.replace(cfg.sampler, num_steps=steps))
+    d = cfg.dit
+    x, sem, ctx = _dit_call_inputs(cfg, 17)
+    ts = torch.tensor([500.0, 500.0], device="cuda")
+    launches = {}
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_mesh(MeshConfig(time=2), devices=["cuda:0"] * 2)
+    out = {"phase": "sp", "mesh": "data=1,time=2", "backend": mesh.backend,
+           "layout": "2 ranks (processes) sharing cuda:0; device exchange "
+                     "buffers, gloo barriers; times are not speed "
+                     "readings", "mesh_s": time.perf_counter() - t0}
+    try:
+        rings = [_ring_case(mesh, False, False, 61),
+                 _ring_case(mesh, True, False, 62),
+                 _ring_case(mesh, True, True, 63)]
+        launches["ring"] = {r["form"]: r["launches_per_rank"] for r in rings}
+        decode = _cp_decode_case(mesh, cfg)
+
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(71)
+        llm_cfg = dataclasses.replace(cfg.llm, num_layers=GPT_CUT)
+        prompt, seed = SP_PROMPT
+        llm = llm_infer.ArModelInferWrapper(
+            fill_zero_leaves(llm_infer.init_params(gen, llm_cfg, cfg.t5),
+                             gen),
+            llm_cfg, cfg.t5, ARSampleConfig(seed=seed), mesh=mesh,
+            device="cuda")
+        check(llm.mesh is None, "stage 1 was sharded on a mesh without "
+              "`model`")
+        dif = dif_infer.CogModelInferWrapper(
+            fill_zero_leaves(dif_infer.init_params(gen, cfg), gen), cfg,
+            mesh=mesh, device="cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        st = mesh.ctx.state[dif.key]
+        with torch.inference_mode():
+            ref = dit.control_warp_forward(st["main"], st["control"], x, ts,
+                                           ctx, d, sem)
+        got, call_s, reports = _tp_call(mesh, dif.key, d, x, ts, ctx, sem)
+        layers = d.num_layers + d.control_layers
+        plan = plan_lib.plan(mesh.cfg, cfg)["components"]
+        for rep in reports:
+            n = rep["launches"]
+            check(n["flash_fwd_int8"] == 2 * layers and sum(n.values())
+                  == 2 * layers, f"sp call: rank {rep['rank']} launches {n}")
+            c = rep["collectives"]
+            check(c == {"all_reduce": 0, "all_gather": 1,
+                        "ring_shift": 2 * layers},
+                  f"sp call: rank {rep['rank']} collectives {c}")
+            for part, name in (("main", "dit_main"),
+                               ("control", "dit_control")):
+                b = rep["param_bytes"][dif.key][part]
+                want = plan[name]["per_chip_bytes"]
+                check(b == want, f"sp: rank {rep['rank']} {part} bytes {b}"
+                      f", plan {want}")
+        out["model_call"] = {
+            "seconds": call_s, "drift": _tp_drift(ref, got, "sp call"),
+            "launches_per_rank": [r["launches"]["flash_fwd_int8"]
+                                  for r in reports],
+            "collectives_per_rank": [r["collectives"] for r in reports],
+            "param_bytes_per_rank": [r["param_bytes"][dif.key]
+                                     for r in reports],
+            "max_memory_allocated": [r["max_memory_allocated"]
+                                     for r in reports]}
+        launches["model_call"] = out["model_call"]["launches_per_rank"]
+        del ref, got
+        log(json.dumps(out))
+
+        # the DiT trees of every rank go to host memory before the decode
+        # (LANDIFF_OFFLOAD): the two ranks' decodes beside rank 0's T5s
+        t0 = time.perf_counter()
+        os.environ["LANDIFF_OFFLOAD"] = "1"
+        try:
+            res = infer_video.generate(llm, dif, prompt, seed=seed)
+        finally:
+            os.environ.pop("LANDIFF_OFFLOAD")
+        request_s = time.perf_counter() - t0
+        reports = mesh.run(tp_infer.rank_report, True)
+        check_codes(res["codes"], cfg, "sp request")
+        check_video(res["video"], res["latent"])
+        for rep in reports:
+            n = rep["launches"]["flash_fwd_int8"]
+            check(n == 12 + 2 * layers * steps,
+                  f"sp request: rank {rep['rank']} int8 launches {n}")
+        launches["request"] = [r["launches"]["flash_fwd_int8"]
+                               for r in reports]
+        out = {"phase": "sp", "mesh": "data=1,time=2", "request": {
+            "seconds": request_s, "stage1_s": res["stage1_s"],
+            "stage2_s": res["stage2_s"],
+            "stage1": "unsharded in rank 0 (no model axis)",
+            "stage2_phase_seconds": res["stage2_phases"],
+            "cp_decode": True, "offload": dif.offloaded,
+            "launches_per_rank": [r["launches"] for r in reports],
+            "collectives_per_rank": [r["collectives"] for r in reports],
+            "max_memory_allocated": [r["max_memory_allocated"]
+                                     for r in reports],
+            "video_mean": float(res["video"].mean()),
+            "video_std": float(res["video"].std())}}
+        log(json.dumps(out))
+    finally:
+        mesh.close()
+    del llm, dif, res, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the 2-D hybrid, depth cut
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(d, num_layers=2, control_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    params = fill_zero_leaves({"main": dit.init(gen, cut),
+                               "control": dit.init(gen, cut, control=True)},
+                              gen)
+    with torch.inference_mode():
+        refs = {False: dit.control_warp_forward(
+            params["main"], params["control"], x, ts, ctx, cut, sem),
+            True: dit.control_warp_forward(
+                dit.quantize_int8(params["main"]),
+                dit.quantize_int8(params["control"]), x, ts, ctx, cut, sem)}
+    mesh = mesh_lib.make_mesh(MeshConfig(model=2, time=2),
+                              devices=["cuda:0"] * 4)
+    out = {"phase": "sp", "mesh": "model=2,time=2", "backend": mesh.backend,
+           "depth": "2 + 1 DiT layers", "heads_per_rank": 15}
+    try:
+        for int8 in (False, True):
+            key = f"tpsp/{'w8a8' if int8 else 'bf16'}"
+            for k in ("main", "control"):
+                mesh_lib.load(mesh, key, k, tp_infer.dit_shards(
+                    params[k], cut, mesh.cfg, mesh.devices, int8=int8,
+                    dtype=torch.bfloat16))
+            got, call_s, reports = _tp_call(mesh, key, cut, x, ts, ctx, sem)
+            for rep in reports:
+                n, c = rep["launches"], rep["collectives"]
+                check(n["flash_fwd_int8"] == 6 and sum(n.values()) == 6,
+                      f"{key}: rank {rep['rank']} launches {n}")
+                check(c["all_reduce"] == 6 and c["ring_shift"] == 6,
+                      f"{key}: rank {rep['rank']} collectives {c}")
+            out[key] = {"seconds": call_s,
+                        "drift": _tp_drift(refs[int8], got, key),
+                        "max_memory_allocated": [r["max_memory_allocated"]
+                                                 for r in reports]}
+            launches[key] = [r["launches"]["flash_fwd_int8"]
+                             for r in reports]
+    finally:
+        mesh.close()
+    out["seconds"] = time.perf_counter() - t0
+    log(json.dumps(out))
+    log(json.dumps({"phase": "sp", "decode_peaks": decode["cp"][
+        "max_memory_allocated"], "seconds": time.perf_counter() - t_phase}))
+    return launches
+
+
 SERVING_PROMPTS = (("a lighthouse in a storm at night", 11),
                    ("a red fox jumping over a frozen stream", 12),
                    ("a hot air balloon above a canyon", 13))
@@ -3897,7 +4292,7 @@ def main():
     ap.add_argument("--only", choices=("flash_fwd", "flash_bwd", "f32",
                                        "stage1_batch", "long_video", "ckpt",
                                        "train", "tokenizer", "variants",
-                                       "serving", "tp"),
+                                       "serving", "tp", "sp"),
                     help="build, then only this kernel's cases at the "
                          "main-path shapes, or only the batched decoding "
                          "check at full width (no pipeline, no last "
@@ -3962,6 +4357,9 @@ def main():
     if args.only == "tp":
         cfg, llm, dif = build_full(args.steps)
         phase_tp(cfg, llm, dif)
+        return
+    if args.only == "sp":
+        phase_sp(args.steps)
         return
     if args.only in ("ckpt", "train"):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -4040,6 +4438,8 @@ def main():
     del llm, dif
     gc.collect()
     torch.cuda.empty_cache()
+    # 8j. sequence / context-parallel inference, ranks sharing the card
+    sp_launches = phase_sp(args.steps)
     # 8f. video -> codes; 8g. video -> VAE latents
     tokenize_launches = phase_tokenize()
     phase_vae_encode()
@@ -4148,6 +4548,16 @@ def main():
         serving_launches["flash_fwd_int8"]
     by_name["flash_fwd_int8"]["launches_tp_model_call_per_rank"] = \
         tp_launches
+    # per rank under time=2 (the ring's hops), model=2,time=2 at 2 + 1
+    # layers, and the ring alone in each form
+    by_name["flash_fwd_int8"]["launches_sp_model_call_per_rank"] = \
+        sp_launches["model_call"]
+    by_name["flash_fwd_int8"]["launches_sp_request_per_rank"] = \
+        sp_launches["request"]
+    by_name["flash_fwd_int8"]["launches_tpsp_call_per_rank"] = \
+        sp_launches["tpsp/bf16"]
+    for name, n in sp_launches["ring"].items():
+        by_name[name]["launches_sp_ring_per_rank"] = n
     by_name["flash_fwd_int8"]["launches_rotary3d_call"] = \
         rotary_launches["flash_fwd_int8"]
     by_name["flash_fwd_int8"]["launches_samplers"] = {

@@ -1,7 +1,8 @@
 """Stage-2 diffusion engine (counterpart of landiff_tpu/diffusion/
 engine.py): DiT(+control) + DiscreteDenoiser + DynamicCFG + the sampler
 chosen by `SamplerConfig.name` (VPSDE-DPM++2M by default, VPODE-DPM++2M,
-Video-DDIM) + the VAE first stage (decode, and encode for prefix video).
+Video-DDIM) + the VAE first stage (decode, context-parallel over a
+`time` group too, and encode for prefix video).
 
 CFG batch order is [uncond, cond] (guiders.py prepare_inputs: cat(uc, c)).
 The semantic feature is computed once and captured by the denoise closure
@@ -193,6 +194,20 @@ def decode_first_stage(vae_params, latents, vae_cfg: VAEConfig, *,
     z = latents.permute(0, 2, 1, 3, 4) / vae_cfg.scale_factor
     return vae_lib.decode_streaming(vae_params["decoder"], z, vae_cfg,
                                     compute_dtype=compute_dtype)
+
+
+def decode_first_stage_cp(vae_params, latents, vae_cfg: VAEConfig, group,
+                          *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """decode_first_stage with the frames over the ranks of a `time`
+    Group (engine.py:250-261, parallel/vae_cp.py): called by every rank of
+    the group with the whole latents; the f32 video on every rank. The
+    whole video's GroupNorm statistics, where the streaming decode takes
+    each chunk's."""
+    from landiff_tpu_torch.parallel import vae_cp
+
+    z = latents.permute(0, 2, 1, 3, 4) / vae_cfg.scale_factor
+    return vae_cp.decode_cp(vae_params["decoder"], z, vae_cfg, group,
+                            compute_dtype=compute_dtype).float()
 
 
 def encode_first_stage(vae_params, video, vae_cfg: VAEConfig, *,

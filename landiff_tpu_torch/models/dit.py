@@ -24,8 +24,10 @@ LANDIFF_REMAT_SAVE_ATTN=1 the layer checkpoint keeps the flash out / lse
 `rot_v`) after qk-LN and adds no sincos table. `control_mlp_adapter_
 forward` is the lighter control alternative. `forward_tp` /
 `control_warp_forward_tp` run the Megatron tensor-parallel layers on one
-rank's heads (parallel/tp_infer.py); the sequence-parallel variants are
-ROADMAP item 15b.
+rank's heads (parallel/tp_infer.py), with `sp_group` also on one rank's
+tokens (the 2-D hybrid); `forward_sp` / `control_warp_forward_sp` run the
+sequence-parallel layers on one rank's tokens with the weights whole,
+attention as a ring over the `time` ranks (parallel/ring_attention.py).
 """
 
 from __future__ import annotations
@@ -236,6 +238,22 @@ def quantize_int8(params):
     return out
 
 
+def _adaln_sel(p, emb, x, tl: int, offset: int = 0):
+    """adaLN_modulation = Sequential(SiLU, Linear) -> the 12 (B, D)
+    pieces, and sel(i): piece i per position of x, the text positions
+    taking their own shift/scale/gate (dit.py:228-248). offset: the
+    global position of x's first token (a sequence-parallel shard holds
+    [offset, offset + S) of the [text|video] sequence)."""
+    mods = _linear(p, "adaln", F.silu(emb.to(x.dtype))).chunk(12, dim=-1)
+    pos = offset + torch.arange(x.shape[1], device=x.device)
+    is_text = (pos < tl)[None, :, None]
+
+    def sel(i):
+        return torch.where(is_text, mods[6 + i][:, None], mods[i][:, None])
+
+    return mods, sel
+
+
 def _layer(p, x, emb, cfg: DiTConfig, attn_impl="auto"):
     """One AdaLN DiT layer over the concatenated [text|video] sequence.
     attn_impl: a route of `attention`, or a callable (q, k, v) -> out in
@@ -244,13 +262,7 @@ def _layer(p, x, emb, cfg: DiTConfig, attn_impl="auto"):
     tl = cfg.text_length
     H, Dk = cfg.num_heads, cfg.head_dim
     dt = x.dtype
-    # adaLN_modulation = Sequential(SiLU, Linear) -> 12 (B, D) pieces; the
-    # text and video positions take their own shift/scale/gate
-    mods = _linear(p, "adaln", F.silu(emb.to(dt))).chunk(12, dim=-1)
-    is_text = (torch.arange(S, device=x.device) < tl)[None, :, None]
-
-    def sel(i):
-        return torch.where(is_text, mods[6 + i][:, None], mods[i][:, None])
+    mods, sel = _adaln_sel(p, emb, x, tl)
 
     # LANDIFF_FUSED_ADALN=1: LayerNorm + modulate in one pass through the
     # fused adaLN kernel (ops/adaln.py) where its shape rule holds; off by
@@ -410,37 +422,69 @@ def control_warp_forward(main_params, control_params, x, timesteps, context,
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel forwards (dit.py:303-380, :592-655): run on every rank of
-# a `model` group with the rank's part of the tp-prepped layers
-# (parallel/tp_infer.prep_dit_tp); `group` is that mesh.Group
+# tensor- and sequence-parallel forwards (dit.py:303-436, :582-713): run on
+# every rank of a mesh, `group` the rank's `model` Group (with the rank's
+# part of the tp-prepped layers, parallel/tp_infer.prep_dit_tp), `sp_group`
+# its `time` Group
 
 
-def _layer_tp(p, x, emb, cfg: DiTConfig, attn_impl, group, sp_axis=None):
+def _sp_slice(h, group):
+    """(global offset, this rank's tokens of h): S splits evenly over the
+    group (JAX asserts it), the rank's share by its member index."""
+    S = h.shape[1]
+    if S % group.size:
+        raise ValueError(f"a sequence of {S} tokens does not split over "
+                         f"time={group.size}")
+    s_loc = S // group.size
+    offset = group.rank * s_loc
+    return offset, h[:, offset:offset + s_loc]
+
+
+def _ring_impl(attn_impl) -> str:
+    """The ring's hop route for a layer's attn_impl (dit.py:353-354): the
+    flash forwards on the device for auto / pallas, dense hops for xla."""
+    if attn_impl in ("auto", "pallas"):
+        return "auto"
+    if attn_impl == "xla":
+        return "xla"
+    raise ValueError(f"a sequence-parallel layer takes attn_impl auto, "
+                     f"pallas or xla, not {attn_impl!r}")
+
+
+def _attend(q, k, v, attn_impl, sp_group):
+    """Attention of a layer: the dispatcher (or a callable attn_impl in
+    its place), or under sequence parallelism the ring over sp_group."""
+    if sp_group is None:
+        return (attn_impl(q, k, v) if callable(attn_impl)
+                else attention(q, k, v, impl=attn_impl))
+    from landiff_tpu_torch.parallel.ring_attention import \
+        ring_attention_local
+
+    return ring_attention_local(q, k, v, sp_group,
+                                impl=_ring_impl(attn_impl))
+
+
+def _layer_tp(p, x, emb, cfg: DiTConfig, attn_impl, group, sp_group=None,
+              offset=0):
     """Megatron variant of `_layer` on this rank's heads: qkv_w (D, 3,
     H_local, Dk) column-parallel, attn_out_w (H_local, Dk, D)
     row-parallel, mlp0 column- and mlp1 row-parallel; the hidden stream x
-    is whole on every rank. Exactly two all-reduces, after attn-out and
-    after mlp1, each followed by its bias, added once. qk-LN and Rotary3D
-    act per head; a zero-padded head (tp_infer.pad_heads) has v = 0 and
-    adds exactly nothing. As JAX's `_layer_tp`, LayerNorm and modulate
-    stay unfused: LANDIFF_FUSED_ADALN is not read. W8A8 leaves ({q, s},
-    tp_infer.quantize_layer_tp) take per-token scales of this rank's
-    features; the per-output scale of a row-parallel product applies
-    before the all-reduce, as JAX's. sp_axis (tokens over `time`) is
-    ROADMAP item 15b."""
-    if sp_axis is not None:
-        raise NotImplementedError(
-            "sequence parallelism is not ported yet: ROADMAP item 15b")
+    is whole on every rank of the model group. Exactly two all-reduces,
+    after attn-out and after mlp1, each followed by its bias, added once.
+    qk-LN and Rotary3D act per head; a zero-padded head (tp_infer.
+    pad_heads) has v = 0 and adds exactly nothing. As JAX's `_layer_tp`,
+    LayerNorm and modulate stay unfused: LANDIFF_FUSED_ADALN is not read.
+    W8A8 leaves ({q, s}, tp_infer.quantize_layer_tp) take per-token scales
+    of this rank's features; the per-output scale of a row-parallel
+    product applies before the all-reduce, as JAX's. sp_group / offset:
+    the 2-D hybrid, x this rank's tokens [offset, offset + S) of a
+    sequence sharded over sp_group (the `time` ranks at this model
+    index), attention a ring over them on the local heads."""
     B, S, D = x.shape
-    tl = cfg.text_length
     dt = x.dtype
     w = p["qkv_w"]
     _, _, Hl, Dk = (w["q"] if isinstance(w, dict) else w).shape
-    mods = _linear(p, "adaln", F.silu(emb.to(dt))).chunk(12, dim=-1)
-    is_text = (torch.arange(S, device=x.device) < tl)[None, :, None]
-
-    def sel(i):
-        return torch.where(is_text, mods[6 + i][:, None], mods[i][:, None])
+    _, sel = _adaln_sel(p, emb, x, cfg.text_length, offset)
 
     h = layer_norm(x, p["ln1_w"], p["ln1_b"], 1e-6)
     h = h * (1.0 + sel(1)) + sel(0)
@@ -455,9 +499,8 @@ def _layer_tp(p, x, emb, cfg: DiTConfig, attn_impl, group, sp_axis=None):
     if cfg.qk_ln:
         q = layer_norm(q, p["q_ln_w"], p["q_ln_b"], 1e-6)
         k = layer_norm(k, p["k_ln_w"], p["k_ln_b"], 1e-6)
-    q, k, v = _maybe_rotary(q, k, v, cfg)
-    attn = (attn_impl(q, k, v) if callable(attn_impl)
-            else attention(q, k, v, impl=attn_impl)).reshape(B, S, Hl * Dk)
+    q, k, v = _maybe_rotary(q, k, v, cfg, offset)
+    attn = _attend(q, k, v, attn_impl, sp_group).reshape(B, S, Hl * Dk)
     wo = p["attn_out_w"]
     if isinstance(wo, dict):
         attn = _w8a8_matmul(attn, wo["q"].reshape(Hl * Dk, D), wo["s"])
@@ -476,50 +519,156 @@ def _layer_tp(p, x, emb, cfg: DiTConfig, attn_impl, group, sp_axis=None):
     return x + sel(5) * h
 
 
-def forward_tp(params, x, timesteps, context, cfg: DiTConfig, *, group,
-               control_outputs=None, attn_impl="auto",
-               compute_dtype=torch.bfloat16, sp_axis=None):
-    """`forward` with the tensor-parallel layers; the embeddings and the
-    final head are computed whole on every rank (small beside the
-    blocks)."""
-    h, emb = _embed_inputs(params, x, timesteps, context, cfg, compute_dtype)
+def _layer_sp(p, x, emb, cfg: DiTConfig, attn_impl, sp_group, offset):
+    """Sequence-parallel variant of `_layer` (dit.py:383-436): x holds this
+    rank's tokens [offset, offset + S) of the [text|video] sequence, the
+    weights are whole (W8A8 leaves of quantize_int8 too: per-token
+    activation scales are local rows). Every op is per token but
+    attention, a ring over sp_group; no all-reduce. LayerNorm and modulate
+    stay unfused, as JAX's."""
+    B, S, D = x.shape
+    H, Dk = cfg.num_heads, cfg.head_dim
+    _, sel = _adaln_sel(p, emb, x, cfg.text_length, offset)
+
+    h = layer_norm(x, p["ln1_w"], p["ln1_b"], 1e-6)
+    h = h * (1.0 + sel(1)) + sel(0)
+    q, k, v = _linear(p, "qkv", h).chunk(3, dim=-1)
+    q = q.reshape(B, S, H, Dk)
+    k = k.reshape(B, S, H, Dk)
+    v = v.reshape(B, S, H, Dk).contiguous()
+    if cfg.qk_ln:
+        q = layer_norm(q, p["q_ln_w"], p["q_ln_b"], 1e-6)
+        k = layer_norm(k, p["k_ln_w"], p["k_ln_b"], 1e-6)
+    q, k, v = _maybe_rotary(q, k, v, cfg, offset)
+    attn = _attend(q, k, v, attn_impl, sp_group).reshape(B, S, D)
+    x = x + sel(2) * _linear(p, "attn_out", attn)
+
+    h = layer_norm(x, p["ln2_w"], p["ln2_b"], 1e-6)
+    h = h * (1.0 + sel(4)) + sel(3)
+    h = F.gelu(_linear(p, "mlp0", h), approximate="tanh")
+    return x + sel(5) * _linear(p, "mlp1", h)
+
+
+def _main_layers(params, h, emb, cfg, layer, sp_group, control_outputs):
+    """The main stream through `layer(p, h, offset)`: embeddings whole on
+    every rank, then (under sp_group) this rank's tokens through the
+    layers with the control taps of the same tokens, gathered back before
+    the final head (one all-gather of (B, S, D) a forward)."""
+    offset = 0
+    if sp_group is not None:
+        offset, h = _sp_slice(h, sp_group)
     for i, p in enumerate(params["layers"]):
-        h = _layer_tp(p, h, emb, cfg, attn_impl, group, sp_axis)
+        h = layer(p, h, offset)
         if control_outputs is not None and i < len(control_outputs):
             h = h + control_outputs[i].to(h.dtype)
+    if sp_group is not None:
+        h = sp_group.all_gather(h, dim=1)
     return _final_head(params, h, emb, cfg)
 
 
-def control_forward_tp(params, x, timesteps, context, cfg: DiTConfig,
-                       semantic_feature, *, group, attn_impl="auto",
-                       compute_dtype=torch.bfloat16, sp_axis=None):
-    """`control_forward` with the tensor-parallel layers; zero_linear
-    stays whole on every rank (D x D a layer, and its output joins the
-    whole main stream)."""
-    x = x.to(compute_dtype) + semantic_feature.to(compute_dtype)
-    h, emb = _embed_inputs(params, x, timesteps, context, cfg, compute_dtype)
+def _control_layers(params, h, cfg, layer, sp_group):
+    """The control taps through `layer(p, h, offset)`; under sp_group
+    each rank's taps stay on its tokens (no gather)."""
+    offset = 0
+    if sp_group is not None:
+        offset, h = _sp_slice(h, sp_group)
     outs = []
     for p in params["layers"]:
-        h = _layer_tp(p, h, emb, cfg, attn_impl, group, sp_axis)
+        h = layer(p, h, offset)
         h = h @ p["zero_linear_w"].to(h.dtype)
         outs.append(h)
     return outs
 
 
+def forward_tp(params, x, timesteps, context, cfg: DiTConfig, *, group,
+               control_outputs=None, attn_impl="auto",
+               compute_dtype=torch.bfloat16, sp_group=None):
+    """`forward` with the tensor-parallel layers; the embeddings and the
+    final head are computed whole on every rank (small beside the
+    blocks). sp_group: the 2-D hybrid (tokens also over `time`)."""
+    h, emb = _embed_inputs(params, x, timesteps, context, cfg, compute_dtype)
+    return _main_layers(
+        params, h, emb, cfg,
+        lambda p, h, off: _layer_tp(p, h, emb, cfg, attn_impl, group,
+                                    sp_group, off),
+        sp_group, control_outputs)
+
+
+def control_forward_tp(params, x, timesteps, context, cfg: DiTConfig,
+                       semantic_feature, *, group, attn_impl="auto",
+                       compute_dtype=torch.bfloat16, sp_group=None):
+    """`control_forward` with the tensor-parallel layers; zero_linear
+    stays whole on every rank (D x D a layer, and its output joins the
+    whole main stream, or this rank's tokens of it under sp_group)."""
+    x = x.to(compute_dtype) + semantic_feature.to(compute_dtype)
+    h, emb = _embed_inputs(params, x, timesteps, context, cfg, compute_dtype)
+    return _control_layers(
+        params, h, cfg,
+        lambda p, h, off: _layer_tp(p, h, emb, cfg, attn_impl, group,
+                                    sp_group, off),
+        sp_group)
+
+
 def control_warp_forward_tp(main_params, control_params, x, timesteps,
                             context, cfg: DiTConfig, semantic_feature, *,
                             group, attn_impl="auto",
-                            compute_dtype=torch.bfloat16, sp_axis=None):
+                            compute_dtype=torch.bfloat16, sp_group=None):
     """ControlDiffWarp.forward under tensor parallelism: 2 x (layers +
-    control layers) all-reduces."""
+    control layers) all-reduces (and under sp_group 2 ring shifts a layer
+    and hop, one all-gather)."""
     ctrl_cfg = dataclasses.replace(cfg, num_layers=cfg.control_layers)
     ctrl = control_forward_tp(control_params, x, timesteps, context,
                               ctrl_cfg, semantic_feature, group=group,
                               attn_impl=attn_impl,
-                              compute_dtype=compute_dtype, sp_axis=sp_axis)
+                              compute_dtype=compute_dtype, sp_group=sp_group)
     return forward_tp(main_params, x, timesteps, context, cfg, group=group,
                       control_outputs=ctrl, attn_impl=attn_impl,
-                      compute_dtype=compute_dtype, sp_axis=sp_axis)
+                      compute_dtype=compute_dtype, sp_group=sp_group)
+
+
+def forward_sp(params, x, timesteps, context, cfg: DiTConfig, *, sp_group,
+               control_outputs=None, attn_impl="auto",
+               compute_dtype=torch.bfloat16):
+    """Main DiT forward, sequence-parallel (dit.py:658-681, without the
+    training's remat): embeddings whole on every rank, this rank's tokens
+    through `_layer_sp`, the final head on the gathered sequence.
+    control_outputs: this rank's taps (control_forward_sp)."""
+    h, emb = _embed_inputs(params, x, timesteps, context, cfg, compute_dtype)
+    return _main_layers(
+        params, h, emb, cfg,
+        lambda p, h, off: _layer_sp(p, h, emb, cfg, attn_impl, sp_group,
+                                    off),
+        sp_group, control_outputs)
+
+
+def control_forward_sp(params, x, timesteps, context, cfg: DiTConfig,
+                       semantic_feature, *, sp_group, attn_impl="auto",
+                       compute_dtype=torch.bfloat16):
+    """Sequence-parallel control branch (dit.py:684-698): this rank's
+    (B, S_local, D) zero-linear taps."""
+    x = x.to(compute_dtype) + semantic_feature.to(compute_dtype)
+    h, emb = _embed_inputs(params, x, timesteps, context, cfg, compute_dtype)
+    return _control_layers(
+        params, h, cfg,
+        lambda p, h, off: _layer_sp(p, h, emb, cfg, attn_impl, sp_group,
+                                    off),
+        sp_group)
+
+
+def control_warp_forward_sp(main_params, control_params, x, timesteps,
+                            context, cfg: DiTConfig, semantic_feature, *,
+                            sp_group, attn_impl="auto",
+                            compute_dtype=torch.bfloat16):
+    """ControlDiffWarp.forward under sequence parallelism: per rank 2 x
+    (time - 1) ring shifts a layer, one all-gather, no all-reduce."""
+    ctrl_cfg = dataclasses.replace(cfg, num_layers=cfg.control_layers)
+    ctrl = control_forward_sp(control_params, x, timesteps, context,
+                              ctrl_cfg, semantic_feature, sp_group=sp_group,
+                              attn_impl=attn_impl,
+                              compute_dtype=compute_dtype)
+    return forward_sp(main_params, x, timesteps, context, cfg,
+                      sp_group=sp_group, control_outputs=ctrl,
+                      attn_impl=attn_impl, compute_dtype=compute_dtype)
 
 
 def control_mlp_adapter_forward(params, x, context, cfg: DiTConfig, *,

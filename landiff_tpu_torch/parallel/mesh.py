@@ -12,10 +12,14 @@ that are the same on every rank, and the collectives inside go through
 tp_infer.count_hlo_collectives). A rank's weights reach it once, as its
 shard (`load`).
 
-Ranks are laid out data-major, rank = d * model + m, as JAX reshapes the
-device list to (data, model, time). The `model` groups (one per data
-index) carry the Megatron all-reduces, the `data` groups (one per model
-index) the gather of the CFG rows.
+Ranks are laid out data-major, then model, then time: rank = (d * model
++ m) * time + t, as JAX reshapes the device list to (data, model, time)
+(`rank_coords`). The `model` groups (one per data and time index) carry
+the Megatron all-reduces, the `data` groups (one per model and time
+index) the gather of the CFG rows, the `time` groups (one per data and
+model index) the ring shifts of sequence parallelism and the halos and
+statistics of the context-parallel VAE (`Group.shift`, JAX's ppermute
+to (i + 1) % n).
 
 The backend follows from the layout alone: NCCL when every rank has a
 CUDA device of its own; gloo when the ranks are on the CPU or share a
@@ -30,10 +34,8 @@ interconnect.
 Failures: a worker that raises sends its traceback and exits, which
 fails the collectives its peers wait in; a rank that stops answering
 fails them at the process groups' timeout. Either way rank 0 stops every
-worker and raises `MeshError`. Only the `data` and `model` axes are
-ported: a `time` axis (sequence / context parallelism) raises, naming
-ROADMAP item 15b, as do the training rules (TITOK_RULES, the trainer's
-DIT_RULES).
+worker and raises `MeshError`. The training rules (TITOK_RULES, the
+trainer's DIT_RULES) are not ported: ROADMAP item 15b.
 """
 
 from __future__ import annotations
@@ -56,16 +58,10 @@ from landiff_tpu_torch.config import MeshConfig
 ITEM_15B = "ROADMAP item 15b"
 
 
-def refuse_time_axis(cfg: MeshConfig):
-    if cfg.time > 1:
-        raise NotImplementedError(
-            "a time axis (sequence / context parallelism) is not ported "
-            f"yet: {ITEM_15B}")
-
-
 def parse_mesh(spec: str | None) -> MeshConfig:
-    """'data=2,model=4' -> MeshConfig; None -> every visible GPU (one on a
-    machine without) on `data`, as JAX puts every device there."""
+    """'data=2,model=4' or 'data=1,time=2' -> MeshConfig; None -> every
+    visible GPU (one on a machine without) on `data`, as JAX puts every
+    device there."""
     if not spec:
         return MeshConfig(data=max(torch.cuda.device_count(), 1), model=1)
     kv = dict(part.split("=") for part in spec.split(","))
@@ -83,7 +79,6 @@ def make_mesh(cfg: MeshConfig | None = None, devices=None,
         devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     if cfg is None:
         cfg = MeshConfig(data=1, model=len(devices), time=1)
-    refuse_time_axis(cfg)
     if cfg.num_devices > len(devices):
         raise ValueError(f"mesh {cfg} needs {cfg.num_devices} devices, "
                          f"{len(devices)} given")
@@ -96,7 +91,6 @@ def as_mesh(mesh, device="cuda") -> "Mesh | None":
     if mesh is None or isinstance(mesh, Mesh):
         return mesh
     cfg = mesh if isinstance(mesh, MeshConfig) else parse_mesh(mesh)
-    refuse_time_axis(cfg)
     if torch.device(device).type == "cpu":
         return make_mesh(cfg, devices=["cpu"] * cfg.num_devices)
     return make_mesh(cfg)
@@ -180,9 +174,26 @@ def param_specs(params, rules, cfg: MeshConfig | None = None):
     return map_with_path(spec, params)
 
 
+AXES = ("data", "model", "time")
+
+
 def rank_coords(cfg: MeshConfig, rank: int) -> dict:
     return {"data": rank // (cfg.model * cfg.time),
             "model": rank // cfg.time % cfg.model, "time": rank % cfg.time}
+
+
+def coords_rank(cfg: MeshConfig, coords: dict) -> int:
+    return (coords["data"] * cfg.model + coords["model"]) * cfg.time \
+        + coords["time"]
+
+
+def group_members(cfg: MeshConfig, rank: int, axis: str) -> list:
+    """The global ranks of `rank`'s group along `axis` (the ranks that
+    share its other coordinates), in the order of their coordinate on
+    `axis`: the group's member order."""
+    c = rank_coords(cfg, rank)
+    return [coords_rank(cfg, {**c, axis: j})
+            for j in range(axis_sizes(cfg)[axis])]
 
 
 def shard_for_rank(tree, specs, cfg: MeshConfig, rank: int):
@@ -219,7 +230,7 @@ def backend_for(devices) -> str:
 # ---------------------------------------------------------------------------
 # collectives
 
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "ring_shift": 0}
 
 # elements of one rank's f32 exchange buffer on a shared CUDA device (64
 # MB); a longer tensor goes over in parts
@@ -243,12 +254,12 @@ class Group:
     into its own buffer of the current set and records an interprocess
     event; the members meet at a gloo barrier on the host, which orders
     every record before every wait; each member's stream waits for the
-    others' events and combines every buffer in rank order (the same bits
-    on every rank: for 16-bit tensors an f32 sum, rounded once), then
-    records that it has read the set. The sets alternate: before a member
-    writes a set again, two parts later, its stream waits for every
-    member's read of it, recorded before the barrier of the part
-    between."""
+    others' events and reads the buffers it needs (a sum in rank order:
+    the same bits on every rank; for 16-bit tensors an f32 sum, rounded
+    once), then records that it has read the set. The sets alternate:
+    before a member writes a set again, two parts later, its stream waits
+    for every member's read of it, recorded before the barrier of the part
+    between. A tensor longer than SHARED_CAPACITY goes over in parts."""
 
     def __init__(self, pg, size: int, rank: int):
         self.pg, self.size, self.rank = pg, size, rank
@@ -274,7 +285,8 @@ class Group:
     def _exchange(self, flat: torch.Tensor, combine):
         """combine(every member's f32 copy of `flat`, at most
         SHARED_CAPACITY elements, in rank order), enqueued once every
-        member's copy is in its buffer."""
+        member's copy is in its buffer; what combine returns must not be
+        a view of the buffers."""
         turn = self._turn
         self._turn ^= 1
         stream = torch.cuda.current_stream()
@@ -295,6 +307,10 @@ class Group:
         self.events[(turn, "read")][self.rank].record(stream)
         return out
 
+    def _parts(self, flat: torch.Tensor):
+        for i in range(0, flat.numel(), SHARED_CAPACITY):
+            yield i, flat[i:i + SHARED_CAPACITY]
+
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over the group, in t's dtype, equal on every rank;
         returns it (t itself when t is contiguous)."""
@@ -305,7 +321,6 @@ class Group:
         if self.bufs is None:
             self.pg.allreduce([t]).wait()
             return t
-        flat = t.view(-1)
 
         def add(parts):
             total = parts[0].clone()
@@ -313,8 +328,7 @@ class Group:
                 total += p
             return total
 
-        for i in range(0, flat.numel(), SHARED_CAPACITY):
-            part = flat[i:i + SHARED_CAPACITY]
+        for _, part in self._parts(t.view(-1)):
             part.copy_(self._exchange(part, add))
         return t
 
@@ -328,12 +342,49 @@ class Group:
             parts = [torch.empty_like(t) for _ in range(self.size)]
             self.pg.allgather([parts], [t]).wait()
             return torch.cat(parts, dim)
-        if t.numel() > SHARED_CAPACITY:
-            raise ValueError(f"all_gather of {t.numel()} elements on a "
-                             f"shared device takes at most "
-                             f"{SHARED_CAPACITY}")
-        return self._exchange(t.view(-1), lambda parts: torch.cat(
-            [p.to(t.dtype).view(t.shape) for p in parts], dim))
+        flat = t.view(-1)
+        rows = torch.empty((self.size, flat.numel()), dtype=t.dtype,
+                           device=t.device)
+
+        def gather(i):
+            def copy(parts):
+                for j, p in enumerate(parts):
+                    rows[j, i:i + p.numel()].copy_(p)
+            return copy
+
+        for i, part in self._parts(flat):
+            self._exchange(part, gather(i))
+        return torch.cat([r.view(t.shape) for r in rows], dim)
+
+    def shift(self, t: torch.Tensor) -> torch.Tensor:
+        """The ring shift (JAX's ppermute to (i + 1) % n): each member
+        sends t to the next member and returns the previous member's t.
+        Through gloo or NCCL as a send and a receive, even members sending
+        first and odd ones receiving first (the mesh's process groups are
+        not registered with torch.distributed, so dist.batch_isend_irecv
+        cannot coalesce them, and NCCL would otherwise deadlock on a pair
+        of ranks whose sends wait for each other's receives); on a shared
+        device through the exchange buffers, each member reading its
+        predecessor's."""
+        if self.size == 1:
+            return t
+        COLLECTIVES["ring_shift"] += 1
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        src = (self.rank - 1) % self.size
+        dst = (self.rank + 1) % self.size
+        if self.bufs is None:
+            send = lambda: self.pg.send([t], dst, 0).wait()
+            recv = lambda: self.pg.recv([out], src, 0).wait()
+            for op in ((send, recv) if self.rank % 2 == 0
+                       else (recv, send)):
+                op()
+            return out
+        flat = out.view(-1)
+        for i, part in self._parts(t.view(-1)):
+            self._exchange(part, lambda parts, i=i: flat[
+                i:i + parts[src].numel()].copy_(parts[src]))
+        return out
 
 
 def _process_group(store, prefix: str, rank: int, size: int, backend: str,
@@ -352,8 +403,9 @@ def _process_group(store, prefix: str, rank: int, size: int, backend: str,
 
 
 class RankContext:
-    """One rank's view of the mesh: its coordinates, device, groups, and
-    `state`, the trees its commands stored (weights, by key)."""
+    """One rank's view of the mesh: its coordinates, device, groups (one
+    per axis, `groups[axis]`), and `state`, the trees its commands stored
+    (weights, by key)."""
 
     def __init__(self, cfg: MeshConfig, devices, rank: int, store,
                  timeout_s: float):
@@ -363,37 +415,39 @@ class RankContext:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         self.backend = backend_for(devices)
-        d, m, M = self.coords["data"], self.coords["model"], cfg.model
         # the global ranks of each group, in member order
-        self.members = {"model": [d * M + j for j in range(M)],
-                        "data": [i * M + m for i in range(cfg.data)]}
+        self.members = {axis: group_members(cfg, rank, axis)
+                        for axis in AXES}
         self.groups = {}
-        for axis, index in (("model", d), ("data", m)):
+        for axis in AXES:
             ranks = self.members[axis]
+            # a group is named by the coordinates its members share
+            name = ",".join(f"{a}{self.coords[a]}" for a in AXES
+                            if a != axis)
             pg = None if len(ranks) == 1 else _process_group(
-                store, f"{axis}{index}/", ranks.index(rank), len(ranks),
+                store, f"{axis}/{name}/", ranks.index(rank), len(ranks),
                 self.backend, timeout_s)
             self.groups[axis] = Group(pg, len(ranks), ranks.index(rank))
         self.model_group = self.groups["model"]
         self.data_group = self.groups["data"]
+        self.time_group = self.groups["time"]
         self.state: dict = {}
 
-    def attach_buffers(self, bufs: torch.Tensor) -> dict:
-        """bufs (2, 2, ranks, SHARED_CAPACITY) f32 on the shared device:
-        the model groups exchange through bufs[0], the data groups through
-        bufs[1], in two alternating sets, each member through the row of
-        its global rank. Returns this rank's event handles per group."""
-        for axis, b in zip(("model", "data"), bufs):
+    def attach_buffers(self, axes, bufs: torch.Tensor) -> dict:
+        """bufs (len(axes), 2, ranks, SHARED_CAPACITY) f32 on the shared
+        device: the groups of axes[i] exchange through bufs[i], in two
+        alternating sets, each member through the row of its global rank.
+        Returns this rank's event handles per group."""
+        for axis, b in zip(axes, bufs):
             self.groups[axis].bufs = [[s[r] for r in self.members[axis]]
                                       for s in b]
-        return {axis: g.make_events() for axis, g in self.groups.items()
-                if g.size > 1}
+        return {axis: self.groups[axis].make_events() for axis in axes}
 
     def open_events(self, handles: list):
         """handles: every rank's attach_buffers() result, in rank order."""
-        for axis, g in self.groups.items():
-            if g.size > 1:
-                g.open_events([handles[r][axis] for r in self.members[axis]])
+        for axis in handles[self.rank]:
+            self.groups[axis].open_events(
+                [handles[r][axis] for r in self.members[axis]])
 
 
 class MeshError(RuntimeError):
@@ -401,9 +455,9 @@ class MeshError(RuntimeError):
 
 
 class Mesh:
-    """data x model ranks: rank 0 in this process, the others in worker
-    processes stopped by close() and at exit. `run` executes one command
-    on every rank, one command at a time."""
+    """data x model x time ranks: rank 0 in this process, the others in
+    worker processes stopped by close() and at exit. `run` executes one
+    command on every rank, one command at a time."""
 
     def __init__(self, cfg: MeshConfig, devices, timeout_s: float = 300.0):
         self.cfg = cfg
@@ -438,11 +492,14 @@ class Mesh:
             raise MeshError(f"mesh {cfg} did not start: {errs}") from e
         if self.backend == "gloo" and self.ctx.device.type == "cuda":
             # ranks sharing a CUDA device exchange through buffers there,
-            # made here and mapped by every worker (CUDA IPC)
-            handles = self.run(_attach, torch.empty(
-                (2, 2, self.size, SHARED_CAPACITY), dtype=torch.float32,
-                device=self.ctx.device))
-            self.run(_open_events, handles)
+            # made here and mapped by every worker (CUDA IPC), a set for
+            # each axis of more than one rank
+            axes = [a for a in AXES if axis_sizes(cfg)[a] > 1]
+            if axes:
+                handles = self.run(_attach, axes, torch.empty(
+                    (len(axes), 2, self.size, SHARED_CAPACITY),
+                    dtype=torch.float32, device=self.ctx.device))
+                self.run(_open_events, handles)
 
     def run(self, fn, *args, per_rank=None) -> list:
         """fn(ctx, *args) on every rank, or fn(ctx, per_rank[r], *args);
@@ -581,8 +638,8 @@ def release_cache(ctx: RankContext):
         torch.cuda.empty_cache()
 
 
-def _attach(ctx: RankContext, bufs):
-    return ctx.attach_buffers(bufs)
+def _attach(ctx: RankContext, axes, bufs):
+    return ctx.attach_buffers(axes, bufs)
 
 
 def _open_events(ctx: RankContext, handles):

@@ -8,13 +8,18 @@ Placement, as the wrappers shard (parallel/tp_infer.py): under `model` >
 1 the DiT in the tp layout with its heads zero-padded to a multiple of
 `model` (dit_tp_specs: zero_linear whole), the T5 by T5_RULES and the LM
 by GPT_RULES (whole where the heads or widths do not divide), the
-semantic conditioner and the VAE whole. JAX's plan counts the DiT by
+semantic conditioner and the VAE whole. A `time` axis shards no weight
+(JAX :60-64): under "sp" (model = 1) the DiT is whole on every rank,
+under "tpsp" each rank holds its model index's tp part. Under model = 1
+the T5s and the LM are not sharded and live on rank 0 alone (the figure
+per rank is rank 0's). JAX's plan counts the DiT by
 DIT_RULES on the unpadded shapes, which splits zero_linear that its
 tp_infer keeps whole and leaves out the padded heads: its dit_control
 figure is smaller by zero_linear's (1 - 1/model) share, and at a `model`
 that does not divide 30 both DiT figures miss the padded heads' bytes.
 
 Usage: python -m landiff_tpu_torch.parallel.plan --mesh model=4 [--tiny]
+       python -m landiff_tpu_torch.parallel.plan --mesh data=1,model=2,time=2
 """
 
 from __future__ import annotations
@@ -125,7 +130,6 @@ def plan(mesh_cfg: MeshConfig, cfg: LanDiffConfig | None = None, *,
     """Per-component (total, per-rank) parameter bytes of the inference
     layout (plan.py:59), and their sum against the H100's memory."""
     cfg = cfg or LanDiffConfig()
-    mesh_lib.refuse_time_axis(mesh_cfg)
     out = {"mesh": dataclasses.asdict(mesh_cfg), "dtype": str(dtype),
            "components": {}, "per_chip_total_bytes": 0}
     for name, tree in component_shapes(cfg, dtype).items():

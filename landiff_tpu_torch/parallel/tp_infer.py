@@ -1,6 +1,12 @@
-"""Tensor-parallel stage-2 inference (counterpart of
+"""Tensor- and sequence-parallel stage-2 inference (counterpart of
 landiff_tpu/parallel/tp_infer.py): the DiT Megatron-sharded over the
-`model` ranks of a mesh, the CFG rows over its `data` ranks.
+`model` ranks of a mesh, its tokens over the `time` ranks, the CFG rows
+over the `data` ranks. The mode follows the mesh (`mode`, JAX :199-203):
+"tp" (Megatron heads; also a mesh of `data` alone), "sp" (time > 1,
+model = 1: weights whole on every rank, W8A8 as dit.quantize_int8 makes
+it, tokens sharded, attention a ring; dit.control_warp_forward_sp) and
+"tpsp" (both: the head-padded tp layout within each ring position,
+dit.control_warp_forward_tp with sp_group).
 
   - the layer weights are laid out head-major and their head axis
     zero-padded to a multiple of `model` (`prep_dit_tp`: 30 heads over
@@ -23,8 +29,7 @@ alone would idle half the mesh), so engine.sample_latents drops an
 environment LANDIFF_CFG_WINDOW with a warning and an explicit cfg_window
 raises, as in JAX. engine.update_bundle_tokens makes the next long-video
 segment's closure from it, sharing the sharded net (JAX's
-update_tp_bundle). The sequence-parallel modes (`time`) are ROADMAP item
-15b.
+update_tp_bundle).
 """
 
 from __future__ import annotations
@@ -142,12 +147,35 @@ def dit_tp_specs(prepped: dict):
     return mesh_lib.map_with_path(spec, prepped)
 
 
+def mode(mesh_cfg: MeshConfig) -> str:
+    """"tpsp", "sp" or "tp" (tp_infer.py:199-203)."""
+    if mesh_cfg.time > 1:
+        return "tpsp" if mesh_cfg.model > 1 else "sp"
+    return "tp"
+
+
 def dit_shards(params: dict, cfg: DiTConfig, mesh_cfg: MeshConfig,
                devices, *, int8: bool = False, dtype=None) -> list:
-    """Every rank's part of the tp-prepped DiT, rank r's copied to
-    devices[r]: floating leaves in `dtype` (the compute dtype: the
-    forwards cast every weight to it at use, so this changes no result),
-    int8 codes in the column-major operand layout, scales in f32."""
+    """Every rank's part of the DiT: floating leaves in `dtype` (the
+    compute dtype: the forwards cast every weight to it at use, so this
+    changes no result), int8 codes in the column-major operand layout,
+    scales in f32. Under "sp" one whole tree (W8A8 by dit.quantize_int8,
+    JAX :205-219) on devices[0], the same for every rank: rank 0 keeps it
+    and each worker copies it (mesh.load), so rank 0's replica is the
+    caller's tree wherever it already has the dtype. Otherwise the
+    tp-prepped tree (W8A8 after the prep), rank r's part copied to
+    devices[r]."""
+    if mode(mesh_cfg) == "sp":
+        from landiff_tpu_torch.models import dit as dit_lib
+
+        tree = dit_lib.quantize_int8(params) if int8 else params
+
+        def whole(path, x):
+            to = x.dtype if x.dtype == torch.int8 or path[-1] == "s" \
+                or dtype is None else dtype
+            return x.to(devices[0], to)
+
+        return [mesh_lib.map_with_path(whole, tree)] * mesh_cfg.num_devices
     prepped = prep_dit_tp(params, cfg, mesh_cfg.model, int8=int8)
     specs = dit_tp_specs(prepped)
 
@@ -169,11 +197,14 @@ def dit_shards(params: dict, cfg: DiTConfig, mesh_cfg: MeshConfig,
 def _tp_net(ctx: mesh_lib.RankContext, main_params, control_params,
             dit_cfg: DiTConfig, compute_dtype, attn_impl):
     """net(x2, ts, ctx2, sem2) on this rank: of the CFG batch its data
-    index takes its rows / data rows, its model group runs them through
-    control_warp_forward_tp, and the data group gathers the rows back."""
+    index takes its rows / data rows; its model and time groups run them
+    through the mode's forward (control_warp_forward_tp, with the time
+    group as sp_group under "tpsp"; control_warp_forward_sp under "sp");
+    the data group gathers the rows back."""
     from landiff_tpu_torch.models import dit as dit_lib
 
     n_data, d = ctx.cfg.data, ctx.coords["data"]
+    m = mode(ctx.cfg)
 
     def net(x2, ts, ctx2, sem2):
         rows = x2.shape[0]
@@ -181,10 +212,16 @@ def _tp_net(ctx: mesh_lib.RankContext, main_params, control_params,
             raise ValueError(f"{rows} CFG rows do not split over data="
                              f"{n_data}")
         sl = slice(d * rows // n_data, (d + 1) * rows // n_data)
-        out = dit_lib.control_warp_forward_tp(
-            main_params, control_params, x2[sl], ts[sl], ctx2[sl], dit_cfg,
-            sem2[sl], group=ctx.model_group, attn_impl=attn_impl,
-            compute_dtype=compute_dtype)
+        args = (main_params, control_params, x2[sl], ts[sl], ctx2[sl],
+                dit_cfg, sem2[sl])
+        kw = dict(attn_impl=attn_impl, compute_dtype=compute_dtype)
+        if m == "sp":
+            out = dit_lib.control_warp_forward_sp(
+                *args, sp_group=ctx.time_group, **kw)
+        else:
+            out = dit_lib.control_warp_forward_tp(
+                *args, group=ctx.model_group,
+                sp_group=ctx.time_group if m == "tpsp" else None, **kw)
         return ctx.data_group.all_gather(out, dim=0)
 
     return net
@@ -196,9 +233,10 @@ def make_tp_denoise_fn(ctx: mesh_lib.RankContext, main_params,
                        sem_cfg: SemanticCondConfig, context, uc_context,
                        semantic_tokens, *, compute_dtype=torch.bfloat16,
                        attn_impl="auto"):
-    """This rank's denoise closure (tp_infer.py:167): main / control are
-    its dit_shards trees, sem_params whole; the semantic feature is
-    computed whole on every rank, the network call is `_tp_net`."""
+    """This rank's denoise closure (tp_infer.py:167), any mode: main /
+    control are its dit_shards trees, sem_params whole; the semantic
+    feature is computed whole on every rank, the network call is
+    `_tp_net`."""
     from landiff_tpu_torch.diffusion import engine
 
     return engine.make_denoise_fn(
@@ -221,6 +259,27 @@ def model_call(ctx: mesh_lib.RankContext, key: str, x2, ts, ctx2, sem2,
                   attn_impl)
     with torch.inference_mode():
         out = net(x2.to(compute_dtype), ts, ctx2, sem2)
+    mesh_lib.release_cache(ctx)
+    return out if ctx.rank == 0 else None
+
+
+def denoise_call(ctx: mesh_lib.RankContext, key: str, cfg, context,
+                 uc_context, tokens, x, step: dict,
+                 compute_dtype=torch.bfloat16, attn_impl="auto"):
+    """One call of the denoise closure (make_tp_denoise_fn from the
+    stage-2 trees under `key`, dif_infer's) on every rank: denoise_fn(x,
+    step), step the sampler's {"alpha", "timestep", "cfg_scale"}; rank 0
+    returns the f32 prediction, the workers None."""
+    st = ctx.state[key]
+    context, uc_context, tokens, x = mesh_lib.to_rank(
+        ctx, [context, uc_context, tokens, x])
+    with torch.inference_mode():
+        fn = make_tp_denoise_fn(
+            ctx, st["main"], st["control"], st["semantic"], cfg.dit,
+            cfg.sampler, cfg.tokenizer, cfg.semantic_cond, context,
+            uc_context, tokens, compute_dtype=compute_dtype,
+            attn_impl=attn_impl)
+        out = fn(x, step)
     mesh_lib.release_cache(ctx)
     return out if ctx.rank == 0 else None
 

@@ -13,14 +13,20 @@ the first frames. With LANDIFF_OFFLOAD=1 the diffusion trees (main,
 control, semantic) leave the device after the denoise and before the VAE
 decode, and come back at the start of the next call.
 
-With a mesh (parallel/mesh.py) the main and control DiTs are laid out
-for tensor parallelism and sharded over its `model` ranks
-(parallel/tp_infer.py; W8A8 after that prep, never before), the T5 by
-T5_RULES, the semantic conditioner whole on every rank; the VAE stays in
-this process, rank 0. A call sends one T5 command and one denoise
-command (the context, the codes, the initial noise drawn here and the
-generator's state after it): every rank runs the sampler on its shards,
-and rank 0 decodes. LANDIFF_OFFLOAD moves every rank's diffusion shards.
+With a mesh (parallel/mesh.py) the main and control DiTs are placed by
+the mesh's mode (parallel/tp_infer.py): under `model` laid out for
+tensor parallelism and sharded (W8A8 after that prep, never before),
+under `time` alone whole on every rank (W8A8 as without a mesh), the
+tokens then split over `time`; the semantic conditioner whole on every
+rank. The T5 is sharded by T5_RULES under `model`, else it stays in this
+process, rank 0, as does the VAE. A call sends one denoise command (the
+context, the codes, the initial noise drawn here and the generator's
+state after it; a T5 command before it under `model`): every rank runs
+the sampler on its shards. Rank 0 decodes, but where `time` > 1 and the
+latent frames split over it (vae_cp.can_decode_cp, JAX :165-176): then
+the time ranks at data 0, model 0, each holding the decoder, decode the
+frames context-parallel (`decode_latents`). LANDIFF_OFFLOAD moves every
+rank's diffusion trees.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from landiff_tpu_torch.models import semantic_cond as sc_lib
 from landiff_tpu_torch.models import t5 as t5_lib
 from landiff_tpu_torch.models import vae as vae_lib
 from landiff_tpu_torch.parallel import mesh as mesh_lib
-from landiff_tpu_torch.parallel import tp_infer
+from landiff_tpu_torch.parallel import tp_infer, vae_cp
 from landiff_tpu_torch.pipeline.text import T5Text
 from landiff_tpu_torch.utils import env_flag, seed_from_text
 
@@ -81,8 +87,9 @@ class CogModelInferWrapper:
         if mesh is not None:
             self.key = f"stage2/{id(self)}"
             _load_on_mesh(mesh, self.key, params, cfg, compute_dtype)
-            self.params = {"vae": params["vae"],
-                           **mesh.ctx.state[self.key]}
+            state = mesh.ctx.state[self.key]
+            self.params = {**state, "vae": params["vae"],
+                           "t5": state.get("t5", params["t5"])}
             device = mesh.ctx.device
         elif env_flag("LANDIFF_DIT_INT8"):
             # W8A8 DiT linears (dif_infer.py:64-72): the quantized trees
@@ -109,7 +116,12 @@ class CogModelInferWrapper:
         host memory, so that the restage copies at full rate. The trees'
         dicts and lists stay the same objects, so a holder of a subtree
         keeps no device tensor alive; a closure over the leaves themselves
-        (the denoise closure) must be dropped first."""
+        (the denoise closure) must be dropped first. On a mesh every rank
+        moves its own."""
+        if self.mesh is not None:
+            self.mesh.run(_move_rank, self.key, True)
+            self.offloaded = True
+            return
         for k in _OFFLOADED:
             if k in self.params:
                 _move_tree_(self.params[k], torch.device("cpu"))
@@ -139,7 +151,7 @@ class CogModelInferWrapper:
         ids, _ = self.text([prompt], pad_to_max=True)
         ids = torch.from_numpy(ids).to(self.device)
         # the reference passes no attention mask: pads are attended (fp32)
-        if self.mesh is not None:
+        if self.mesh is not None and self.mesh.cfg.model > 1:
             return self.mesh.run(tp_infer.t5_encode, self.key, ids, None,
                                  self.cfg.t5, torch.float32)[0]
         return t5_lib.encode(self.params["t5"], ids, None, self.cfg.t5,
@@ -219,15 +231,27 @@ class CogModelInferWrapper:
             del denoise_fn      # its closure holds the DiT trees
             self.offload_diffusion_params()
             t0 = self._mark("offload", t0)
-        video = engine.decode_first_stage(self.params["vae"], latents,
-                                          cfg.vae,
-                                          compute_dtype=self.compute_dtype)
+        video = self.decode_latents(latents)
         vid8 = engine.video_to_uint8(engine.post_process_video(video))
         vid8 = vid8.cpu().numpy()
         self._mark("vae", t0)
         return dataclasses.replace(task,
                                    result=vid8.astype(np.float32) / 255.0,
                                    latent=latents.float().cpu().numpy())
+
+
+    def decode_latents(self, latents) -> torch.Tensor:
+        """latents (1, T, C, H', W') -> the f32 video in [-1, 1]: on a mesh
+        with `time` > 1 whose ranks split the frames, one context-parallel
+        decode command (the whole video's GroupNorm statistics); else the
+        streaming decode in this process (dif_infer.py:165-176)."""
+        n = self.mesh.cfg.time if self.mesh is not None else 1
+        if n > 1 and vae_cp.can_decode_cp(latents.shape[1], n):
+            return self.mesh.run(_decode_cp_rank, self.key, latents,
+                                 self.cfg.vae, self.compute_dtype)[0]
+        return engine.decode_first_stage(self.params["vae"], latents,
+                                         self.cfg.vae,
+                                         compute_dtype=self.compute_dtype)
 
 
 _OFFLOADED = ("main", "control", "semantic")
@@ -250,18 +274,48 @@ def _move_tree_(tree, device: torch.device):
 
 def _load_on_mesh(mesh, key, params, cfg: LanDiffConfig, compute_dtype):
     """Every rank's stage-2 trees under `key`, one part at a time: the T5
-    by T5_RULES; main and control in the tp layout (W8A8 after the prep
-    under LANDIFF_DIT_INT8, JAX dif_infer.py:65-72), cast to the compute
-    dtype; the semantic conditioner whole."""
+    by T5_RULES under `model` (else none: rank 0 keeps it); main and
+    control by the mesh's mode (tp_infer.dit_shards; W8A8 under
+    LANDIFF_DIT_INT8, after the tp prep, JAX dif_infer.py:65-72), cast to
+    the compute dtype; the semantic conditioner whole; under `time` the
+    VAE decoder on the time ranks at data 0, model 0 (rank 0's own)."""
     int8 = env_flag("LANDIFF_DIT_INT8")
-    mesh_lib.load(mesh, key, "t5", tp_infer.t5_shards(
-        params["t5"], cfg.t5, mesh.cfg, mesh.devices))
+    if mesh.cfg.model > 1:
+        mesh_lib.load(mesh, key, "t5", tp_infer.t5_shards(
+            params["t5"], cfg.t5, mesh.cfg, mesh.devices))
     for k in ("main", "control"):
         mesh_lib.load(mesh, key, k, tp_infer.dit_shards(
             params[k], cfg.dit, mesh.cfg, mesh.devices, int8=int8,
             dtype=compute_dtype))
     mesh_lib.load(mesh, key, "semantic",
                   tp_infer.replicated(params["semantic"], mesh.devices))
+    if mesh.cfg.time > 1:
+        dec = {"decoder": params["vae"]["decoder"]}
+        mesh_lib.load(mesh, key, "vae", [
+            dec if _decodes(mesh_lib.rank_coords(mesh.cfg, r)) else {}
+            for r in range(mesh.cfg.num_devices)])
+
+
+def _decodes(coords) -> bool:
+    """Whether a rank takes part in the context-parallel decode: the time
+    group at data 0, model 0 (JAX's decode runs replicated over the other
+    axes; one group gives the same video)."""
+    return coords["data"] == 0 and coords["model"] == 0
+
+
+def _decode_cp_rank(ctx, key, latents, vae_cfg, compute_dtype):
+    """A rank's part of a context-parallel decode: the decoding ranks'
+    share of the frames (engine.decode_first_stage_cp over the time
+    group); rank 0 returns the video."""
+    video = None
+    if _decodes(ctx.coords):
+        latents = mesh_lib.to_rank(ctx, latents)
+        with torch.inference_mode():
+            video = engine.decode_first_stage_cp(
+                ctx.state[key]["vae"], latents, vae_cfg, ctx.time_group,
+                compute_dtype=compute_dtype)
+    mesh_lib.release_cache(ctx)
+    return video if ctx.rank == 0 else None
 
 
 def _denoise_rank(ctx, key, cfg: LanDiffConfig, compute_dtype, context,

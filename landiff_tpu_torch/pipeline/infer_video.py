@@ -14,12 +14,14 @@ of more than one segment (`--num-frames 26`: two) streams through
 pipeline/long_video.py. LANDIFF_OFFLOAD=1 moves the diffusion trees to
 host memory before the VAE decode on both paths (dif_infer.py). The
 serving engine and its HTTP server over the same pipeline are in
-serving/. `--mesh data=D,model=N` (`mesh=` / `mesh_spec=`) runs both
-stages tensor-parallel over that many ranks (parallel/mesh.py): one per
-GPU by default, or all on the CPU with `--device cpu`; a `time` axis is
-ROADMAP item 15b.
+serving/. `--mesh data=D,model=N,time=T` (`mesh=` / `mesh_spec=`) runs
+both stages over that many ranks (parallel/mesh.py): tensor-parallel
+over `model`, sequence-parallel over `time` (stage 2; the VAE decode
+context-parallel), the CFG rows over `data`; one rank per GPU by
+default, or all on the CPU with `--device cpu`.
 
     python -m landiff_tpu_torch.pipeline.infer_video --prompt "..." --tiny --device cpu --mesh model=2
+    python -m landiff_tpu_torch.pipeline.infer_video --prompt "..." --tiny --device cpu --mesh data=1,time=2
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ def build_pipeline(cfg: LanDiffConfig, sample_cfg: ARSampleConfig,
     checkpoint is loaded, as JAX's :56-62) makes a missing tokenizer an
     error; a caller that loads a tree without tokenizer files (a
     synthetic one) passes False and gets the byte-level fallback. mesh: a
-    parallel.mesh.Mesh, a MeshConfig or a spec "data=D,model=N" (ranks
+    parallel.mesh.Mesh, a MeshConfig or a spec "data=D,model=N,time=T" (ranks
     on `device`: one per GPU for cuda, all on the CPU for cpu); both
     wrappers shard onto it."""
     mesh = mesh_lib.as_mesh(mesh, device)
@@ -136,7 +138,8 @@ def _generate_long(dif, code_task, prompt: str, seed: int, fps: int,
                    stem: str, now):
     """Stage 2 of a multi-segment request (JAX infer_video.py:96-135).
     With LANDIFF_OFFLOAD=1 the diffusion trees leave the device after the
-    last segment, before the decode (JAX :119-121)."""
+    last segment, before the decode (JAX :119-121); on a mesh with `time`
+    the decode is context-parallel where the frames split (:120-133)."""
     cfg = dif.cfg
     phases = {}
     t0 = now()
@@ -168,9 +171,7 @@ def _generate_long(dif, code_task, prompt: str, seed: int, fps: int,
             dif.offload_diffusion_params()
             phases["offload"] = now() - t
         t = now()
-        video = engine.decode_first_stage(dif.params["vae"], latents,
-                                          cfg.vae,
-                                          compute_dtype=dif.compute_dtype)
+        video = dif.decode_latents(latents)
         vid8 = engine.video_to_uint8(engine.post_process_video(video))
         vid8 = vid8.cpu().numpy()
         phases["vae"] = now() - t
@@ -230,8 +231,9 @@ def main(argv=None):
                         help="tiny random-init config (no ckpts; smoke)")
     parser.add_argument("--fps", type=int, default=8)
     parser.add_argument("--mesh", default=None,
-                        help="tensor-parallel mesh, e.g. model=2 or "
-                             "data=2,model=2 (ranks on --device)")
+                        help="a mesh of ranks, e.g. model=2, "
+                             "data=2,model=2 or data=1,time=2 (ranks on "
+                             "--device)")
     parser.add_argument("--device", default="cuda",
                         help="torch device of both stages (cuda, cpu)")
     args = parser.parse_args(argv)

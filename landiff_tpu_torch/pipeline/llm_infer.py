@@ -19,7 +19,10 @@ int4_decode is ignored there with JAX's warning, :58-62), and each rank
 holds only its part. Rank 0 (this process) assembles the prompt rows,
 draws the Gumbel noise, and sends one T5 command and one sampling
 command a call; every rank samples on its own shards, and rank 0 checks
-that every rank drew the same codes.
+that every rank drew the same codes. A mesh without `model` (data and
+time ranks only) shards nothing of stage 1: the wrapper then runs
+unsharded in this process, rank 0, and keeps no mesh; its codes are the
+unsharded ones.
 """
 
 from __future__ import annotations
@@ -73,6 +76,10 @@ class ArModelInferWrapper:
                  int8_decode: bool | None = None,
                  int4_decode: bool | None = None,
                  mesh=None, device="cuda"):
+        if mesh is not None and mesh.cfg.model == 1:
+            # nothing to shard (JAX llm_infer.py:75 shards under model > 1
+            # only): this process, rank 0, runs the unsharded wrapper
+            device, mesh = mesh.ctx.device, None
         if int8_decode is None:
             int8_decode = env_flag("LANDIFF_DECODE_INT8")
         if int4_decode is None:

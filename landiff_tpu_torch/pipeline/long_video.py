@@ -19,7 +19,8 @@ With `mesh=` (a stage-2 wrapper built with a mesh) the whole loop is one
 command: every rank runs it on its shards from the same generator state,
 each segment's closure made from the first with only the semantic
 feature new (engine.update_bundle_tokens, JAX's update_tp_bundle), so no
-weight moves between segments.
+weight moves between segments. Any mode of the mesh (tp_infer.mode):
+tensor-, sequence-parallel or both.
 """
 
 from __future__ import annotations
@@ -139,12 +140,17 @@ def generate_long_video(params, cfg: LanDiffConfig, context, uc_context,
                         compute_dtype=torch.bfloat16, noises=None,
                         mesh=None, on_segment=None):
     """The whole long-video path: chunked latents -> one streaming VAE
-    decode -> ((1, 3, T_rgb, H, W) video in [0, 1], latents)."""
+    decode (on a mesh with `time`, context-parallel where the frames
+    split: JAX long_video.py:132-141) -> ((1, 3, T_rgb, H, W) video in
+    [0, 1], latents)."""
     latents = generate_long_video_latents(
         params, cfg, context, uc_context, codes, generator=generator,
         prefix_latents=prefix_latents, sdedit=sdedit,
         compute_dtype=compute_dtype, noises=noises, mesh=mesh,
         on_segment=on_segment)
-    video = engine.decode_first_stage(params["vae"], latents, cfg.vae,
-                                      compute_dtype=compute_dtype)
+    if mesh is not None:        # context-parallel where `time` splits it
+        video = mesh.decode_latents(latents)
+    else:
+        video = engine.decode_first_stage(params["vae"], latents, cfg.vae,
+                                          compute_dtype=compute_dtype)
     return engine.post_process_video(video), latents

@@ -9,11 +9,12 @@ POST /generate (the video as an animated GIF in the page). Both stages
 stay on the card, built once into a resident ServingEngine
 (serving/scheduler.py) that coalesces concurrent stage-1 decodes into one
 batched AR loop; a changed slider rebuilds it, after the old one is freed.
-With `--mesh data=D,model=N` the engine's stages are tensor-parallel over
-that many ranks (serving/scheduler.py); the server stays in rank 0.
+With `--mesh data=D,model=N,time=T` the engine's stages run over that
+many ranks, tensor-parallel over `model` and sequence-parallel over
+`time` (serving/scheduler.py); the server stays in rank 0.
 
 Run: python -m landiff_tpu_torch.serving.app [--tiny] [--device cpu]
-[--port 7860] [--mesh model=2]
+[--port 7860] [--mesh model=2 | --mesh data=1,time=2]
 """
 
 from __future__ import annotations
@@ -176,8 +177,8 @@ def main(argv=None):
                         help="tiny random-init config (no ckpts; smoke)")
     parser.add_argument("--ckpt-dir", default=None)
     parser.add_argument("--mesh", default=None,
-                        help="tensor-parallel mesh, e.g. model=2 (ranks on "
-                             "--device)")
+                        help="a mesh of ranks, e.g. model=2 or "
+                             "data=1,time=2 (ranks on --device)")
     parser.add_argument("--max-batch", type=int, default=8,
                         help="stage-1 micro-batch cap (batched AR decode)")
     parser.add_argument("--batch-window-ms", type=float, default=50.0,
@@ -185,8 +186,8 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device of both stages (cuda, cpu)")
     args = parser.parse_args(argv)
-    if args.mesh:           # a time axis is refused before anything runs
-        mesh_lib.refuse_time_axis(mesh_lib.parse_mesh(args.mesh))
+    if args.mesh:           # a malformed spec fails before anything runs
+        mesh_lib.parse_mesh(args.mesh)
     logging.basicConfig(level=logging.INFO)
     _PIPELINE["tiny"] = args.tiny
     _PIPELINE["ckpt_dir"] = args.ckpt_dir

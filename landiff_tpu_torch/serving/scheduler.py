@@ -21,8 +21,9 @@ Pieces:
     coalesce) FIFO under a device lock. Per-request seconds and the batch
     sizes are exposed via `stats()`.
 
-With a mesh (`build(mesh_spec=...)`) the wrappers are tensor-parallel
-over its ranks (parallel/mesh.py); the engine and its threads stay in
+With a mesh (`build(mesh_spec=...)`) the wrappers run over its ranks
+(parallel/mesh.py: tensor-parallel over `model`, sequence-parallel over
+`time`); the engine and its threads stay in
 rank 0, a stage-1 batch is one stage-1 command, a stage 2 one denoise
 command, and the mesh runs one command at a time. shutdown() stops the
 mesh's workers.
@@ -148,8 +149,8 @@ class ServingEngine:
         """Both stages through infer_video.build_pipeline: f32 with the
         tiny config (one tiny segment), else bf16. require_real_tokenizer
         as build_pipeline's (a checkpoint tree without tokenizer files, a
-        synthetic one, passes False). mesh_spec: "data=D,model=N", ranks
-        on `device` (one per GPU for cuda)."""
+        synthetic one, passes False). mesh_spec: "data=D,model=N,time=T",
+        ranks on `device` (one per GPU for cuda)."""
         from landiff_tpu_torch.config import ARSampleConfig, LanDiffConfig, \
             tiny_test_config
         from landiff_tpu_torch.pipeline.infer_video import build_pipeline

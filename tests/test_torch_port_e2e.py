@@ -101,19 +101,19 @@ def test_infer_batch_matches_single_calls_and_jax():
 
 
 def test_unported_options_are_refused(monkeypatch):
-    """What is not ported raises, naming its ROADMAP item: a `time` mesh
-    axis (sequence / context parallelism) wherever a mesh is taken, and
-    the trainer's --mesh, are item 15b; `data` / `model` meshes run
-    (tests/test_torch_port_tp.py). The fast configuration's options
-    (int8_decode, int4_decode, LANDIFF_FAST) are ported and build
-    quantized wrappers instead; LANDIFF_OFFLOAD runs on the long-video
-    path."""
+    """What is not ported raises, naming its ROADMAP item: the trainer's
+    --mesh is item 15b (its training half). `data` / `model` / `time`
+    meshes run (tests/test_torch_port_tp.py, tests/test_torch_port_sp.py:
+    make_mesh, build_pipeline, run and ServingEngine.build take a time
+    axis there), and serving/app.py takes --mesh time=2. The fast
+    configuration's options (int8_decode, int4_decode, LANDIFF_FAST) are
+    ported and build quantized wrappers instead; LANDIFF_OFFLOAD runs on
+    the long-video path."""
     from landiff_tpu_torch.parallel import mesh as tmesh
     from landiff_tpu_torch.training import train as ttrain
 
     _, t1 = stage1_params()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
-        tmesh.make_mesh(tcfg.MeshConfig(time=2), devices=["cpu"] * 2)
+    assert tmesh.parse_mesh("data=1,time=2") == tcfg.MeshConfig(time=2)
     with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
         ttrain.train("dit", "/nowhere", tiny=True, mesh_spec="model=2",
                      device="cpu")
@@ -125,18 +125,30 @@ def test_unported_options_are_refused(monkeypatch):
     # checkpoints (item 10) are ported: a missing tree is a missing file
     with pytest.raises(FileNotFoundError, match="nowhere"):
         tiv.build_pipeline(TC, sc, ckpt_dir="/nowhere", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
-        tiv.build_pipeline(TC, sc, mesh=tcfg.MeshConfig(time=2),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
-        tiv.run("x", tiny=True, mesh_spec="data=1,time=2", device="cpu")
-    from landiff_tpu_torch.serving import app, scheduler
+    from landiff_tpu_torch.serving import app
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
-        scheduler.ServingEngine.build(tiny=True, mesh_spec="model=2,time=2",
-                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
-        app.main(["--tiny", "--device", "cpu", "--mesh", "time=2"])
+    # the server takes a time axis; its engine is built at the first
+    # request (tests/test_torch_port_sp.py builds one on time=2)
+    served = []
+
+    class Server:
+        def __init__(self, addr, handler):
+            served.append(addr)
+
+        def serve_forever(self):
+            pass
+
+    def no_gradio(port):
+        raise ImportError("gradio")
+
+    monkeypatch.setattr(app, "ThreadingHTTPServer", Server)
+    monkeypatch.setattr(app, "launch_gradio", no_gradio)
+    monkeypatch.setattr(app, "_PIPELINE", {})
+    app.main(["--tiny", "--device", "cpu", "--mesh", "time=2", "--port",
+              "0"])
+    assert served and app._PIPELINE["mesh_spec"] == "time=2"
+    with pytest.raises(ValueError):
+        app.main(["--tiny", "--device", "cpu", "--mesh", "time"])
     # two segments of codes: the long-video path (item 11) offloads the
     # diffusion trees before its decode and restages them for the next
     llm, dif = tiv.build_pipeline(
