@@ -20,6 +20,7 @@
     python3 chip_smoke.py --only serving     # the pipeline, then 8h
     python3 chip_smoke.py --only tp          # the pipeline, then 8i
     python3 chip_smoke.py --only sp          # 8j (builds what it needs)
+    python3 chip_smoke.py --only train_mesh  # 13 (builds what it needs)
 
 Phases, in order; any failure exits nonzero before the last line:
   1. device:  the card's name and power limit; TF32 off for matmuls and
@@ -122,7 +123,8 @@ Phases, in order; any failure exits nonzero before the last line:
               LANDIFF_ATTN_INT8_PV=1, set for this phase only): wrappers
               built from the resident parameters (W8A8 main and control
               DiTs, int8 GPT block linears), one prompt -> codes -> video
-              at FAST_STEPS (26, not the release's 50): 1,218 valid codes, the
+              at FAST_STEPS (26, not the release's 50), stage 1 on the
+              first GPT_CUT (6) GPT blocks: 1,218 valid codes, the
               video's shape and range, the model calls the sampler's reuse
               and window schedules give (16: 14 with two rows, 2 with
               one), 45 per call + 12 int8_pv launches and no other
@@ -238,6 +240,21 @@ Phases, in order; any failure exits nonzero before the last line:
   12. prepare: data.prepare over two seeded 13-frame 480 x 720 .npy clips
               at full width, --model vq and lm, shards read back through
               data.loader; 24 int8 launches for lm, none for vq.
+  13. train_mesh: training on meshes of ranks sharing the card (ROADMAP
+              item 15b, its training half): the ring backward at the DiT
+              hop shape in bf16 and f32 against one flash_bwd over the
+              whole sequence, and at a small shape against the ring of
+              plain versions; one data=1,time=2 `train --mesh` step of
+              the stage-2 trainer at full width and depth in bf16 against
+              the one-device step on the same batch and draws (loss, per
+              control leaf correlation and relative error of the
+              gradients; per rank the exact forward and backward
+              launches twice the one-device step's, shifts, peak memory,
+              seconds); data=1,model=2 steps of dit, lm and vq at 2 + 1
+              DiT layers, 2 GPT blocks, 2 TiTok layers against one
+              device; a data=2 lm step (ZeRO: optimizer bytes per rank
+              against zero.opt_state_bytes_per_device) against one
+              device.
   (--profile: one warm denoise-step model call, without and with the knob,
    and 20 stage-1 decode steps, under torch.profiler.)
 Then one JSON line with every kernel's numbers, and the last line
@@ -2243,7 +2260,7 @@ def fast_rows() -> list:
 
 
 # stage 1 is bound by the host (1,476 launches a decode step), so a full
-# decode costs 35-55 s by the host; the long-video, serving and tp
+# decode costs 35-57 s by the host; the fast, long-video, serving and tp
 # requests decode with the first GPT_CUT of the 24 GPT blocks, to keep
 # the script inside its time limit (a depth cut: widths, schedule
 # and codes as before)
@@ -3750,7 +3767,8 @@ def phase_fast(cfg, llm, dif):
         try:
             reset_counts()
             torch.cuda.reset_peak_memory_stats()
-            res = infer_video.generate(fllm, fdif, prompt, seed=seed)
+            with gpt_depth(fllm, GPT_CUT):
+                res = infer_video.generate(fllm, fdif, prompt, seed=seed)
             launches = read_counts()
         finally:
             dit_lib.control_warp_forward = orig
@@ -3766,6 +3784,7 @@ def phase_fast(cfg, llm, dif):
                                                fllm.sample_cfg.num_frames)
     log(json.dumps({
         "phase": "fast", "steps": FAST_STEPS, "first_request": True,
+        "stage1_gpt_blocks": GPT_CUT,
         "env": {"LANDIFF_FAST": "2", "LANDIFF_ATTN_INT8_PV": "1"},
         "build_seconds": build_s, "stage1_s": res["stage1_s"],
         "stage2_s": res["stage2_s"],
@@ -4259,6 +4278,527 @@ def phase_train_lm(workdir):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training on meshes whose ranks share the card (device exchange
+# buffers, gloo barriers, as the tp and sp phases): every time here is a
+# reading of that layout, not a speed.
+#
+# The ring backward against one flash_bwd over the whole sequence (the
+# same out and lse): each hop's dq / dk / dv is rounded to bf16 by the
+# kernel before the ring's f32 sums, which are rounded again; each hop
+# also carries the kernel's own error. Limits set before the first
+# reading: twice the backward's limits and one step for the last rounding
+# (bf16); three times F32_TOL's backward limits (f32). Against the ring of
+# plain versions (the same hops in this process): n hops of the kernel's
+# limits and one step.
+RING_BWD_TOL = {"steps": 2 * BWD_TOL_STEPS + 1.0, "rel_rms": 2 * BWD_TOL_RMS}
+RING_BWD_F32_TOL = {"max_rel": 6e-6, "rel_rms": 3e-6}
+# The SP step against the one-device step, both bf16 through the kernels:
+# the loss within 1e-2 relative; per control leaf the gradients correlated
+# at 0.999 at least (below is a fault to find, not a limit to widen) and
+# within 5e-2 relative L2 error. k_ln_b's gradient is 0 but for rounding
+# (it moves every score of a row alike) and the control tree's final
+# LayerNorm is read by no forward: reported, not held.
+MESH_LOSS_REL = 1e-2
+MESH_GRAD_CORR = 0.999
+MESH_GRAD_REL = 5e-2
+MESH_OPT = {"lr": 1e-3, "steps": 2, "grad_accum": 1}
+
+
+def _grad_agreement(got, want):
+    """Per leaf of two gradient trees (host tensors of one device's
+    layout): correlation and relative L2 error of got against want, in
+    f64 on the card; the leaves held to the limits and the worst ones."""
+    import torch
+
+    from landiff_tpu_torch.parallel import mesh as mesh_lib
+
+    rows = {}
+
+    def leaf(path, g, w):
+        name = "/".join(path)
+        g, w = g.cuda().double().ravel(), w.cuda().double().ravel()
+        wn = float(w.norm())
+        rel = float((g - w).norm()) / wn if wn else float((g - w).norm())
+        corr = float(torch.corrcoef(torch.stack([g, w]))[0, 1]) \
+            if wn and float(g.norm()) else float("nan")
+        rows[name] = {"corr": corr, "rel": rel, "norm": wn}
+
+    mesh_lib.map_with_path(leaf, got, want)
+    held = {k: r for k, r in rows.items()
+            if not k.endswith("k_ln_b") and "final_ln" not in k}
+    for name, r in held.items():
+        check(r["corr"] >= MESH_GRAD_CORR and r["rel"] <= MESH_GRAD_REL,
+              f"mesh gradient {name}: {r}, limits corr {MESH_GRAD_CORR}, "
+              f"rel {MESH_GRAD_REL}")
+    worst = sorted(held.items(), key=lambda kv: kv[1]["corr"])[:3]
+    return {"leaves": len(rows), "held": len(held),
+            "min_corr": min(r["corr"] for r in held.values()),
+            "max_rel": max(r["rel"] for r in held.values()),
+            "worst": dict(worst),
+            "not_held": {k: r for k, r in rows.items() if k not in held}}
+
+
+def _update_agreement(after, start, ref_after, what):
+    """The parameter change of a mesh run against one device's, per leaf
+    of two or more dimensions that moved: (min correlation, max relative
+    L2 error), held to the gradient limits."""
+    import torch
+
+    from landiff_tpu_torch.parallel import mesh as mesh_lib
+
+    out = []
+
+    def leaf(path, a, s, r):
+        if not isinstance(a, torch.Tensor) or a.dim() < 2:
+            return
+        d = (a.cuda().double() - s.cuda().double()).ravel()
+        w = (r.cuda().double() - s.cuda().double()).ravel()
+        if float(w.norm()) == 0.0:
+            return
+        out.append((float(torch.corrcoef(torch.stack([d, w]))[0, 1]),
+                    float((d - w).norm() / w.norm()), "/".join(path)))
+
+    mesh_lib.map_with_path(leaf, after, start, ref_after)
+    check(out, f"{what}: no parameter moved")
+    worst = min(out)
+    check(worst[0] >= MESH_GRAD_CORR and max(o[1] for o in out)
+          <= MESH_GRAD_REL, f"{what}: update {worst} and max rel "
+          f"{max(o[1] for o in out)} outside corr {MESH_GRAD_CORR}, rel "
+          f"{MESH_GRAD_REL}")
+    return {"leaves": len(out), "min_corr": worst[0], "min_corr_leaf":
+            worst[2], "max_rel": max(o[1] for o in out)}
+
+
+def _ring_bwd_case(mesh, dtype_name, seed):
+    """The ring backward over time=2 at the DiT hop shape (B=1 S=17,776
+    H=30 D=64, 8,888 positions a rank) from the whole sequence's out and
+    lse (the exact forward kernel) against one flash_bwd over the whole
+    sequence; per rank two backward launches, 6 shifts."""
+    import torch
+
+    from landiff_tpu_torch.ops import attention as A
+    from landiff_tpu_torch.parallel import ring_attention as R
+    from landiff_tpu_torch.parallel import tp_infer
+
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_name]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (1, 17776, 30, 64)
+    q = (torch.randn(shape, generator=g, device="cuda") * 1.5).to(dt)
+    k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                for _ in range(3))
+    out, lse = A.flash_attention(q, k, v, int8_scores=False, int8_pv=False,
+                                 exp_bf16=False, return_lse=True)
+    whole = A.flash_bwd(q, k, v, out, lse, do)
+    mesh.run(tp_infer.rank_report, True)
+    t0 = time.perf_counter()
+    ring = R.ring_attention_bwd(q, k, v, out, lse.transpose(1, 2), do, mesh,
+                                impl="pallas")
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    reports = mesh.run(tp_infer.rank_report, True)
+    kname = "flash_bwd_f32" if dtype_name == "f32" else "flash_bwd"
+    for rep in reports:
+        got = {kk: c for kk, c in rep["launches"].items() if c}
+        check(got == {kname: 2}, f"ring bwd {dtype_name}: rank "
+              f"{rep['rank']} launched {got}")
+        check(rep["collectives"]["ring_shift"] == 6,
+              f"ring bwd: rank {rep['rank']} {rep['collectives']}")
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), ring, whole):
+        check(bool(torch.isfinite(a.float()).all()), f"ring bwd {name}")
+        if dtype_name == "f32":
+            max_rel, rms = A.kernel_error_rel(a, b)
+            tol = RING_BWD_F32_TOL
+            check(max_rel <= tol["max_rel"] and rms <= tol["rel_rms"],
+                  f"ring bwd f32 {name}: {max_rel} / {rms}, limits {tol}")
+            errs[name] = {"max_rel_err": max_rel, "rel_rms_err": rms}
+        else:
+            steps, rms = A.kernel_error(a, b)
+            tol = RING_BWD_TOL
+            check(steps <= tol["steps"] and rms <= tol["rel_rms"],
+                  f"ring bwd {name}: {steps} steps / {rms}, limits {tol}")
+            errs[name] = {"max_bf16_steps": steps, "rel_rms_err": rms,
+                          "max_abs_err": (a.float() - b.float()).abs()
+                          .max().item()}
+    entry = {"case": "ring_bwd", "dtype": dtype_name, "shape": list(shape),
+             "time": 2, "vs_one_flash_bwd": errs, "limits": tol,
+             "ring_s": ring_s,
+             "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                for a, b in zip(ring, whole)),
+             "launches_per_rank": [r["launches"][kname] for r in reports],
+             "shifts_per_rank": [r["collectives"]["ring_shift"]
+                                 for r in reports]}
+    log(json.dumps({"phase": "train_mesh", **entry}))
+    del q, k, v, do, out, lse, whole, ring
+    torch.cuda.empty_cache()
+    return entry
+
+
+def _ring_bwd_plain_case(mesh, seed):
+    """At a small shape (B=1 S=2 x 640 H=2 D=64, bf16) the ring of
+    kernels against the ring of the backward's plain versions run in this
+    process: at hop j rank r holds block r - j; dq sums on its rank, dk /
+    dv on their block's, in f32, rounded once."""
+    import torch
+
+    from landiff_tpu_torch.ops import attention as A
+    from landiff_tpu_torch.parallel import ring_attention as R
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, s = 2, 640
+    shape = (1, n * s, 2, 64)
+    q = (torch.randn(shape, generator=g, device="cuda") * 1.5).bfloat16()
+    k, v, do = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+                for _ in range(3))
+    out, lse = A.flash_attention(q, k, v, int8_scores=False, int8_pv=False,
+                                 exp_bf16=False, return_lse=True)
+    ring = R.ring_attention_bwd(q, k, v, out, lse.transpose(1, 2), do, mesh,
+                                impl="pallas")
+    part = lambda x, r: x[:, r * s:(r + 1) * s].contiguous()
+    acc = [torch.zeros(shape, dtype=torch.float32, device="cuda")
+           for _ in range(3)]
+    for r in range(n):
+        for j in range(n):
+            b = (r - j) % n
+            dq, dk, dv = A.flash_bwd_plain(
+                part(q, r), part(k, b), part(v, b), part(out, r),
+                lse[:, :, r * s:(r + 1) * s].contiguous(), part(do, r))
+            acc[0][:, r * s:(r + 1) * s] += dq.float()
+            acc[1][:, b * s:(b + 1) * s] += dk.float()
+            acc[2][:, b * s:(b + 1) * s] += dv.float()
+    tol = {"steps": n * BWD_TOL_STEPS + 1.0, "rel_rms": BWD_TOL_RMS}
+    errs = {}
+    for name, a, w in zip(("dq", "dk", "dv"), ring, acc):
+        steps, rms = A.kernel_error(a, w.bfloat16())
+        check(steps <= tol["steps"] and rms <= tol["rel_rms"],
+              f"ring bwd vs plain ring {name}: {steps} steps / {rms}, "
+              f"limits {tol}")
+        errs[name] = {"max_bf16_steps": steps, "rel_rms_err": rms}
+    entry = {"case": "ring_bwd_vs_plain_ring", "shape": list(shape),
+             "time": n, "errors": errs, "limits": tol}
+    log(json.dumps({"phase": "train_mesh", **entry}))
+    return entry
+
+
+def _filled_setup(model, cfg, opt, dtype, seed):
+    """The trainer's setup (train.SETUPS) with every zero leaf of its
+    trees filled from a seed (zero gates would cut the gradients) and the
+    optimizer state made anew from the filled parameters: (state, frozen
+    trees, the one-device run(state, batch, generator))."""
+    import torch
+
+    from landiff_tpu_torch.training import diffusion_loss
+    from landiff_tpu_torch.training import train as train_lib
+    from landiff_tpu_torch.utils import fill_zero_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state, run, frozen = train_lib.SETUPS[model](cfg, opt, "cuda", dtype)
+    params = fill_zero_leaves(state[0], gen)
+    frozen = {k: fill_zero_leaves(t, gen) for k, t in frozen.items()}
+    if model == "dit":               # the trainer's step on the filled trees
+        step = diffusion_loss.make_train_step(
+            opt, cfg.dit, cfg.sampler, cfg.tokenizer, cfg.semantic_cond,
+            compute_dtype=dtype)
+
+        def run(st, b, g):
+            ctrl, o, loss = step(st[0], st[1], frozen["main"], frozen["sem"],
+                                 b["latents"], b["context"], b["tokens"], g)
+            return (ctrl, o), {"loss": loss}
+    return (params, opt.init(params), *state[2:]), frozen, run
+
+
+def _host(tree):
+    from landiff_tpu_torch.utils import tree_map
+
+    return tree_map(lambda x: x.detach().cpu() if hasattr(x, "detach")
+                    else x, tree)
+
+
+def _train_mesh_sp(workdir, mesh):
+    """data=1,time=2: one `train --mesh` step of the stage-2 trainer at
+    full width and depth in bf16 (remat) against the one-device step on
+    the same synthesized batch and the same draws (the step's generator
+    seeded alike on every rank); the zero leaves of the inits filled, as
+    the train phase does. The one-device step runs first, its loss and
+    gradients kept on the host, the card freed before the ranks start."""
+    import torch
+
+    from landiff_tpu_torch.config import LanDiffConfig
+    from landiff_tpu_torch.models import dit as dit_lib
+    from landiff_tpu_torch.models import semantic_cond as sc_lib
+    from landiff_tpu_torch.parallel import tp_infer
+    from landiff_tpu_torch.training import diffusion_loss, optim
+    from landiff_tpu_torch.training import train as train_lib
+    from landiff_tpu_torch.utils import fill_zero_leaves
+
+    cfg = LanDiffConfig()
+    data = workdir / "mesh_dit_data"
+    train_lib.synthesize("dit", cfg, 1, str(data), seed=0, shard_size=1)
+    kw = dict(steps=1, batch_size=1, dtype=torch.bfloat16, log_every=1,
+              device="cuda")
+    orig = (dit_lib.init, sc_lib.init, optim.grad,
+            diffusion_loss.mesh_loss_and_grads)
+    seen = {}
+
+    def dit_init(gen, c, *, control=False, dtype=torch.float32):
+        return fill_zero_leaves(orig[0](gen, c, control=control,
+                                        dtype=dtype), gen)
+
+    def sc_init(gen, *a, **k):
+        return fill_zero_leaves(orig[1](gen, *a, **k), gen)
+
+    def grad(loss, params):
+        grads = orig[2](loss, params)
+        seen["one"] = _host(grads)
+        return grads
+
+    def mesh_grads(*a, **k):          # rank 0's: summed over time
+        loss, grads, draws = orig[3](*a, **k)
+        seen["mesh"] = _host(grads)
+        return loss, grads, draws
+
+    dit_lib.init, sc_lib.init, optim.grad = dit_init, sc_init, grad
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, last = train_lib.train("dit", str(data), **kw)
+        torch.cuda.synchronize()
+        one = {"seconds": time.perf_counter() - t0,
+               "loss": float(last["loss"]),
+               "launches": {k: n for k, n in read_counts().items() if n},
+               "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        optim.grad = orig[2]
+        gc.collect()
+        torch.cuda.empty_cache()
+        diffusion_loss.mesh_loss_and_grads = mesh_grads
+        mesh.run(tp_infer.rank_report, True)
+        t0 = time.perf_counter()
+        _, last = train_lib.train("dit", str(data), mesh_spec=mesh, **kw)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        reports = mesh.run(tp_infer.rank_report, True)
+    finally:
+        (dit_lib.init, sc_lib.init, optim.grad,
+         diffusion_loss.mesh_loss_and_grads) = orig
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_loss = float(last["loss"])
+    loss_rel = abs(mesh_loss - one["loss"]) / abs(one["loss"])
+    check(np.isfinite(mesh_loss) and loss_rel <= MESH_LOSS_REL,
+          f"sp step loss {mesh_loss} against {one['loss']}")
+    grads = _grad_agreement(seen["mesh"], seen["one"])
+    n = mesh.cfg.time
+    layers = cfg.dit.num_layers + cfg.dit.control_layers
+    diff = one["launches"]["flash_bwd"]
+    want = {"flash_bwd": n * diff,
+            "flash_fwd_exact": n * one["launches"]["flash_fwd_exact"],
+            # the main stream's first layer needs no gradient: its ring
+            # takes the inference hops (int8), n instead of one call
+            "flash_fwd_int8": one["launches"]["flash_fwd_int8"] - 1 + n}
+    shifts = 2 * (n - 1) * (layers + diff) + (4 * n - 2) * diff
+    for rep in reports:
+        got = {k: c for k, c in rep["launches"].items() if c}
+        check(got == want, f"sp step: rank {rep['rank']} launches {got}, "
+              f"want {want}")
+        check(rep["collectives"]["ring_shift"] == shifts,
+              f"sp step: rank {rep['rank']} {rep['collectives']}, "
+              f"want {shifts} shifts")
+    entry = {"case": "sp", "mesh": "data=1,time=2", "dtype": "bf16",
+             "remat": True, "depth": f"{cfg.dit.num_layers} + "
+             f"{cfg.dit.control_layers} (full)", "one_device": one,
+             "mesh_loss": mesh_loss, "loss_rel_diff": loss_rel,
+             "loss_limit": MESH_LOSS_REL, "gradients": grads,
+             "grad_limits": {"corr": MESH_GRAD_CORR, "rel": MESH_GRAD_REL},
+             "train_call_s": mesh_s,
+             "launches_per_rank": [r["launches"] for r in reports],
+             "collectives_per_rank": [r["collectives"] for r in reports],
+             "max_memory_allocated": [r["max_memory_allocated"]
+                                      for r in reports],
+             "seconds_note": "ranks time-slice one card: not speed"}
+    log(json.dumps({"phase": "train_mesh", **entry}))
+    del seen
+    return entry
+
+
+def _mesh_vs_one(mesh, model, cfg, dtype, batches, seed):
+    """Two steps of `model` on the mesh (MeshTrainer, train.py's mesh
+    path) against train.py's one-device steps from the same filled
+    state and generator seeds: losses; dit's first-step gradients (its
+    bf16 parameters move by a few bf16 steps, too coarse to compare), else
+    the parameter change. Per rank: launches, collectives, parameter and
+    optimizer bytes, peak memory."""
+    import torch
+
+    from landiff_tpu_torch.parallel import tp_infer
+    from landiff_tpu_torch.training import mesh_train, optim
+    from landiff_tpu_torch.training import train as train_lib
+    from landiff_tpu_torch.utils import tree_map
+
+    opt = train_lib.make_optimizer(**MESH_OPT)
+    state, frozen, run = _filled_setup(model, cfg, opt, dtype, seed)
+    start = tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                     else x, state)
+    start_host = _host(state[0])
+    seen = {}
+    orig = optim.grad
+    if model == "dit":
+
+        def grad(loss, params):
+            g = orig(loss, params)
+            seen.setdefault("one", _host(g))
+            return g
+
+        optim.grad = grad
+    losses = []
+    try:
+        for i, b in enumerate(batches):
+            state, m = run(state, b, torch.Generator(device="cuda")
+                           .manual_seed(seed + i))
+            losses.append(float(next(iter(
+                v for k, v in m.items() if k in ("loss", "total_loss")))))
+    finally:
+        if model == "dit":
+            optim.grad = orig
+    ref = _host(state)
+    del state, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh.run(tp_infer.rank_report, True)
+    trainer = mesh_train.MeshTrainer(mesh, model, cfg, MESH_OPT, dtype, start,
+                                     frozen, keep_grads=model == "dit")
+    del start, frozen
+    try:
+        t0 = time.perf_counter()
+        mlosses = []
+        for i, b in enumerate(batches):
+            m = trainer.step(b, seed + i)
+            mlosses.append(float(m.get("loss", m.get("total_loss"))))
+            if i == 0 and model == "dit":
+                seen["mesh"] = trainer.grads()
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        reports = mesh.run(tp_infer.rank_report, True)
+        sizes = trainer.report()
+        after = trainer.state()
+    finally:
+        trainer.close()
+    rel = [abs(a - b) / abs(b) for a, b in zip(mlosses, losses)]
+    check(all(np.isfinite(mlosses)) and max(rel) <= MESH_LOSS_REL,
+          f"{model} on {mesh.cfg}: losses {mlosses} against {losses}")
+    entry = {"model": model, "dtype": str(dtype).split(".")[-1],
+             "losses": mlosses, "one_device_losses": losses,
+             "loss_rel_diff": rel, "seconds": mesh_s,
+             "launches_per_rank": [{k: c for k, c in r["launches"].items()
+                                    if c} for r in reports],
+             "collectives_per_rank": [r["collectives"] for r in reports],
+             "bytes_per_rank": sizes,
+             "max_memory_allocated": [r["max_memory_allocated"]
+                                      for r in reports]}
+    if model == "dit":
+        entry["gradients"] = _grad_agreement(seen["mesh"], seen["one"])
+    else:
+        entry["update"] = _update_agreement(after[0], start_host, ref[0],
+                                            f"{model} on {mesh.cfg}")
+    if model == "vq":
+        entry["codebook_max_abs_diff"] = float(
+            (after[0]["quant"]["codebook"] - ref[0]["quant"]["codebook"])
+            .abs().max())
+        check(entry["codebook_max_abs_diff"] <= 1e-3,
+              f"vq codebook off one device by "
+              f"{entry['codebook_max_abs_diff']}")
+    return entry, after
+
+
+def phase_train_mesh(workdir):
+    """Training on meshes whose ranks share the card (ROADMAP item 15b,
+    its training half): the ring_bwd, sp, tp and zero cases. Returns the
+    per-rank launches of the sp step and the ring_bwd entries."""
+    import torch
+
+    from landiff_tpu_torch.config import LanDiffConfig, MeshConfig
+    from landiff_tpu_torch.parallel import mesh as mesh_lib
+    from landiff_tpu_torch.training import train as train_lib
+    from landiff_tpu_torch.training import zero
+
+    t_phase = time.perf_counter()
+    out = {}
+    mesh = mesh_lib.make_mesh(MeshConfig(time=2), devices=["cuda:0"] * 2)
+    try:
+        out["ring_bwd"] = {d: _ring_bwd_case(mesh, d, 91 + i)
+                           for i, d in enumerate(("bf16", "f32"))}
+        out["ring_bwd_plain"] = _ring_bwd_plain_case(mesh, 93)
+        out["sp"] = _train_mesh_sp(workdir, mesh)
+    finally:
+        mesh.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    full = LanDiffConfig()
+    cut = dataclasses.replace(
+        full, dit=dataclasses.replace(full.dit, num_layers=2,
+                                      control_layers=1),
+        llm=dataclasses.replace(full.llm, num_layers=2),
+        tokenizer=dataclasses.replace(full.tokenizer, titok=dataclasses
+                                      .replace(full.tokenizer.titok,
+                                               num_layers=2)))
+
+    def batches(model, n_rows, seed):
+        """Two synthesized batches of n_rows (train.synthesize's shapes)."""
+        import tempfile as tf
+
+        with tf.TemporaryDirectory(dir=workdir) as d:
+            train_lib.synthesize(model, cut, 2 * n_rows, d, seed=seed,
+                                 shard_size=2 * n_rows)
+            z = np.load(sorted(Path(d).glob("*.npz"))[0])
+            return [{k: torch.from_numpy(z[k][i * n_rows:(i + 1) * n_rows])
+                     .cuda() for k in z.files} for i in range(2)]
+
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_mesh(MeshConfig(model=2), devices=["cuda:0"] * 2)
+    try:
+        tp = {}
+        for model, dtype in (("dit", torch.bfloat16), ("lm", torch.float32),
+                             ("vq", torch.float32)):
+            tp[model], _ = _mesh_vs_one(mesh, model, cut, dtype,
+                                        batches(model, 1, 5), 101)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(json.dumps({"phase": "train_mesh", "case": "tp",
+                            "mesh": "data=1,model=2", **tp[model]}))
+    finally:
+        mesh.close()
+    out["tp"] = {"depth": "DiT 2 + 1 layers, GPT 2 blocks, TiTok 2 layers",
+                 "seconds": time.perf_counter() - t0}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_mesh(MeshConfig(data=2), devices=["cuda:0"] * 2)
+    try:
+        opt = train_lib.make_optimizer(**MESH_OPT)
+        state, _, _ = _filled_setup("lm", cut, opt, torch.float32, 111)
+        want, total = zero.opt_state_bytes_per_device(state[1], 2)
+        del state
+        entry, _ = _mesh_vs_one(mesh, "lm", cut, torch.float32,
+                                batches("lm", 2, 6), 111)
+        for r in entry["bytes_per_rank"]:
+            check(r["opt_bytes"] == want, f"zero: rank {r['rank']} holds "
+                  f"{r['opt_bytes']} optimizer bytes, want {want}")
+        entry.update(opt_bytes_per_rank_want=want, opt_bytes_whole=total)
+        log(json.dumps({"phase": "train_mesh", "case": "zero",
+                        "mesh": "data=2", **entry}))
+    finally:
+        mesh.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["zero_seconds"] = time.perf_counter() - t0
+    log(json.dumps({"phase": "train_mesh",
+                    "seconds": time.perf_counter() - t_phase}))
+    return out
+
+
 def bwd_entry(bwd, launches):
     """The flash backward's entry of the kernels line: its numbers at the
     training shape, the TiTok case, and ptxas's report of the main kernel
@@ -4292,7 +4832,7 @@ def main():
     ap.add_argument("--only", choices=("flash_fwd", "flash_bwd", "f32",
                                        "stage1_batch", "long_video", "ckpt",
                                        "train", "tokenizer", "variants",
-                                       "serving", "tp", "sp"),
+                                       "serving", "tp", "sp", "train_mesh"),
                     help="build, then only this kernel's cases at the "
                          "main-path shapes, or only the batched decoding "
                          "check at full width (no pipeline, no last "
@@ -4360,6 +4900,10 @@ def main():
         return
     if args.only == "sp":
         phase_sp(args.steps)
+        return
+    if args.only == "train_mesh":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase_train_mesh(Path(tmp))
         return
     if args.only in ("ckpt", "train"):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -4466,6 +5010,10 @@ def main():
         torch.cuda.empty_cache()
         vq_launches = phase_train_vq(Path(tmp))
         phase_prepare(Path(tmp))
+        # 13. training on meshes of ranks sharing the card
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_mesh = phase_train_mesh(Path(tmp))
 
     # launches of each forward variant on its path: the exact kernel on the
     # int8-off DiT call, the int8 kernel on prompt -> video, int8_pv on the
@@ -4565,6 +5113,13 @@ def main():
     for name in ("flash_bwd", "flash_fwd_exact"):
         by_name[name]["launches_train_rotary3d_step"] = \
             rotary_train_launches[name]
+        # per rank of the data=1,time=2 stage-2 step: the ring's hops
+        by_name[name]["launches_train_mesh_sp_per_rank"] = [
+            r[name] for r in train_mesh["sp"]["launches_per_rank"]]
+    by_name["flash_bwd"]["ring_bwd"] = train_mesh["ring_bwd"]["bf16"]
+    by_name["flash_bwd"]["ring_bwd_vs_plain_ring"] = \
+        train_mesh["ring_bwd_plain"]
+    by_name["flash_bwd_f32"]["ring_bwd"] = train_mesh["ring_bwd"]["f32"]
     for name in ("flash_fwd_exact_f32", "flash_bwd_f32"):
         by_name[name]["launches_train_vq"] = sum(
             step.get(name, 0) for step in vq_launches)

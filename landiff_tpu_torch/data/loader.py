@@ -3,7 +3,8 @@ a directory of .npz shards, each holding equally-keyed arrays; iteration
 is DP-rank-aware (disjoint shard assignment), shuffled per epoch with a
 seeded numpy rng (the same batches as the JAX loader for a seed), and
 double-buffered onto the device by a background thread so host IO
-overlaps the steps.
+overlaps the steps. On a training mesh every rank gets the global batch
+and takes its rows by its `data` coordinate (`data_rows`).
 """
 
 from __future__ import annotations
@@ -59,6 +60,17 @@ class ShardedNpzDataset:
         if not self.drop_remainder and buf and len(
                 next(iter(buf.values()))):
             yield {k: np.stack(v) for k, v in buf.items()}
+
+
+def data_rows(batch_size: int, dp_rank: int, dp_size: int) -> slice:
+    """The rows of a global batch that data rank `dp_rank` of `dp_size`
+    takes (JAX's P("data") placement: equal consecutive blocks in rank
+    order); the batch must split evenly."""
+    if batch_size % dp_size:
+        raise ValueError(f"a batch of {batch_size} does not split over "
+                         f"data={dp_size}")
+    n = batch_size // dp_size
+    return slice(dp_rank * n, (dp_rank + 1) * n)
 
 
 def prefetch_to_device(iterator, size: int = 2, device="cuda"):

@@ -28,6 +28,10 @@ rank's heads (parallel/tp_infer.py), with `sp_group` also on one rank's
 tokens (the 2-D hybrid); `forward_sp` / `control_warp_forward_sp` run the
 sequence-parallel layers on one rank's tokens with the weights whole,
 attention as a ring over the `time` ranks (parallel/ring_attention.py).
+Both train: their collectives carry gradients (parallel/mesh.copy_to,
+reduce_from, gather_from; the ring's own backward) and `remat=True`
+checkpoints each layer as `forward`'s, with no policy (JAX dit.py:
+658-713 checkpoints `_layer_sp` plainly).
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ from landiff_tpu_torch.ops.attention import attention, \
     save_flash_residuals_context
 from landiff_tpu_torch.ops.embeddings import timestep_embedding
 from landiff_tpu_torch.ops.norms import layer_norm
+from landiff_tpu_torch.parallel.mesh import copy_to, gather_from, \
+    reduce_from
 from landiff_tpu_torch.utils import env_flag
 
 # ---------------------------------------------------------------------------
@@ -476,7 +482,11 @@ def _layer_tp(p, x, emb, cfg: DiTConfig, attn_impl, group, sp_group=None,
     LayerNorm and modulate stay unfused: LANDIFF_FUSED_ADALN is not read.
     W8A8 leaves ({q, s}, tp_infer.quantize_layer_tp) take per-token scales
     of this rank's features; the per-output scale of a row-parallel
-    product applies before the all-reduce, as JAX's. sp_group / offset:
+    product applies before the all-reduce, as JAX's. Under a gradient the
+    inputs of the column-parallel products and the qk-LN parameters (used
+    on this rank's heads alone) enter through `copy_to` (Megatron's f) and
+    the two all-reduces are `reduce_from` (g): every replicated leaf then
+    gets its whole gradient on every rank. sp_group / offset:
     the 2-D hybrid, x this rank's tokens [offset, offset + S) of a
     sequence sharded over sp_group (the `time` ranks at this model
     index), attention a ring over them on the local heads."""
@@ -487,7 +497,7 @@ def _layer_tp(p, x, emb, cfg: DiTConfig, attn_impl, group, sp_group=None,
     _, sel = _adaln_sel(p, emb, x, cfg.text_length, offset)
 
     h = layer_norm(x, p["ln1_w"], p["ln1_b"], 1e-6)
-    h = h * (1.0 + sel(1)) + sel(0)
+    h = copy_to(group, h * (1.0 + sel(1)) + sel(0))
     if isinstance(w, dict):
         qkv = _w8a8_matmul(h, w["q"].reshape(D, 3 * Hl * Dk),
                            w["s"].reshape(-1))
@@ -497,8 +507,10 @@ def _layer_tp(p, x, emb, cfg: DiTConfig, attn_impl, group, sp_group=None,
     q, k, v = qkv.unbind(2)
     v = v.contiguous()
     if cfg.qk_ln:
-        q = layer_norm(q, p["q_ln_w"], p["q_ln_b"], 1e-6)
-        k = layer_norm(k, p["k_ln_w"], p["k_ln_b"], 1e-6)
+        ln = {n: copy_to(group, p[n]) for n in
+              ("q_ln_w", "q_ln_b", "k_ln_w", "k_ln_b")}
+        q = layer_norm(q, ln["q_ln_w"], ln["q_ln_b"], 1e-6)
+        k = layer_norm(k, ln["k_ln_w"], ln["k_ln_b"], 1e-6)
     q, k, v = _maybe_rotary(q, k, v, cfg, offset)
     attn = _attend(q, k, v, attn_impl, sp_group).reshape(B, S, Hl * Dk)
     wo = p["attn_out_w"]
@@ -506,16 +518,16 @@ def _layer_tp(p, x, emb, cfg: DiTConfig, attn_impl, group, sp_group=None,
         attn = _w8a8_matmul(attn, wo["q"].reshape(Hl * Dk, D), wo["s"])
     else:
         attn = attn @ wo.reshape(Hl * Dk, D).to(dt)
-    attn = group.all_reduce(attn) + p["attn_out_b"].to(dt)
+    attn = reduce_from(group, attn) + p["attn_out_b"].to(dt)
     x = x + sel(2) * attn
 
     h = layer_norm(x, p["ln2_w"], p["ln2_b"], 1e-6)
-    h = h * (1.0 + sel(4)) + sel(3)
+    h = copy_to(group, h * (1.0 + sel(4)) + sel(3))
     h = F.gelu(_linear(p, "mlp0", h), approximate="tanh")
     w1 = p["mlp1_w"]
     h = (_w8a8_matmul(h, w1["q"], w1["s"]) if isinstance(w1, dict)
          else h @ w1.to(dt))
-    h = group.all_reduce(h) + p["mlp1_b"].to(dt)
+    h = reduce_from(group, h) + p["mlp1_b"].to(dt)
     return x + sel(5) * h
 
 
@@ -549,11 +561,21 @@ def _layer_sp(p, x, emb, cfg: DiTConfig, attn_impl, sp_group, offset):
     return x + sel(5) * _linear(p, "mlp1", h)
 
 
+def _per_layer(layer, remat: bool):
+    """layer(p, h, offset), or the same checkpointed (non-reentrant, no
+    policy) so that the backward recomputes it."""
+    if not remat:
+        return layer
+    return lambda p, h, off: checkpoint(layer, p, h, off,
+                                        use_reentrant=False)
+
+
 def _main_layers(params, h, emb, cfg, layer, sp_group, control_outputs):
     """The main stream through `layer(p, h, offset)`: embeddings whole on
     every rank, then (under sp_group) this rank's tokens through the
     layers with the control taps of the same tokens, gathered back before
-    the final head (one all-gather of (B, S, D) a forward)."""
+    the final head (one all-gather of (B, S, D) a forward; under a
+    gradient its backward is this rank's slice of the cotangent)."""
     offset = 0
     if sp_group is not None:
         offset, h = _sp_slice(h, sp_group)
@@ -562,7 +584,7 @@ def _main_layers(params, h, emb, cfg, layer, sp_group, control_outputs):
         if control_outputs is not None and i < len(control_outputs):
             h = h + control_outputs[i].to(h.dtype)
     if sp_group is not None:
-        h = sp_group.all_gather(h, dim=1)
+        h = gather_from(sp_group, h, 1)
     return _final_head(params, h, emb, cfg)
 
 
@@ -582,37 +604,40 @@ def _control_layers(params, h, cfg, layer, sp_group):
 
 def forward_tp(params, x, timesteps, context, cfg: DiTConfig, *, group,
                control_outputs=None, attn_impl="auto",
-               compute_dtype=torch.bfloat16, sp_group=None):
+               compute_dtype=torch.bfloat16, sp_group=None, remat=False):
     """`forward` with the tensor-parallel layers; the embeddings and the
     final head are computed whole on every rank (small beside the
-    blocks). sp_group: the 2-D hybrid (tokens also over `time`)."""
+    blocks). sp_group: the 2-D hybrid (tokens also over `time`); remat:
+    recompute each layer in the backward."""
     h, emb = _embed_inputs(params, x, timesteps, context, cfg, compute_dtype)
     return _main_layers(
-        params, h, emb, cfg,
-        lambda p, h, off: _layer_tp(p, h, emb, cfg, attn_impl, group,
-                                    sp_group, off),
+        params, h, emb, cfg, _per_layer(
+            lambda p, h, off: _layer_tp(p, h, emb, cfg, attn_impl, group,
+                                        sp_group, off), remat),
         sp_group, control_outputs)
 
 
 def control_forward_tp(params, x, timesteps, context, cfg: DiTConfig,
                        semantic_feature, *, group, attn_impl="auto",
-                       compute_dtype=torch.bfloat16, sp_group=None):
+                       compute_dtype=torch.bfloat16, sp_group=None,
+                       remat=False):
     """`control_forward` with the tensor-parallel layers; zero_linear
     stays whole on every rank (D x D a layer, and its output joins the
     whole main stream, or this rank's tokens of it under sp_group)."""
     x = x.to(compute_dtype) + semantic_feature.to(compute_dtype)
     h, emb = _embed_inputs(params, x, timesteps, context, cfg, compute_dtype)
     return _control_layers(
-        params, h, cfg,
-        lambda p, h, off: _layer_tp(p, h, emb, cfg, attn_impl, group,
-                                    sp_group, off),
+        params, h, cfg, _per_layer(
+            lambda p, h, off: _layer_tp(p, h, emb, cfg, attn_impl, group,
+                                        sp_group, off), remat),
         sp_group)
 
 
 def control_warp_forward_tp(main_params, control_params, x, timesteps,
                             context, cfg: DiTConfig, semantic_feature, *,
                             group, attn_impl="auto",
-                            compute_dtype=torch.bfloat16, sp_group=None):
+                            compute_dtype=torch.bfloat16, sp_group=None,
+                            remat=False):
     """ControlDiffWarp.forward under tensor parallelism: 2 x (layers +
     control layers) all-reduces (and under sp_group 2 ring shifts a layer
     and hop, one all-gather)."""
@@ -620,55 +645,59 @@ def control_warp_forward_tp(main_params, control_params, x, timesteps,
     ctrl = control_forward_tp(control_params, x, timesteps, context,
                               ctrl_cfg, semantic_feature, group=group,
                               attn_impl=attn_impl,
-                              compute_dtype=compute_dtype, sp_group=sp_group)
+                              compute_dtype=compute_dtype, sp_group=sp_group,
+                              remat=remat)
     return forward_tp(main_params, x, timesteps, context, cfg, group=group,
                       control_outputs=ctrl, attn_impl=attn_impl,
-                      compute_dtype=compute_dtype, sp_group=sp_group)
+                      compute_dtype=compute_dtype, sp_group=sp_group,
+                      remat=remat)
 
 
 def forward_sp(params, x, timesteps, context, cfg: DiTConfig, *, sp_group,
                control_outputs=None, attn_impl="auto",
-               compute_dtype=torch.bfloat16):
-    """Main DiT forward, sequence-parallel (dit.py:658-681, without the
-    training's remat): embeddings whole on every rank, this rank's tokens
-    through `_layer_sp`, the final head on the gathered sequence.
-    control_outputs: this rank's taps (control_forward_sp)."""
+               compute_dtype=torch.bfloat16, remat=False):
+    """Main DiT forward, sequence-parallel (dit.py:658-681): embeddings
+    whole on every rank, this rank's tokens through `_layer_sp`, the final
+    head on the gathered sequence. control_outputs: this rank's taps
+    (control_forward_sp); remat: recompute each layer in the backward
+    (the SP training step's: residuals of the 1 / time token shard)."""
     h, emb = _embed_inputs(params, x, timesteps, context, cfg, compute_dtype)
     return _main_layers(
-        params, h, emb, cfg,
-        lambda p, h, off: _layer_sp(p, h, emb, cfg, attn_impl, sp_group,
-                                    off),
+        params, h, emb, cfg, _per_layer(
+            lambda p, h, off: _layer_sp(p, h, emb, cfg, attn_impl,
+                                        sp_group, off), remat),
         sp_group, control_outputs)
 
 
 def control_forward_sp(params, x, timesteps, context, cfg: DiTConfig,
                        semantic_feature, *, sp_group, attn_impl="auto",
-                       compute_dtype=torch.bfloat16):
+                       compute_dtype=torch.bfloat16, remat=False):
     """Sequence-parallel control branch (dit.py:684-698): this rank's
     (B, S_local, D) zero-linear taps."""
     x = x.to(compute_dtype) + semantic_feature.to(compute_dtype)
     h, emb = _embed_inputs(params, x, timesteps, context, cfg, compute_dtype)
     return _control_layers(
-        params, h, cfg,
-        lambda p, h, off: _layer_sp(p, h, emb, cfg, attn_impl, sp_group,
-                                    off),
+        params, h, cfg, _per_layer(
+            lambda p, h, off: _layer_sp(p, h, emb, cfg, attn_impl,
+                                        sp_group, off), remat),
         sp_group)
 
 
 def control_warp_forward_sp(main_params, control_params, x, timesteps,
                             context, cfg: DiTConfig, semantic_feature, *,
                             sp_group, attn_impl="auto",
-                            compute_dtype=torch.bfloat16):
+                            compute_dtype=torch.bfloat16, remat=False):
     """ControlDiffWarp.forward under sequence parallelism: per rank 2 x
     (time - 1) ring shifts a layer, one all-gather, no all-reduce."""
     ctrl_cfg = dataclasses.replace(cfg, num_layers=cfg.control_layers)
     ctrl = control_forward_sp(control_params, x, timesteps, context,
                               ctrl_cfg, semantic_feature, sp_group=sp_group,
                               attn_impl=attn_impl,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype, remat=remat)
     return forward_sp(main_params, x, timesteps, context, cfg,
                       sp_group=sp_group, control_outputs=ctrl,
-                      attn_impl=attn_impl, compute_dtype=compute_dtype)
+                      attn_impl=attn_impl, compute_dtype=compute_dtype,
+                      remat=remat)
 
 
 def control_mlp_adapter_forward(params, x, context, cfg: DiTConfig, *,

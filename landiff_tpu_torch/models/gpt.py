@@ -16,14 +16,17 @@ position. `quantize_int8` / `quantize_int4` make the weight-only
 quantized block linears of the fast decode (LANDIFF_DECODE_INT8 / _INT4,
 pipeline/llm_infer.py), which `_dot` reads.
 
-Tensor parallel at inference (`prefill` / `decode_step` with `tp=group`,
-parallel/mesh.GPT_RULES; the packed forward's is training's, ROADMAP item
-15b): a rank holds its heads of wqkv (split per head inside each of q, k
-and v: a contiguous column split would mix q and k heads), the matching
-rows of wo, its columns of w1 / w3 and rows of w2; one all-reduce after
-wo and one after w2, and the KV cache holds the rank's heads. A head that
-divides (vocab % model == 0) is split by columns and its logits gathered.
-The heads a rank holds are read off its weights.
+Tensor parallel (`prefill` / `decode_step` at inference, `forward` in
+training, with `tp=group`; parallel/mesh.GPT_RULES): a rank holds its
+heads of wqkv (split per head inside each of q, k and v: a contiguous
+column split would mix q and k heads; the trainer keeps it as (D, 3,
+H_local, Dk)), the matching rows of wo, its columns of w1 / w3 and rows
+of w2; one all-reduce after wo and one after w2, and the KV cache holds
+the rank's heads. A head that divides (vocab % model == 0) is split by
+columns and its logits gathered. The heads a rank holds are read off its
+weights. Under a gradient the inputs of the column-parallel products
+enter through mesh.copy_to (Megatron's f), the all-reduces are
+mesh.reduce_from (g) and the logits' gather mesh.gather_from.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from landiff_tpu_torch.ops import masks as masks_lib
 from landiff_tpu_torch.ops.attention import attention, mha_reference
 from landiff_tpu_torch.ops.norms import layer_norm, rms_norm
 from landiff_tpu_torch.ops.rope import apply_rope
+from landiff_tpu_torch.parallel.mesh import copy_to, gather_from, \
+    reduce_from
 
 
 def gelu_tanh(x):
@@ -88,16 +93,20 @@ def _dot(x, w):
 
 def _qkv(p, x, cfg: LLMConfig):
     B, S, _ = x.shape
-    q, k, v = _dot(x, p["wqkv"]).chunk(3, dim=-1)
+    w = p["wqkv"]
+    if isinstance(w, torch.Tensor) and w.dim() == 4:   # (D, 3, H, Dk)
+        w = w.flatten(1)
+    q, k, v = _dot(x, w).chunk(3, dim=-1)
     shp = (B, S, -1, cfg.head_dim)
     return q.reshape(shp), k.reshape(shp), v.reshape(shp)
 
 
 def _reduce(y, tp):
-    return y if tp is None else tp.all_reduce(y)
+    return reduce_from(tp, y)
 
 
 def _mlp(p, x, tp=None):
+    x = copy_to(tp, x)
     return _reduce(
         _dot(gelu_tanh(_dot(x, p["w1"])) * _dot(x, p["w3"]), p["w2"]), tp)
 
@@ -110,29 +119,36 @@ def _logits(params, x, cfg: LLMConfig, tp=None):
     return y
 
 
-def block_forward(p, x, cos, sin, cfg: LLMConfig, attn_impl="auto"):
-    """Full-sequence causal block. x: (B, S, D); cos/sin: (S, Dk/2)."""
-    h = rms_norm(x, p["norm0"], cfg.norm_eps)
+def block_forward(p, x, cos, sin, cfg: LLMConfig, attn_impl="auto",
+                  tp=None):
+    """Full-sequence causal block. x: (B, S, D); cos/sin: (S, Dk/2); tp:
+    this rank's model Group (its heads and MLP columns)."""
+    B, S, _ = x.shape
+    h = copy_to(tp, rms_norm(x, p["norm0"], cfg.norm_eps))
     q, k, v = _qkv(p, h, cfg)
     q, k = apply_rope(q, cos[None], sin[None]), apply_rope(k, cos[None],
                                                            sin[None])
     attn = attention(q, k, v, mask_fn=masks_lib.causal, impl=attn_impl)
-    x = x + _dot(attn.reshape(x.shape), p["wo"])
+    x = x + _reduce(_dot(attn.reshape(B, S, -1), p["wo"]), tp)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    return x + _mlp(p, h)
+    return x + _mlp(p, h, tp)
 
 
 def forward(params, features, cfg: LLMConfig, cos, sin, *, apply_head=True,
-            attn_impl="auto", compute_dtype=torch.bfloat16):
+            attn_impl="auto", compute_dtype=torch.bfloat16, tp=None):
     """Training / packed forward. features: (B, S, D) embeddings; returns
-    logits (B, S, V) in the compute dtype, or the normed stream."""
+    logits (B, S, V) in the compute dtype, or the normed stream. tp: the
+    rank's model Group; a head split by columns gathers its logits."""
     x = features.to(compute_dtype)
     for p in params["blocks"]:
-        x = block_forward(p, x, cos, sin, cfg, attn_impl)
+        x = block_forward(p, x, cos, sin, cfg, attn_impl, tp)
     x = layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"])
     if not apply_head:
         return x
-    return x @ params["head"].to(x.dtype)
+    head = params["head"]
+    if tp is None or head.shape[-1] == cfg.vocab_size:
+        return x @ head.to(x.dtype)
+    return gather_from(tp, copy_to(tp, x) @ head.to(x.dtype), -1)
 
 
 def _bcast_rope(cos, sin):

@@ -9,6 +9,13 @@ At full width their attention (S = 18,768, 12 heads of 64) goes through
 the block-sparse flash kernels with the video-encoder / video-decoder
 mask. The encoder's patch embedding is a 1x1 conv over the Theia
 features, a per-token linear: patch_w is (C, W).
+
+Tensor parallel (`tp=group`, the trainer's TITOK_RULES, parallel/mesh.py):
+a rank holds its columns of wq, wk, wv (whole heads: a head is Dk
+consecutive columns) and fc0 (with its part of fc0_b), its rows of wo and
+fc1; the flash kernels run on its heads under the same mask; the
+column-parallel inputs enter through mesh.copy_to and the row-parallel
+sums are mesh.reduce_from, each bias added once after the sum.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from landiff_tpu_torch.ops import masks as masks_lib
 from landiff_tpu_torch.ops import rope as rope_lib
 from landiff_tpu_torch.ops.attention import attention
 from landiff_tpu_torch.ops.norms import layer_norm
+from landiff_tpu_torch.parallel.mesh import copy_to, reduce_from
 
 
 def _mask_layout(cfg: TiTokConfig,
@@ -47,28 +55,28 @@ def _rope_tables(cfg: TiTokConfig, forward_t: int):
     return rope_lib.rope_3d_by_index(cfg.rope, idx)
 
 
-def _block(p, x, cos, sin, cfg: TiTokConfig, mask_fn):
+def _block(p, x, cos, sin, cfg: TiTokConfig, mask_fn, tp=None):
     """ResidualAttentionBlock: pre-LN attention (bias-free linears) +
-    pre-LN MLP (erf gelu, biased) (blocks.py:222-304)."""
+    pre-LN MLP (erf gelu, biased) (blocks.py:222-304). tp: the rank's
+    model Group (its heads and MLP columns)."""
     B, S, D = x.shape
-    H = cfg.num_heads
-    Dk = D // H
+    Dk = D // cfg.num_heads
     dt = x.dtype
-    h = layer_norm(x, p["ln0_w"], p["ln0_b"], cfg.norm_eps)
-    q = (h @ p["wq"].to(dt)).reshape(B, S, H, Dk)
-    k = (h @ p["wk"].to(dt)).reshape(B, S, H, Dk)
-    v = (h @ p["wv"].to(dt)).reshape(B, S, H, Dk)
+    h = copy_to(tp, layer_norm(x, p["ln0_w"], p["ln0_b"], cfg.norm_eps))
+    q = (h @ p["wq"].to(dt)).reshape(B, S, -1, Dk)
+    k = (h @ p["wk"].to(dt)).reshape(B, S, -1, Dk)
+    v = (h @ p["wv"].to(dt)).reshape(B, S, -1, Dk)
     q = rope_lib.apply_rope(q, cos[None], sin[None])
     k = rope_lib.apply_rope(k, cos[None], sin[None])
     attn = attention(q, k, v, mask_fn=mask_fn)
-    x = x + attn.reshape(B, S, D) @ p["wo"].to(dt)
-    h = layer_norm(x, p["ln1_w"], p["ln1_b"], cfg.norm_eps)
+    x = x + reduce_from(tp, attn.reshape(B, S, -1) @ p["wo"].to(dt))
+    h = copy_to(tp, layer_norm(x, p["ln1_w"], p["ln1_b"], cfg.norm_eps))
     h = F.gelu(h @ p["fc0_w"].to(dt) + p["fc0_b"].to(dt))
-    return x + h @ p["fc1_w"].to(dt) + p["fc1_b"].to(dt)
+    return x + reduce_from(tp, h @ p["fc1_w"].to(dt)) + p["fc1_b"].to(dt)
 
 
 def encode(params, features, cfg: TiTokConfig, *, forward_t=None,
-           compute_dtype=torch.bfloat16):
+           compute_dtype=torch.bfloat16, tp=None):
     """TiTokEncoder.forward (blocks.py:593-656): features (B, T, h, w, C)
     normalized Theia features -> (B, latent_tokens, token_size) latents
     (pre-quantizer)."""
@@ -90,14 +98,14 @@ def encode(params, features, cfg: TiTokConfig, *, forward_t=None,
                 for a in _rope_tables(cfg, forward_t))
     mask_fn = masks_lib.video_encoder_mask(_mask_layout(cfg, forward_t))
     for p in params["blocks"]:
-        x = _block(p, x, cos, sin, cfg, mask_fn)
+        x = _block(p, x, cos, sin, cfg, mask_fn, tp)
     lat = layer_norm(x[:, forward_t * cfg.frame_tokens:], params["ln_post_w"],
                      params["ln_post_b"], cfg.norm_eps)
     return lat @ params["proj_w"].to(dt) + params["proj_b"].to(dt)
 
 
 def decode(params, latents, cfg: TiTokConfig, *, forward_t=None,
-           compute_dtype=torch.bfloat16):
+           compute_dtype=torch.bfloat16, tp=None):
     """TiTokDecoder.forward (blocks.py:906-976): latents (B, L,
     token_size) -> (B, T, h, w, C_out) feature grid."""
     B = latents.shape[0]
@@ -114,7 +122,7 @@ def decode(params, latents, cfg: TiTokConfig, *, forward_t=None,
                 for a in _rope_tables(cfg, forward_t))
     mask_fn = masks_lib.video_decoder_mask(_mask_layout(cfg, forward_t))
     for p in params["blocks"]:
-        x = _block(p, x, cos, sin, cfg, mask_fn)
+        x = _block(p, x, cos, sin, cfg, mask_fn, tp)
     x = layer_norm(x[:, :visual_len], params["ln_post_w"],
                    params["ln_post_b"], cfg.norm_eps)
     h = torch.tanh(x @ params["ffn0_w"].to(dt) + params["ffn0_b"].to(dt))

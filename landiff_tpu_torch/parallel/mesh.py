@@ -31,11 +31,16 @@ collective. Its times are those of one
 device time-sliced between processes and of host barriers, not of any
 interconnect.
 
+Training: the differentiable collectives `copy_to` (Megatron's f),
+`reduce_from` (g), `gather_from` and `ring_shift` carry a gradient
+through a rank's own autograd graph; each rank differentiates the same
+loss, so the backward of a gather is this rank's slice of the cotangent,
+not a sum. DIT_RULES and TITOK_RULES are the trainer's sharding rules.
+
 Failures: a worker that raises sends its traceback and exits, which
 fails the collectives its peers wait in; a rank that stops answering
 fails them at the process groups' timeout. Either way rank 0 stops every
-worker and raises `MeshError`. The training rules (TITOK_RULES, the
-trainer's DIT_RULES) are not ported: ROADMAP item 15b.
+worker and raises `MeshError`.
 """
 
 from __future__ import annotations
@@ -54,9 +59,6 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from landiff_tpu_torch.config import MeshConfig
-
-ITEM_15B = "ROADMAP item 15b"
-
 
 def parse_mesh(spec: str | None) -> MeshConfig:
     """'data=2,model=4' or 'data=1,time=2' -> MeshConfig; None -> every
@@ -103,6 +105,16 @@ def as_mesh(mesh, device="cuda") -> "Mesh | None":
 # the first matrix of a pair, row-parallel on the in-features of the
 # second -> one all-reduce per pair.
 
+DIT_RULES = [
+    (r".*\bqkv_w$", (None, "model")),
+    (r".*\bqkv_b$", ("model",)),
+    (r".*attn_out_w$", ("model", None)),
+    (r".*mlp0_w$", (None, "model")),
+    (r".*mlp0_b$", ("model",)),
+    (r".*mlp1_w$", ("model", None)),
+    (r".*zero_linear_w$", (None, "model")),
+]
+
 GPT_RULES = [
     (r".*\bwqkv$", (None, "model")),
     (r".*\bwo$", ("model", None)),
@@ -120,6 +132,16 @@ T5_RULES = [
     (r".*ff/wi_0$", (None, "model")),
     (r".*ff/wi_1$", (None, "model")),
     (r".*ff/wo$", ("model", None)),
+]
+
+
+TITOK_RULES = [
+    (r".*\bwq$", (None, "model")),
+    (r".*\bwk$", (None, "model")),
+    (r".*\bwv$", (None, "model")),
+    (r".*\bwo$", ("model", None)),
+    (r".*fc0_w$", (None, "model")),
+    (r".*fc1_w$", ("model", None)),
 ]
 
 
@@ -356,9 +378,10 @@ class Group:
             self._exchange(part, gather(i))
         return torch.cat([r.view(t.shape) for r in rows], dim)
 
-    def shift(self, t: torch.Tensor) -> torch.Tensor:
+    def shift(self, t: torch.Tensor, reverse: bool = False) -> torch.Tensor:
         """The ring shift (JAX's ppermute to (i + 1) % n): each member
-        sends t to the next member and returns the previous member's t.
+        sends t to the next member and returns the previous member's t;
+        reverse: to the previous one, returning the next one's.
         Through gloo or NCCL as a send and a receive, even members sending
         first and odd ones receiving first (the mesh's process groups are
         not registered with torch.distributed, so dist.batch_isend_irecv
@@ -371,8 +394,9 @@ class Group:
         COLLECTIVES["ring_shift"] += 1
         t = t.contiguous()
         out = torch.empty_like(t)
-        src = (self.rank - 1) % self.size
-        dst = (self.rank + 1) % self.size
+        step = -1 if reverse else 1
+        src = (self.rank - step) % self.size
+        dst = (self.rank + step) % self.size
         if self.bufs is None:
             send = lambda: self.pg.send([t], dst, 0).wait()
             recv = lambda: self.pg.recv([out], src, 0).wait()
@@ -385,6 +409,129 @@ class Group:
             self._exchange(part, lambda parts, i=i: flat[
                 i:i + parts[src].numel()].copy_(parts[src]))
         return out
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's f: the identity forward, an all-reduce backward."""
+
+    @staticmethod
+    def forward(fctx, x, group):
+        fctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.group.all_reduce(g.clone()), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's g: an all-reduce forward, the identity backward."""
+
+    @staticmethod
+    def forward(fctx, x, group):
+        return group.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """An all-gather along `dim` forward; the backward is this rank's
+    slice of the cotangent: every rank differentiates the same loss, so
+    each already holds the whole cotangent."""
+
+    @staticmethod
+    def forward(fctx, x, group, dim):
+        fctx.group, fctx.dim, fctx.n = group, dim, x.shape[dim]
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g.narrow(fctx.dim, fctx.group.rank * fctx.n, fctx.n), None, \
+            None
+
+
+class _RingShift(torch.autograd.Function):
+    """The ring shift forward, the reverse shift backward."""
+
+    @staticmethod
+    def forward(fctx, x, group):
+        fctx.group = group
+        return group.shift(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.group.shift(g, reverse=True), None
+
+
+def _needs_grad(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to(group: "Group | None", x: torch.Tensor) -> torch.Tensor:
+    """Enter a tensor-parallel region (Megatron's f): x, whose gradient is
+    summed over `group` in the backward. The input of a column-parallel
+    product, and a replicated parameter used on this rank's heads alone."""
+    if group is None or group.size == 1 or not _needs_grad(x):
+        return x
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(group: "Group | None", x: torch.Tensor) -> torch.Tensor:
+    """Leave a tensor-parallel region (Megatron's g): the sum over `group`
+    (one all-reduce, as Group.all_reduce), its gradient passed through."""
+    if group is None or group.size == 1:
+        return x
+    if not _needs_grad(x):
+        return group.all_reduce(x)
+    return _ReduceFrom.apply(x, group)
+
+
+def gather_from(group: "Group | None", x: torch.Tensor,
+                dim: int) -> torch.Tensor:
+    """Every member's x concatenated along `dim` (Group.all_gather); the
+    gradient of this rank's part is its slice of the cotangent."""
+    if group is None or group.size == 1:
+        return x
+    if not _needs_grad(x):
+        return group.all_gather(x, dim)
+    return _GatherFrom.apply(x, group, dim)
+
+
+def ring_shift(group: "Group | None", x: torch.Tensor) -> torch.Tensor:
+    """Group.shift with a gradient: the cotangent goes the reverse way."""
+    if group is None or group.size == 1:
+        return x
+    if not _needs_grad(x):
+        return group.shift(x)
+    return _RingShift.apply(x, group)
+
+
+def collective_vjp(ctx, inputs, kind: str, axis: str):
+    """One differentiable collective on this rank's group along `axis`
+    (a command: Mesh.run(collective_vjp, kind, axis, per_rank=[(x, cot)
+    of each rank])): (its output, the gradient of sum(output * cot) with
+    respect to x), rank 0's pair (CPU tensors) or None. kind: copy_to,
+    reduce_from, gather_from (along the last dim) or ring_shift."""
+    x, cot = inputs
+    group = ctx.groups[axis]
+    x = to_rank(ctx, x, copy=True).requires_grad_(True)
+    fn = {"copy_to": copy_to, "reduce_from": reduce_from,
+          "ring_shift": ring_shift,
+          "gather_from": lambda g, t: gather_from(g, t, -1)}[kind]
+    y = fn(group, x)
+    (g,) = torch.autograd.grad(y, x, to_rank(ctx, cot))
+    return (y.detach().cpu(), g.cpu()) if ctx.rank == 0 else None
+
+
+def reduce_grads(grads, groups):
+    """A gradient tree summed over each Group of `groups` (the ranks that
+    split the batch or the tokens), leaf by leaf."""
+    for group in groups:
+        if group is not None and group.size > 1:
+            grads = map_with_path(lambda path, g: group.all_reduce(g), grads)
+    return grads
 
 
 def _process_group(store, prefix: str, rank: int, size: int, backend: str,

@@ -1,6 +1,5 @@
-"""Ring attention, the forward: sequence-parallel full attention over the
-`time` ranks of a mesh (counterpart of landiff_tpu/parallel/
-ring_attention.py, its inference half).
+"""Ring attention: sequence-parallel full attention over the `time`
+ranks of a mesh (counterpart of landiff_tpu/parallel/ring_attention.py).
 
 Queries stay on their rank while the K / V blocks go round the ring
 (`mesh.Group.shift`, JAX's ppermute to (i + 1) % n): at hop j rank i holds
@@ -17,8 +16,15 @@ TPU. The bf16 / f32 K and V rotate, never int8 codes: each hop quantizes
 its own block inside the forward. Hop outputs are widened to f32 for the
 merge and the result goes back to q's dtype.
 
-The custom VJP (the ring backward, `_hop_bwd_*`) is the training half,
-ROADMAP item 15b: a call that needs a gradient raises.
+Under a gradient the ring is `_RingDiff` (JAX's `ring_attention_diff`
+custom VJP): the forward takes exact hops whatever the int8 knobs say and
+saves q, k, v, the output in q's dtype and the global log2 lse; the
+backward (`ring_backward`) is a second ring of n hops, each the flash
+backward (`ops.attention.flash_bwd`, the kernel on a CUDA device) or its
+dense counterpart from the GLOBAL output and lse, so that each hop's p is
+the globally normalized probability block. dq accumulates in f32 on its
+rank; the dk / dv accumulators rotate in f32 with k and v, so after n hops
+every block's gradient is back on its home rank.
 
 Layout: (B, S, H, Dh), S sharded over the ring; full (unmasked) attention.
 """
@@ -122,17 +128,99 @@ def ring_forward(q, k, v, group, *, scale=None, impl="auto",
     return out, lse
 
 
+def _hop_bwd_dense(q, kr, vr, do, lse2, delta, scale):
+    """Dense hop backward from the GLOBAL log2 lse (JAX `_hop_bwd_dense`,
+    :100-110): p is the globally normalized probability block, so dv, ds,
+    dq and dk follow the flash gradient identities. All f32; lse2 (B, Sq,
+    H), delta (B, H, Sq)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kr) * (scale * LOG2E)
+    p = torch.exp2(s - lse2.transpose(1, 2)[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vr)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
+    return dq, dk, dv
+
+
+def ring_backward(q, k, v, out, lse, do, group, *, scale=None,
+                  impl="auto"):
+    """The ring backward on this rank's shard (JAX `_ring_diff_bwd`):
+    (dq, dk, dv) in the inputs' dtypes. out: the global output in q's
+    dtype, lse (B, Sq, H) its global log2 lse, do its cotangent. n hops:
+    a flash backward (or dense) hop against the K / V block held, dq
+    summed here in f32, the f32 dk / dv accumulators and K / V shifted on
+    after each hop (K / V not after the last): 4n - 2 shifts for n > 1."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    pallas = hop_route(q, impl) == "pallas"
+    if pallas:
+        from landiff_tpu_torch.ops.attention import flash_bwd
+
+        lse_bhs = lse.transpose(1, 2).contiguous()
+        do = do.to(q.dtype).contiguous()
+
+        def hop(kr, vr):
+            return flash_bwd(q, kr, vr, out, lse_bhs, do, scale=scale)
+    else:
+        q32, do32 = q.float(), do.float()
+        delta = (do32 * out.float()).sum(-1).transpose(1, 2)
+
+        def hop(kr, vr):
+            return _hop_bwd_dense(q32, kr.float(), vr.float(), do32, lse,
+                                  delta, scale)
+    n = group.size
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    kr, vr = k, v
+    for j in range(n):
+        dq_j, dk_j, dv_j = hop(kr, vr)
+        dq += dq_j.float()
+        dk += dk_j.float()
+        dv += dv_j.float()
+        if n > 1:
+            # the accumulators go on with their block: home after n hops
+            dk, dv = group.shift(dk), group.shift(dv)
+            if j < n - 1:
+                kr, vr = group.shift(kr), group.shift(vr)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _RingDiff(torch.autograd.Function):
+    """The differentiable ring (JAX `ring_attention_diff`, `_ring_diff_fwd`
+    and `_ring_diff_bwd`): exact hops forward, `ring_backward` backward."""
+
+    @staticmethod
+    def forward(fctx, q, k, v, group, scale, impl):
+        out, lse = ring_forward(q, k, v, group, scale=scale, impl=impl,
+                                int8_scores=False, int8_pv=False)
+        out = out.to(q.dtype)
+        fctx.save_for_backward(q, k, v, out, lse)
+        fctx.group, fctx.scale, fctx.impl = group, scale, impl
+        return out
+
+    @staticmethod
+    def backward(fctx, do):
+        q, k, v, out, lse = fctx.saved_tensors
+        dq, dk, dv = ring_backward(q, k, v, out, lse, do, fctx.group,
+                                   scale=fctx.scale, impl=fctx.impl)
+        return dq, dk, dv, None, None, None
+
+
 def ring_attention_local(q, k, v, group, *, scale=None, impl="auto",
                          int8_scores=None, int8_pv=None):
-    """Per-rank ring attention (JAX `ring_attention_local`, forward
-    only): q, k, v this rank's (B, S_local, H, Dh) shard of a sequence
-    sharded over `group`'s ranks in member order. Returns the local
-    output shard in q's dtype."""
+    """Per-rank ring attention (JAX `ring_attention_local`): q, k, v this
+    rank's (B, S_local, H, Dh) shard of a sequence sharded over `group`'s
+    ranks in member order. Returns the local output shard in q's dtype.
+    Differentiable: where a gradient is needed the ring is `_RingDiff`
+    (exact hops; int8_scores / int8_pv are not read), else the forward of
+    the forms `int8_knobs` picks."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise NotImplementedError(
-            "the ring attention backward (training under a time axis) is "
-            f"not ported yet: {mesh_lib.ITEM_15B}")
+        return _RingDiff.apply(q, k, v, group, scale, impl)
     out, _ = ring_forward(q, k, v, group, scale=scale, impl=impl,
                           int8_scores=int8_scores, int8_pv=int8_pv)
     return out.to(q.dtype)
@@ -169,3 +257,48 @@ def ring_attention(q, k, v, mesh, *, scale=None, impl="auto",
                          f"time={n}")
     return mesh.run(_ring_rank, q, k, v, scale, impl,
                     *int8_knobs(int8_scores, int8_pv))[0]
+
+
+def _time_part(ctx, x):
+    n, t = ctx.cfg.time, ctx.coords["time"]
+    s = x.shape[1] // n
+    return x[:, t * s:(t + 1) * s].to(ctx.device, copy=True)
+
+
+def _ring_vjp_rank(ctx, q, k, v, do, scale, impl):
+    """A rank's part of `ring_attention_vjp`: its shards through the
+    differentiable ring and autograd, the gradients gathered in order."""
+    q, k, v, do = (_time_part(ctx, x) for x in (q, k, v, do))
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    out = ring_attention_local(q, k, v, ctx.time_group, scale=scale,
+                               impl=impl)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    grads = [ctx.time_group.all_gather(g, dim=1) for g in grads]
+    mesh_lib.release_cache(ctx)
+    return tuple(grads) if ctx.rank == 0 else None
+
+
+def ring_attention_vjp(q, k, v, do, mesh, *, scale=None, impl="auto"):
+    """(dq, dk, dv) of sum(ring_attention(q, k, v) * do) over `mesh`'s time
+    axis, through the ranks' autograd (the forward and `_RingDiff`'s
+    backward); inputs (B, S, H, Dh) whole on rank 0, the gradients too."""
+    return mesh.run(_ring_vjp_rank, q, k, v, do, scale, impl)[0]
+
+
+def _ring_bwd_rank(ctx, q, k, v, out, lse, do, scale, impl):
+    q, k, v, out, lse, do = (_time_part(ctx, x)
+                             for x in (q, k, v, out, lse, do))
+    with torch.no_grad():
+        grads = ring_backward(q, k, v, out, lse, do, ctx.time_group,
+                              scale=scale, impl=impl)
+        grads = [ctx.time_group.all_gather(g, dim=1) for g in grads]
+    mesh_lib.release_cache(ctx)
+    return tuple(grads) if ctx.rank == 0 else None
+
+
+def ring_attention_bwd(q, k, v, out, lse, do, mesh, *, scale=None,
+                       impl="auto"):
+    """`ring_backward` alone over `mesh`'s time axis from a given global
+    output and log2 lse (B, S, H): (dq, dk, dv) whole on rank 0. The
+    ring's hops see what one flash_bwd over the whole sequence sees."""
+    return mesh.run(_ring_bwd_rank, q, k, v, out, lse, do, scale, impl)[0]

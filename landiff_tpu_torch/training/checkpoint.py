@@ -2,7 +2,10 @@
 landiff_tpu/training/checkpoint.py, same call contract). One file per
 step, `step_<N>.pt`, written by `torch.save` under a temporary name and
 renamed, so a reader never sees half a file. The files are not
-interchangeable with the JAX package's orbax directories.
+interchangeable with the JAX package's orbax directories. A mesh's
+trainer (training/mesh_train.py) writes the same file: rank 0 gathers
+every rank's parts into one device's layout first (`MeshTrainer.state`),
+so a checkpoint from a mesh resumes on one device and the reverse.
 """
 
 from __future__ import annotations

@@ -9,8 +9,19 @@ Random draws. The JAX loss draws inside the traced function from one key:
 the timestep index, the noise and the per-sample context dropout. Here
 they are a `LossDraws` value, made by `draw_loss_inputs` from a
 `torch.Generator` or handed in, which is how a test feeds both packages
-the same draws. Not ported yet: the sequence-parallel step
-(make_train_step_sp).
+the same draws.
+
+On a mesh (`make_train_step_sp`, `make_train_step_mesh`) every rank draws
+the WHOLE batch's LossDraws, as the one-device step does, and takes its
+`data` rows, so that the mesh step equals the one-device step with the
+same generator. Under "sp" (time > 1, model = 1: JAX's
+make_train_step_sp) the network runs token-sharded over `time`
+(dit.control_warp_forward_sp, ring attention) with whole weights; under
+"tp" (model > 1) on each rank's heads (control_warp_forward_tp, the
+tp_infer.prep_dit_tp layout); under "dp" (data alone) whole. The loss is
+the sum over the data ranks of their rows' per-sample losses over the
+whole batch size; the control gradients are summed over `time` and
+`data`, and the update is optim.sharded_update (ZeRO over `data`).
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ from landiff_tpu_torch.diffusion import schedule
 from landiff_tpu_torch.models import dit as dit_lib
 from landiff_tpu_torch.models import semantic_cond as sc_lib
 from landiff_tpu_torch.training import optim, sr
+from landiff_tpu_torch.utils import tree_leaves
 
 
 def uniform_sigma_indices(gen: torch.Generator, n_samples: int, num_idx: int,
@@ -90,7 +102,8 @@ def video_diffusion_loss(main_params, control_params, sem_params,
                          sem_cfg: SemanticCondConfig, *,
                          fixed_frames: int = 0, dp_rank: int = 0,
                          dp_size: int = 1, compute_dtype=torch.bfloat16,
-                         remat: bool = True, ucg_rate: float = 0.0):
+                         remat: bool = True, ucg_rate: float = 0.0,
+                         net=None):
     """v-pred L2 with 1/(1-acp) weighting; prefix frames kept clean and
     excluded from the loss (loss.py:155-172).
 
@@ -99,7 +112,9 @@ def video_diffusion_loss(main_params, control_params, sem_params,
     the LossDraws themselves. ucg_rate: with that probability per sample
     the text context is zeroed (draws.keep), the per-embedder
     unconditional-guidance dropout that trains CFG: the uc row at
-    inference is exactly zeros."""
+    inference is exactly zeros. net: the network in place of
+    dit.control_warp_forward, net(main, control, x, timesteps, context,
+    semantic_feature) (a mesh's sharded forward)."""
     B = latents.shape[0]
     draws = _as_draws(rng, latents.shape, sampler_cfg, ucg_rate=ucg_rate,
                       dp_rank=dp_rank, dp_size=dp_size)
@@ -124,10 +139,13 @@ def video_diffusion_loss(main_params, control_params, sem_params,
     # DiscreteDenoiser: c_skip=a, c_out=-sqrt(1-a^2), c_in=1, c_noise=idx.
     # remat defaults ON for training: a 30L+15L backward at S=17,776
     # holds every layer's activations otherwise
-    net_out = dit_lib.control_warp_forward(
-        main_params, control_params, noised.to(compute_dtype),
-        idx.float(), context, dit_cfg, sem_feature,
-        compute_dtype=compute_dtype, remat=remat).float()
+    if net is None:
+        def net(main, control, x, ts, ctx, sem):
+            return dit_lib.control_warp_forward(
+                main, control, x, ts, ctx, dit_cfg, sem,
+                compute_dtype=compute_dtype, remat=remat)
+    net_out = net(main_params, control_params, noised.to(compute_dtype),
+                  idx.float(), context, sem_feature).float()
     denoised = net_out * (-torch.sqrt(1.0 - a ** 2)) + noised * a
 
     w = 1.0 / (1.0 - a ** 2)
@@ -176,3 +194,119 @@ def make_train_step(optimizer, dit_cfg, sampler_cfg, tok_cfg, sem_cfg, *,
         return control_params, opt_state, loss.detach()
 
     return train_step
+
+
+def mesh_mode(mesh_cfg) -> str:
+    """The stage-2 trainer's layout on a mesh (JAX train.py:155-165):
+    "sp" with time > 1 and model = 1; "tp" with model > 1 (time ranks, if
+    any, repeat the work); "dp" with data alone."""
+    if mesh_cfg.time > 1 and mesh_cfg.model == 1:
+        return "sp"
+    return "tp" if mesh_cfg.model > 1 else "dp"
+
+
+def _draw_rows(draws: LossDraws, rows: slice) -> LossDraws:
+    return LossDraws(draws.idx[rows], draws.noise[rows],
+                     None if draws.keep is None else draws.keep[rows],
+                     draws.sr_bits)
+
+
+def mesh_loss_and_grads(ctx, control_params, main_params, sem_params,
+                        latents, context, tokens, rng, dit_cfg, sampler_cfg,
+                        tok_cfg, sem_cfg, *, fixed_frames: int = 0,
+                        compute_dtype=torch.bfloat16, remat: bool = True,
+                        attn_impl="auto", ucg_rate: float = 0.0):
+    """One rank's loss and control gradients on a mesh (ctx: its
+    RankContext; the parameters its parts in the layout of `mesh_mode`,
+    the batch WHOLE, rng a torch.Generator or the whole batch's
+    LossDraws). Returns (loss of the whole batch, the control gradients
+    summed over the ranks that split the batch or the tokens, the whole
+    batch's draws)."""
+    from landiff_tpu_torch.parallel import mesh as mesh_lib
+
+    mode = mesh_mode(ctx.cfg)
+    from landiff_tpu_torch.data.loader import data_rows
+    from landiff_tpu_torch.utils import freeze_tree
+
+    n = ctx.cfg.data
+    rows = data_rows(latents.shape[0], ctx.coords["data"], n)
+    main_params, sem_params = freeze_tree(main_params), \
+        freeze_tree(sem_params)
+    draws = _as_draws(rng, latents.shape, sampler_cfg, ucg_rate=ucg_rate)
+    kw = dict(attn_impl=attn_impl, compute_dtype=compute_dtype, remat=remat)
+    if mode == "sp":
+        def net(main, control, x, ts, c, sem):
+            return dit_lib.control_warp_forward_sp(
+                main, control, x, ts, c, dit_cfg, sem,
+                sp_group=ctx.time_group, **kw)
+    elif mode == "tp":
+        def net(main, control, x, ts, c, sem):
+            return dit_lib.control_warp_forward_tp(
+                main, control, x, ts, c, dit_cfg, sem,
+                group=ctx.model_group, **kw)
+    else:
+        def net(main, control, x, ts, c, sem):
+            return dit_lib.control_warp_forward(
+                main, control, x, ts, c, dit_cfg, sem, **kw)
+    control_params = optim.require_grad(control_params)
+    loss = video_diffusion_loss(
+        main_params, control_params, sem_params, latents[rows],
+        context[rows], tokens[rows], _draw_rows(draws, rows), dit_cfg,
+        sampler_cfg, tok_cfg, sem_cfg, fixed_frames=fixed_frames,
+        compute_dtype=compute_dtype, net=net) / n
+    grads = optim.grad(loss, control_params)
+    groups = [ctx.data_group] + ([ctx.time_group] if mode == "sp" else [])
+    grads = mesh_lib.reduce_grads(grads, groups)
+    return ctx.data_group.all_reduce(loss.detach()), grads, draws
+
+
+def make_train_step_mesh(optimizer, dit_cfg, sampler_cfg, tok_cfg, sem_cfg,
+                         *, ctx, dims, model_split, fixed_frames: int = 0,
+                         compute_dtype=torch.bfloat16, remat: bool = True,
+                         attn_impl="auto", ucg_rate: float = 0.0,
+                         sr_bits=None, keep=None):
+    """The ControlNet step on a rank of a mesh, any `mesh_mode`: as
+    make_train_step's, (control_params, opt_state, main_params,
+    sem_params, latents, context, tokens, rng) -> (control_params,
+    opt_state, loss), with this rank's parameter parts, its ZeRO slices
+    of the state (split dimensions `dims`; model_split the control
+    leaves split over `model`, in leaf order) and the WHOLE batch.
+    sr_bits: sr_bits(draws) -> this rank's parts of the whole leaves'
+    stochastic-rounding bits (the one-device step's draws, cut as the
+    parameters are), or None for the plain add. keep: a dict that gets
+    each step's summed gradients under "grads" (for inspection)."""
+
+    def train_step(control_params, opt_state, main_params, sem_params,
+                   latents, context, tokens, rng):
+        loss, grads, draws = mesh_loss_and_grads(
+            ctx, control_params, main_params, sem_params, latents, context,
+            tokens, rng, dit_cfg, sampler_cfg, tok_cfg, sem_cfg,
+            fixed_frames=fixed_frames, compute_dtype=compute_dtype,
+            remat=remat, attn_impl=attn_impl, ucg_rate=ucg_rate)
+        if keep is not None:
+            keep["grads"] = grads
+        control_params, opt_state = optim.sharded_update(
+            optimizer, grads, opt_state, control_params, dims=dims,
+            model_split=model_split, data_group=ctx.data_group,
+            model_group=ctx.model_group,
+            sr_bits=None if sr_bits is None else sr_bits(draws))
+        return control_params, opt_state, loss
+
+    return train_step
+
+
+def make_train_step_sp(optimizer, dit_cfg, sampler_cfg, tok_cfg, sem_cfg,
+                       *, ctx, dims, **kw):
+    """The sequence-parallel ControlNet step (JAX make_train_step_sp,
+    diffusion_loss.py:141-233) on a rank of a (data, time) mesh: the
+    45-layer forward and backward token-sharded over `time` (ring
+    attention, whole weights), the batch over `data`. The control
+    parameters are whole, so no leaf is split over `model`. See
+    make_train_step_mesh for the contract."""
+    if mesh_mode(ctx.cfg) != "sp":
+        raise ValueError(f"the sequence-parallel step needs time > 1 and "
+                         f"model = 1, not {ctx.cfg}")
+    n_leaves = len(tree_leaves(dims))
+    return make_train_step_mesh(optimizer, dit_cfg, sampler_cfg, tok_cfg,
+                                sem_cfg, ctx=ctx, dims=dims,
+                                model_split=[False] * n_leaves, **kw)

@@ -12,6 +12,12 @@ Random draws: the text and micro conditioning dropouts take a
 `torch.Generator` (text first, then the micro keys in sorted order) or a
 `CondDraws` of keep masks, which is how a test feeds both packages the
 same draws.
+
+On a mesh (`make_cond_train_step_mesh`, JAX's step under GPT_RULES with
+the batch over `data`) every rank draws the masks of the whole batch
+(`draw_cond`) and takes its rows, the GPT runs on its heads and MLP
+columns (gpt.forward with tp), and the update is the sharded one
+(optim.sharded_update, ZeRO over `data`).
 """
 
 from __future__ import annotations
@@ -71,15 +77,16 @@ def build_training_batch(params, cfg: LLMConfig, text_feats, micro_feats,
 
 
 def lm_loss(params, cfg: LLMConfig, features, labels, loss_mask,
-            compute_dtype=torch.float32):
-    """Masked next-token cross-entropy: logits[i-1] predict labels[i]."""
+            compute_dtype=torch.float32, tp=None):
+    """Masked next-token cross-entropy: logits[i-1] predict labels[i].
+    tp: the rank's model Group (gpt.forward's)."""
     L = features.shape[-2]
     dev = features.device
     cos, sin = (torch.from_numpy(t[:L]).to(dev)
                 for t in rope_1d_table(cfg.rope))
     logits = gpt.forward(params["gpt"], features[None] if features.dim() == 2
                          else features, cfg, cos, sin, attn_impl="xla",
-                         compute_dtype=compute_dtype).float()
+                         compute_dtype=compute_dtype, tp=tp).float()
     if features.dim() == 2:
         labels = labels[None]
         loss_mask = loss_mask[None]
@@ -93,7 +100,7 @@ def lm_loss(params, cfg: LLMConfig, features, labels, loss_mask,
 def lm_cond_loss(params, cfg: LLMConfig, t5_feats, codes, micro_values, *,
                  rng=None, cfg_drop_prob: float = 0.0,
                  micro_drop_probs=None, num_frames: int | None = None,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, tp=None):
     """Teacher-forcing loss with the conditioners INSIDE the gradient:
     text projection MLP, micro-cond MLPs, token embeddings AND the learned
     null embeddings all receive gradients, as CFG training needs (the
@@ -145,7 +152,30 @@ def lm_cond_loss(params, cfg: LLMConfig, t5_feats, codes, micro_values, *,
     features = torch.cat(
         [bos, mic.to(compute_dtype), text.to(compute_dtype), soi, suffix],
         dim=1)
-    return lm_loss(params, cfg, features, labels, loss_mask, compute_dtype)
+    return lm_loss(params, cfg, features, labels, loss_mask, compute_dtype,
+                   tp)
+
+
+def draw_cond(gen: torch.Generator, batch: int, cfg: LLMConfig, *,
+              cfg_drop_prob: float = 0.0, micro_drop_probs=None) -> CondDraws:
+    """The keep masks lm_cond_loss draws from `gen` for a batch, in its
+    order (text, then each micro key in sorted order with a drop
+    probability), as CondDraws."""
+    dev = gen.device
+    text = (torch.rand((batch, 1, 1), generator=gen, device=dev)
+            > cfg_drop_prob)[:, 0, 0] if cfg_drop_prob > 0 else None
+    micro = {}
+    for key in sorted(cfg.micro_cond_keys):
+        prob = (micro_drop_probs or {}).get(key, 0.0)
+        if prob > 0:
+            micro[key] = torch.rand((batch, 1), generator=gen,
+                                    device=dev)[:, 0] > prob
+    return CondDraws(text, micro)
+
+
+def _cond_rows(draws: CondDraws, rows: slice) -> CondDraws:
+    return CondDraws(None if draws.text is None else draws.text[rows],
+                     {k: m[rows] for k, m in (draws.micro or {}).items()})
 
 
 def _step(optimizer, loss_fn):
@@ -185,3 +215,48 @@ def make_train_step(optimizer, cfg: LLMConfig, compute_dtype=torch.float32):
                        compute_dtype)
 
     return _step(optimizer, loss_fn)
+
+
+def make_cond_train_step_mesh(optimizer, cfg: LLMConfig, micro_values, *,
+                              ctx, dims, model_split,
+                              cfg_drop_prob: float = 0.1,
+                              micro_drop_probs=None,
+                              num_frames: int | None = None,
+                              compute_dtype=torch.float32):
+    """make_cond_train_step on a rank of a mesh: (params, opt_state,
+    t5_feats, codes, rng) with this rank's parameter parts (GPT_RULES),
+    its ZeRO slices of the state (split dimensions `dims`; model_split
+    the leaves split over `model`, in leaf order) and the WHOLE batch;
+    rng a torch.Generator (the whole batch's masks, draw_cond) or
+    CondDraws of the whole batch. Every row has as many loss positions,
+    so the mean over this rank's rows over data is its share; the
+    gradients are summed over `data`. Returns (params, opt_state, loss
+    of the whole batch)."""
+    from landiff_tpu_torch.data.loader import data_rows
+    from landiff_tpu_torch.parallel import mesh as mesh_lib
+
+    n, d = ctx.cfg.data, ctx.coords["data"]
+    tp = ctx.model_group
+
+    def train_step(params, opt_state, t5_feats, codes, rng):
+        B = t5_feats.shape[0]
+        rows = data_rows(B, d, n)
+        draws = rng if isinstance(rng, CondDraws) else draw_cond(
+            rng, B, cfg, cfg_drop_prob=cfg_drop_prob,
+            micro_drop_probs=micro_drop_probs)
+        params = optim.require_grad(params)
+        loss = lm_cond_loss(params, cfg, t5_feats[rows], codes[rows],
+                            micro_values, rng=_cond_rows(draws, rows),
+                            cfg_drop_prob=cfg_drop_prob,
+                            micro_drop_probs=micro_drop_probs,
+                            num_frames=num_frames,
+                            compute_dtype=compute_dtype, tp=tp) / n
+        grads = mesh_lib.reduce_grads(optim.grad(loss, params),
+                                      [ctx.data_group])
+        params, opt_state = optim.sharded_update(
+            optimizer, grads, opt_state, params, dims=dims,
+            model_split=model_split, data_group=ctx.data_group,
+            model_group=tp)
+        return params, opt_state, ctx.data_group.all_reduce(loss.detach())
+
+    return train_step

@@ -20,6 +20,12 @@ clip_grad_norm_, and is reproduced here:
 Each leaf's arithmetic runs in f32 and is rounded to the leaf's dtype
 once (optax rounds after every operation in bf16); the state's tensors
 are updated IN PLACE and the state's counts are Python ints.
+
+On a mesh (`sharded_update`) every rank holds its tensor-parallel part of
+each leaf and, under ZeRO (training/zero.py), its `data` slice of the
+large leaves' state: the update is elementwise, so a slice updates as in
+the whole leaf, and only the clip's norm, of the WHOLE gradient, needs
+collectives (`mesh_norm_fn`).
 """
 
 from __future__ import annotations
@@ -70,8 +76,10 @@ class ClipAdamW:
                 "nu": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def update(self, grads, state, params):
-        norm = global_norm(grads)
+    def update(self, grads, state, params, norm_fn=None):
+        """norm_fn(grads) -> the norm to clip by (global_norm; on a mesh,
+        that of the whole gradient of which grads holds pieces)."""
+        norm = (norm_fn or global_norm)(grads)
         # optax: untouched below the limit, else (g / norm) * clip
         factor = torch.where(norm < self.clip, torch.ones_like(norm),
                              self.clip / norm)
@@ -109,7 +117,7 @@ class MultiSteps:
                 "acc_grads": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, norm_fn=None):
         n = state["mini_step"]
         tree_map(lambda g, acc: acc.add_((g.float() - acc.float())
                                          / (n + 1)),
@@ -118,8 +126,8 @@ class MultiSteps:
         state["mini_step"] = (n + 1) % self.every_k
         if not emit:
             return tree_map(torch.zeros_like, params), state
-        updates, state["inner"] = self.opt.update(state["acc_grads"],
-                                                  state["inner"], params)
+        updates, state["inner"] = self.opt.update(
+            state["acc_grads"], state["inner"], params, norm_fn=norm_fn)
         tree_map(torch.Tensor.zero_, state["acc_grads"])
         state["gradient_step"] += 1
         return updates, state
@@ -149,3 +157,60 @@ def grad(loss: torch.Tensor, params):
         return torch.zeros_like(p) if g is None else g
 
     return tree_map(leaf, params)
+
+
+def mesh_norm_fn(model_split, dims, data_group, model_group):
+    """norm_fn for pieces of a gradient: leaf i of the tree handed in is
+    split over `model` where model_split[i] (a tensor-parallel part) and
+    over `data` where dims[i] is not None (a ZeRO slice); the squares of
+    each kind are summed over their axes (one all-reduce each), so every
+    rank gets the norm of the whole gradient."""
+    def norm(tree):
+        sums = torch.zeros(4, dtype=torch.float32,
+                           device=tree_leaves(tree)[0].device)
+        for g, m, d in zip(tree_leaves(tree), model_split,
+                           tree_leaves(dims)):
+            sums[2 * (d is not None) + bool(m)] += g.float().square().sum()
+        if data_group is not None:
+            sums[2:] = data_group.all_reduce(sums[2:].clone())
+        if model_group is not None:
+            split = model_group.all_reduce(sums[1::2].sum().reshape(1))
+            return torch.sqrt(sums[0] + sums[2] + split[0])
+        return torch.sqrt(sums.sum())
+
+    return norm
+
+
+@torch.no_grad()
+def sharded_update(optimizer, grads, opt_state, params, *, dims,
+                   model_split, data_group=None, model_group=None,
+                   sr_bits=None):
+    """One optimizer step on a rank of a mesh: grads and params this
+    rank's (tensor-parallel) parts, already summed over the ranks that
+    split the batch; opt_state its ZeRO slices (zero.zero_shard_opt_state
+    with the split dimensions `dims`, a tree like params, None where a
+    leaf is whole). Each rank updates its slice of the state and of the
+    parameter, the clip taking the norm of the whole gradient
+    (mesh_norm_fn); the parameter slices are all-gathered over
+    `data_group`. sr_bits: stochastic rounding of bf16 leaves from these
+    bits, a tree like params (this rank's parts of the whole leaves'
+    bits, sliced here as the parameters are). Returns (params, state)."""
+    from landiff_tpu_torch.training import sr, zero
+
+    n = data_group.size if data_group is not None else 1
+    i = data_group.rank if data_group is not None else 0
+    g_sl = zero.zero_slice(grads, dims, n, i)
+    p_sl = zero.zero_slice(params, dims, n, i)
+    norm_fn = mesh_norm_fn(model_split, dims, data_group, model_group)
+    updates, opt_state = optimizer.update(g_sl, opt_state, p_sl,
+                                          norm_fn=norm_fn)
+    if sr_bits is not None:
+        new = sr.apply_updates_sr(p_sl, updates,
+                                  zero.zero_slice(sr_bits, dims, n, i))
+    else:
+        new = apply_updates(p_sl, updates)
+
+    def gather(x, d):
+        return x if d is None or n == 1 else data_group.all_gather(x, d)
+
+    return tree_map(gather, new, dims), opt_state

@@ -14,9 +14,15 @@ one entry point for the trainable components:
                 training/vq_train.make_train_step (EMA codebook, k-means
                 init from the first batch)
 
-One process on one device (`--device`, default cuda); a training mesh of
-more than one device is ROADMAP item 15b. Checkpoint / resume through
-training/checkpoint.py, metrics as JSONL (observability.MetricsLogger).
+One process on one device (`--device`, default cuda), or a mesh
+(`--mesh data=D,model=N,time=T`, training/mesh_train.py; its ranks on
+`--device`'s type: one per GPU for cuda, all on the CPU for cpu): dit
+takes the sequence-parallel step with time > 1 and model = 1, else the
+tensor-parallel one (the time ranks repeating the work); lm and vq
+their tensor-parallel steps; dit's and lm's optimizer state is split
+over `data` (ZeRO). Checkpoint / resume through training/checkpoint.py
+(a mesh's state gathered to rank 0 into the file one device writes, so
+either resumes the other), metrics as JSONL (observability.MetricsLogger).
 Sequences of 2,048 positions or more go through the flash kernels, which
 take bfloat16 (--bf16) and float32 (the default; the f32 kernels of
 ops/csrc/flash_f32.cu, slower).
@@ -49,8 +55,8 @@ from landiff_tpu_torch.config import LanDiffConfig, tiny_test_config
 from landiff_tpu_torch.data import loader as data_lib
 from landiff_tpu_torch.observability import MetricsLogger
 from landiff_tpu_torch.training import checkpoint as ckpt_lib
-from landiff_tpu_torch.training import diffusion_loss, lm_train, optim, \
-    vq_train
+from landiff_tpu_torch.training import diffusion_loss, lm_train, \
+    mesh_train, optim, vq_train
 from landiff_tpu_torch.utils import tree_leaves
 
 logger = logging.getLogger("landiff_tpu_torch.train")
@@ -132,7 +138,7 @@ def _lm_schedule(cfg: LanDiffConfig):
 
 
 # ---------------------------------------------------------------------------
-# per-model setup: (init_state, run) pairs
+# per-model setup: (init_state, run, frozen trees) triples
 
 
 def _setup_dit(cfg: LanDiffConfig, optimizer, device, dtype):
@@ -155,7 +161,7 @@ def _setup_dit(cfg: LanDiffConfig, optimizer, device, dtype):
             batch["context"], batch["tokens"], gen)
         return (ctrl_p, opt_state), {"loss": loss}
 
-    return (ctrl_p, opt_state), run
+    return (ctrl_p, opt_state), run, {"main": main_p, "sem": sem_p}
 
 
 def _setup_lm(cfg: LanDiffConfig, optimizer, device, dtype,
@@ -182,11 +188,7 @@ def _setup_lm(cfg: LanDiffConfig, optimizer, device, dtype,
                                        batch["codes"], gen)
         return (params, opt_state), {"loss": loss}
 
-    return (params, opt_state), run
-
-
-_MESH_NOT_PORTED = ("a training mesh of more than one device is not ported "
-                    "yet (ROADMAP item 15b); run without --mesh")
+    return (params, opt_state), run, {}
 
 
 def _setup_vq(cfg: LanDiffConfig, optimizer, device, dtype):
@@ -216,7 +218,7 @@ def _setup_vq(cfg: LanDiffConfig, optimizer, device, dtype):
                                                     cb_state, feats, gen)
         return (params, opt_state, cb_state, False), metrics
 
-    return (params, opt_state, cb_state, True), run
+    return (params, opt_state, cb_state, True), run, {}
 
 
 SETUPS = {"dit": _setup_dit, "lm": _setup_lm, "vq": _setup_vq}
@@ -225,12 +227,30 @@ SETUPS = {"dit": _setup_dit, "lm": _setup_lm, "vq": _setup_vq}
 # ---------------------------------------------------------------------------
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step `step`'s generator, mixed from the pair."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The generator of step `step`: seeded from the pair, not advanced
     from step to step, so a resumed run draws what an uninterrupted one
-    would at the same step."""
-    mixed = int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
-    return torch.Generator(device=device).manual_seed(mixed)
+    would at the same step (a mesh's ranks each seed their own from
+    step_seed)."""
+    return torch.Generator(device=device).manual_seed(step_seed(seed, step))
+
+
+def _train_mesh(mesh_spec, device):
+    """(the mesh, whether train made it) for `mesh_spec`: a Mesh as
+    given; a spec of more than one device made on `device`'s type; None
+    for no spec or a mesh of one device (the one-device run)."""
+    from landiff_tpu_torch.parallel import mesh as mesh_lib
+
+    if isinstance(mesh_spec, mesh_lib.Mesh):
+        return mesh_spec, False
+    if not mesh_spec or all(n == 1 for n in parse_mesh(mesh_spec).values()):
+        return None, False
+    return mesh_lib.as_mesh(mesh_spec, device), True
 
 
 def train(model: str, data_dir: str, *, steps: int = 100,
@@ -239,14 +259,19 @@ def train(model: str, data_dir: str, *, steps: int = 100,
           log_every: int = 10, metrics_path: str | None = None,
           resume: bool = False, tiny: bool = False, seed: int = 0,
           dtype=torch.float32, grad_accum: int = 1, device="cuda"):
+    """Train `model` for `steps` steps on the data in data_dir. mesh_spec:
+    None (one device), a spec string ("data=2,model=2") or a
+    parallel.mesh.Mesh, which the caller keeps (a mesh made from a spec
+    is closed at the end). Returns (state, last metrics): the state in
+    one device's layout."""
     cfg = tiny_test_config() if tiny else LanDiffConfig()
-    if any(n != 1 for n in parse_mesh(mesh_spec).values()):
-        raise NotImplementedError(_MESH_NOT_PORTED)
     device = torch.device(device)
-    optimizer = make_optimizer(lr, steps, grad_accum=grad_accum)
-    state, run = SETUPS[model](cfg, optimizer, device, dtype)
-    logger.info("device %s, %d params leaves", device,
-                len(tree_leaves(state[0])))
+    mesh, own_mesh = _train_mesh(mesh_spec, device)
+    opt_kw = {"lr": lr, "steps": steps, "grad_accum": grad_accum}
+    optimizer = make_optimizer(**opt_kw)
+    state, run, frozen = SETUPS[model](cfg, optimizer, device, dtype)
+    logger.info("device %s, mesh %s, %d params leaves", device,
+                mesh and mesh.cfg, len(tree_leaves(state[0])))
 
     start = 0
     if resume and ckpt_dir and Path(ckpt_dir).exists():
@@ -262,6 +287,18 @@ def train(model: str, data_dir: str, *, steps: int = 100,
             # so resuming after saved step N continues at i = N (step N+1)
         except FileNotFoundError:
             pass
+
+    trainer = None
+    if mesh is not None:
+        # every rank takes its parts of the state; the one-device trees
+        # and step are let go here
+        trainer = mesh_train.MeshTrainer(mesh, model, cfg, opt_kw, dtype,
+                                         state, frozen)
+        del state, frozen
+        state = None
+
+        def run(state, batch, gen):
+            return None, trainer.step(batch, gen)
 
     ds = data_lib.ShardedNpzDataset(data_dir, batch_size, seed=seed)
     metrics = MetricsLogger(metrics_path)
@@ -282,16 +319,28 @@ def train(model: str, data_dir: str, *, steps: int = 100,
     t0 = time.time()
     last = {}
     for i in range(start, steps):
-        state, last = run(state, next(it), step_generator(seed, i, device))
+        rng = step_seed(seed, i) if trainer else \
+            step_generator(seed, i, device)
+        state, last = run(state, next(it), rng)
         if (i + 1) % log_every == 0 or i + 1 == steps:
             row = {k: float(v) for k, v in last.items()}   # waits for the device
             dt = (time.time() - t0) / max(1, i + 1 - start)
             metrics.log(i + 1, sec_per_step=dt, **row)
             logger.info("step %d %s (%.3f s/step)", i + 1, row, dt)
         if ckpt_dir and ((i + 1) % save_every == 0 or i + 1 == steps):
-            ckpt_lib.save_checkpoint(ckpt_dir, i + 1, state[0], state[1],
-                                     extra={"rest": list(state[2:])})
+            ckpt_lib.save_checkpoint(ckpt_dir, i + 1, *_split(
+                trainer.state() if trainer else state))
+    if trainer is not None:
+        state = trainer.state()
+        trainer.close()
+        if own_mesh:
+            mesh.close()
     return state, last
+
+
+def _split(state):
+    """(params, opt_state, extra) of a state tuple for save_checkpoint."""
+    return state[0], state[1], {"rest": list(state[2:])}
 
 
 def main(argv=None):
@@ -305,7 +354,8 @@ def main(argv=None):
     ap.add_argument("--batch-size", type=int, default=2)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--mesh", default=None,
-                    help="e.g. data=2,model=4 (one device only for now)")
+                    help="e.g. data=2,model=4 or data=1,time=2 (ranks on "
+                         "--device's type: a GPU each, or all on the CPU)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--save-every", type=int, default=500)
     ap.add_argument("--log-every", type=int, default=10)

@@ -12,6 +12,14 @@ The codebook state is a dict {"embed_avg": (K, cdim), "cluster_size":
 k-means permutation and the dead-code samples' row indices come from a
 `torch.Generator` or are handed in as tensors, which is how a test feeds
 both packages the same draws.
+
+On a mesh (`make_train_step_mesh`, JAX's step under TITOK_RULES with the
+batch over `data`) the TiTok runs on each rank's heads and MLP columns,
+the gradients are summed over `data`, and the EMA codebook statistics are
+those of the whole batch: every rank gathers the batch's projected
+latents and codes, so the EMA update (and the first batch's k-means) is
+the same computation on every rank. The optimizer state stays
+replicated, as JAX's (train.py:223).
 """
 
 from __future__ import annotations
@@ -96,27 +104,27 @@ def ema_codebook_update(qp, state: dict, zin, idx, *, rng, decay=0.8,
 
 
 @torch.no_grad()
-def kmeans_input(params, features, cfg: TokenizerConfig):
+def kmeans_input(params, features, cfg: TokenizerConfig, tp=None):
     """k-means' input on the first batch: tokenizer_loss's zin (the TiTok
     encoder and project_in, in f32) without the decoder half, which the
     JAX driver runs and throws away."""
     lat = titok_lib.encode(params["encoder"], features.float(), cfg.titok,
-                           compute_dtype=torch.float32)
+                           compute_dtype=torch.float32, tp=tp)
     return vq_lib.project_in(params["quant"], lat)
 
 
 def tokenizer_loss(params, features, cfg: TokenizerConfig, *,
                    commit_weight=1.0, recon_weight=1.0,
-                   compute_dtype=torch.float32):
+                   compute_dtype=torch.float32, tp=None):
     """VideoVQ._inner_forward + the forward's loss mix
     (video_titok_vq.py:279-375). Returns (total loss, aux) with zin / idx
     for the EMA update and the per-I/P-frame monitoring losses."""
     feats = features.to(compute_dtype)
     lat = titok_lib.encode(params["encoder"], feats, cfg.titok,
-                           compute_dtype=compute_dtype)
+                           compute_dtype=compute_dtype, tp=tp)
     q_out, zin, idx, commit = quantize_ste(params["quant"], lat)
     rec = titok_lib.decode(params["decoder"], q_out.to(compute_dtype),
-                           cfg.titok, compute_dtype=compute_dtype)
+                           cfg.titok, compute_dtype=compute_dtype, tp=tp)
     diff = rec.float() - feats.float()
     re_loss = diff.square().mean()
     iframe_loss = diff[:, 0].square().mean()
@@ -168,3 +176,56 @@ def make_train_step(optimizer, cfg: TokenizerConfig, *, decay=0.8,
         return params, opt_state, cb_state, ema_state, metrics
 
     return step_ema
+
+
+def make_train_step_mesh(optimizer, cfg: TokenizerConfig, *, ctx,
+                         model_split, decay=0.8, threshold_dead=2.0,
+                         compute_dtype=torch.float32):
+    """make_train_step on a rank of a mesh: (params, opt_state, cb_state,
+    features, rng, first) -> (params, opt_state, cb_state, metrics), with
+    this rank's parameter parts (TITOK_RULES), the whole optimizer state
+    of those parts and the WHOLE batch; rng a torch.Generator (the same
+    seed on every rank) or the dead-code row indices. first: initialise
+    the codebook by k-means on the whole batch first, as train.py's
+    first step does. The loss of this rank's rows counts for its share of
+    the batch; metrics are the whole batch's."""
+    from landiff_tpu_torch.data.loader import data_rows
+    from landiff_tpu_torch.parallel import mesh as mesh_lib
+
+    n, d = ctx.cfg.data, ctx.coords["data"]
+    tp, data = ctx.model_group, ctx.data_group
+
+    def whole(x):            # the whole batch's rows, in rank order
+        return data.all_gather(x.detach().contiguous(), 0)
+
+    def step(params, opt_state, cb_state, features, rng, first=False):
+        feats = features[data_rows(features.shape[0], d, n)]
+        if first:
+            zin = whole(kmeans_input(params, feats, cfg, tp))
+            params = dict(params)
+            params["quant"] = dict(params["quant"])
+            params["quant"]["codebook"] = kmeans_init_codebook(
+                zin, cfg.vq.codebook_size, rng)
+        params = optim.require_grad(params)
+        loss, aux = tokenizer_loss(params, feats, cfg,
+                                   commit_weight=cfg.vq.commitment_weight,
+                                   compute_dtype=compute_dtype, tp=tp)
+        grads = optim.grad(loss / n, params)
+        grads["quant"]["codebook"] = torch.zeros_like(
+            grads["quant"]["codebook"])
+        grads = mesh_lib.reduce_grads(grads, [data])
+        dims = mesh_lib.map_with_path(lambda path, x: None, params)
+        params, opt_state = optim.sharded_update(
+            optimizer, grads, opt_state, params, dims=dims,
+            model_split=model_split, model_group=tp)
+        params["quant"], cb_state = ema_codebook_update(
+            params["quant"], cb_state, whole(aux["zin"]), whole(aux["idx"]),
+            rng=rng, decay=decay, threshold_dead=threshold_dead)
+        metrics = {k: aux[k].detach() for k in
+                   ("commit_loss", "re_loss", "iframe_loss", "pframe_loss")}
+        metrics["total_loss"] = loss.detach()
+        metrics = {k: data.all_reduce(v.clone()) / n
+                   for k, v in metrics.items()}
+        return params, opt_state, cb_state, metrics
+
+    return step

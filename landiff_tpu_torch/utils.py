@@ -172,3 +172,18 @@ def fill_zero_leaves(tree, generator: torch.Generator, scale: float = 0.02):
         return leaf
 
     return tree_map(fill, tree)
+
+
+def tree_cast(params, dtype):
+    """The floating leaves of a tree cast to `dtype` (JAX utils.py:124)."""
+    return tree_map(lambda x: x.to(dtype) if isinstance(x, torch.Tensor)
+                    and x.is_floating_point() else x, params)
+
+
+def freeze_tree(params):
+    """A parameter subtree frozen for a step (the reference's
+    freeze_model, utils.py:220-275; JAX utils.py:147): every leaf detached,
+    so no gradient reaches it. Leave the subtree out of the tree handed to
+    the optimizer and the checkpoint."""
+    return tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor)
+                    else x, params)

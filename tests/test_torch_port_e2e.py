@@ -101,22 +101,18 @@ def test_infer_batch_matches_single_calls_and_jax():
 
 
 def test_unported_options_are_refused(monkeypatch):
-    """What is not ported raises, naming its ROADMAP item: the trainer's
-    --mesh is item 15b (its training half). `data` / `model` / `time`
-    meshes run (tests/test_torch_port_tp.py, tests/test_torch_port_sp.py:
-    make_mesh, build_pipeline, run and ServingEngine.build take a time
-    axis there), and serving/app.py takes --mesh time=2. The fast
-    configuration's options (int8_decode, int4_decode, LANDIFF_FAST) are
-    ported and build quantized wrappers instead; LANDIFF_OFFLOAD runs on
-    the long-video path."""
+    """What is not ported raises, naming its ROADMAP item. `data` /
+    `model` / `time` meshes run (tests/test_torch_port_tp.py,
+    tests/test_torch_port_sp.py: make_mesh, build_pipeline, run and
+    ServingEngine.build take a time axis there; the trainer's --mesh,
+    tests/test_torch_port_train_mesh.py), and serving/app.py takes --mesh
+    time=2. The fast configuration's options (int8_decode, int4_decode,
+    LANDIFF_FAST) are ported and build quantized wrappers instead;
+    LANDIFF_OFFLOAD runs on the long-video path."""
     from landiff_tpu_torch.parallel import mesh as tmesh
-    from landiff_tpu_torch.training import train as ttrain
 
     _, t1 = stage1_params()
     assert tmesh.parse_mesh("data=1,time=2") == tcfg.MeshConfig(time=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
-        ttrain.train("dit", "/nowhere", tiny=True, mesh_spec="model=2",
-                     device="cpu")
     for kw, key in ((dict(int8_decode=True), "q"),
                     (dict(int4_decode=True), "q4")):
         w = tli.ArModelInferWrapper(t1, TC.llm, TC.t5, device="cpu", **kw)

@@ -190,13 +190,6 @@ def test_flash_hops_merge_in_log2(int8, mesh_t2, monkeypatch):
                                    atol=2e-5)
 
 
-def test_ring_refuses_a_gradient(mesh_t2):
-    """The ring's backward is the training half of ROADMAP item 15b."""
-    q = torch.zeros(1, 4, 1, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15b"):
-        tring.ring_attention_local(q, q, q, mesh_t2.ctx.time_group)
-
-
 # ---------------------------------------------------------------------------
 # (3) the sequence-parallel denoise and the hybrid
 

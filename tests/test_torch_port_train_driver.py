@@ -335,7 +335,8 @@ def test_train_grad_accum_smoke(tmp_path):
 
 def test_what_is_not_ported_raises(tmp_path):
     """--model vq synthesizes and trains (the tokenizer's encode side is
-    ported); a mesh of more than one device still raises (item 15)."""
+    ported); a mesh of one device is the single-device run (larger
+    meshes: tests/test_torch_port_train_mesh.py)."""
     cfg = tcfg.tiny_test_config()
     ttrain.synthesize("vq", cfg, 2, tmp_path / "vq", shard_size=2)
     state, last = ttrain.train("vq", str(tmp_path / "vq"), steps=1,
@@ -344,9 +345,6 @@ def test_what_is_not_ported_raises(tmp_path):
     assert np.isfinite(float(last["total_loss"]))
     assert state[3] is False and bool(state[2]["initted"])
     ttrain.synthesize("lm", cfg, 2, tmp_path / "lm", shard_size=2)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ttrain.train("lm", str(tmp_path / "lm"), steps=1, tiny=True,
-                     mesh_spec="data=2,model=2", device="cpu")
     assert ttrain.parse_mesh("data=2,model=4") == {"data": 2, "model": 4}
     # a mesh of one device is the single-device run
     _, last = ttrain.train("lm", str(tmp_path / "lm"), steps=1, batch_size=2,
