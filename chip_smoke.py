@@ -21,6 +21,7 @@
     python3 chip_smoke.py --only tp          # the pipeline, then 8i
     python3 chip_smoke.py --only sp          # 8j (builds what it needs)
     python3 chip_smoke.py --only train_mesh  # 13 (builds what it needs)
+    python3 chip_smoke.py --only multihost   # 14 (builds what it needs)
 
 Phases, in order; any failure exits nonzero before the last line:
   1. device:  the card's name and power limit; TF32 off for matmuls and
@@ -255,6 +256,17 @@ Phases, in order; any failure exits nonzero before the last line:
               device; a data=2 lm step (ZeRO: optimizer bytes per rank
               against zero.opt_state_bytes_per_device) against one
               device.
+  14. multihost: the multi-process launch (parallel/multihost.py): two
+              processes of this script started as a launcher starts
+              them (MASTER_ADDR 127.0.0.1, a free MASTER_PORT, RANK 0 /
+              1, WORLD_SIZE 2, LOCAL_RANK 0), both on cuda:0 through gloo,
+              each its rank of global_mesh(model=2) with its shard of the
+              DiT at full width, 2 + 1 layers: one CFG-batch-2 model call
+              each (tp_infer.model_call); the two outputs bit-equal and
+              within the tp limits of the unsharded call, 3 int8 launches
+              and 6 all-reduces a rank; then the model group's gloo
+              all-gather, bf16 all-reduce and staged shifts on CUDA
+              tensors against their values (phase_multihost).
   (--profile: one warm denoise-step model call, without and with the knob,
    and 20 stage-1 decode steps, under torch.profiler.)
 Then one JSON line with every kernel's numbers, and the last line
@@ -4799,6 +4811,190 @@ def phase_train_mesh(workdir):
     return out
 
 
+# the multi-process launch on the one card: two processes started as a
+# launcher starts them, each a rank of model=2 (parallel/multihost.py),
+# sharing cuda:0 through gloo (all-reduce and all-gather of CUDA tensors,
+# the shift's send and receive staged through host memory); the DiT at
+# full width, depth cut as phase 8i's model=4 check
+MULTIHOST_DEPTH = {"num_layers": 2, "control_layers": 1}
+MULTIHOST_SEED = 23
+
+
+def _multihost_model(cfg):
+    """The cut DiT config and its main + control trees (random, zero
+    leaves filled) from MULTIHOST_SEED, on the card: the same in every
+    process."""
+    import torch
+
+    from landiff_tpu_torch.models import dit
+    from landiff_tpu_torch.utils import fill_zero_leaves
+
+    cut = dataclasses.replace(cfg.dit, **MULTIHOST_DEPTH)
+    gen = torch.Generator(device="cuda").manual_seed(MULTIHOST_SEED)
+    return cut, fill_zero_leaves({"main": dit.init(gen, cut),
+                                  "control": dit.init(gen, cut, control=True)},
+                                 gen)
+
+
+def _multihost_collectives(ctx) -> dict:
+    """The model group's collectives on small CUDA tensors against the
+    values they must give: all-gather, all-reduce in bf16, and the ring
+    shift both ways (gloo's send and receive, staged through the host).
+    Run after the counted call."""
+    import torch
+
+    g, r = ctx.model_group, ctx.coords["model"]
+
+    def mine(i):
+        return torch.arange(6.0, device=ctx.device).reshape(2, 3) + 10 * i
+
+    total = g.all_reduce(torch.full((5,), 1.0 + r, dtype=torch.bfloat16,
+                                    device=ctx.device))
+    return {"staged_shift": g.stage,
+            "all_gather": bool(torch.equal(
+                g.all_gather(mine(r)), torch.cat([mine(0), mine(1)]))),
+            "all_reduce_bf16": bool((total == 3.0).all()),
+            "shift": bool(torch.equal(g.shift(mine(r)), mine((r - 1) % 2))),
+            "shift_reverse": bool(torch.equal(g.shift(mine(r), reverse=True),
+                                              mine((r + 1) % 2)))}
+
+
+def multihost_worker(out_dir: Path):
+    """One launched process of phase 14 (chip_smoke.py --multihost-worker
+    DIR, MASTER_ADDR / MASTER_PORT / RANK / WORLD_SIZE / LOCAL_RANK in
+    its environment): initialize from the environment, its rank of
+    global_mesh(model=2), its shard of the cut DiT, one CFG-batch-2
+    model call through tp_infer.model_call, then the collectives' check
+    (_multihost_collectives); writes the output to DIR/rank<r>.pt and
+    prints "MULTIHOST <json>" (device, backend, launches, collectives,
+    the check, seconds)."""
+    import torch
+
+    from landiff_tpu_torch.config import LanDiffConfig, MeshConfig
+    from landiff_tpu_torch.parallel import mesh as mesh_lib
+    from landiff_tpu_torch.parallel import multihost
+    from landiff_tpu_torch.parallel import tp_infer
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False      # as main()'s
+    torch.backends.cudnn.allow_tf32 = False
+    check(multihost.initialize(timeout_s=120), "initialize: one process")
+    mesh = multihost.global_mesh(MeshConfig(model=2))
+    rank = mesh.rank
+    cfg = LanDiffConfig()
+    cut, params = _multihost_model(cfg)
+    for k in ("main", "control"):       # this rank's shard alone
+        mesh_lib.load(mesh, "mh", k, tp_infer.dit_shards(
+            params[k], cut, mesh.cfg, mesh.shard_devices,
+            dtype=torch.bfloat16))
+    del params
+    x, sem, ctx = _dit_call_inputs(cfg, 13)
+    ts = torch.tensor([500.0, 500.0], device="cuda")
+    setup_s = time.perf_counter() - t0
+    mesh.run(tp_infer.rank_report, True)
+    multihost.barrier("call")
+    t0 = time.perf_counter()
+    out = mesh.run(tp_infer.model_call, "mh", x, ts, ctx, sem, cut,
+                   torch.bfloat16)[0]
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    rep = mesh.run(tp_infer.rank_report, True)[0]
+    checks = mesh.run(_multihost_collectives)[0]
+    torch.save(out.cpu(), out_dir / f"rank{rank}.pt")
+    multihost.barrier("done")
+    mesh.close()
+    log("MULTIHOST " + json.dumps({
+        **{k: rep[k] for k in ("rank", "coords", "backend", "device",
+                               "launches", "collectives",
+                               "max_memory_allocated")},
+        "collective_checks": checks, "setup_s": setup_s, "call_s": call_s,
+        "out_mean": float(out.float().mean()),
+        "out_abs_mean": float(out.float().abs().mean())}))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_multihost():
+    """14. The multi-process launch (parallel/multihost.py): two
+    processes of this script (--multihost-worker), started with
+    MASTER_ADDR=127.0.0.1, a free MASTER_PORT, RANK 0 / 1, WORLD_SIZE=2,
+    LOCAL_RANK=0, both on cuda:0 through gloo; each its rank of
+    global_mesh(model=2), its shard of the DiT at full width (15 of 30
+    heads) and MULTIHOST_DEPTH, one CFG-batch-2 model call with the int8
+    flash kernel. Both outputs bit-equal, within TP_LIMITS of the
+    unsharded call run here; per rank 3 int8 launches, nothing else, 6
+    all-reduces (an in-process model=2 mesh's counts at that depth); the
+    gloo collectives' check true in both (the shift staged). Returns the
+    launches per rank."""
+    import torch
+
+    from landiff_tpu_torch.config import LanDiffConfig
+    from landiff_tpu_torch.models import dit
+
+    t_phase = time.perf_counter()
+    cfg = LanDiffConfig()
+    cut, params = _multihost_model(cfg)
+    x, sem, ctx = _dit_call_inputs(cfg, 13)
+    ts = torch.tensor([500.0, 500.0], device="cuda")
+    with torch.inference_mode():
+        ref = dit.control_warp_forward(params["main"], params["control"],
+                                       x, ts, ctx, cut, sem)
+    del params, x, sem, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()), WORLD_SIZE="2", LOCAL_RANK="0")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--multihost-worker", tmp], env={**env, "RANK": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            texts = [p.communicate(timeout=240)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        workers_s = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            check(p.returncode == 0, f"multihost: process {r} exited "
+                  f"{p.returncode}:\n{text[-3000:]}")
+        reports = [json.loads(next(ln for ln in t.splitlines()
+                                   if ln.startswith("MULTIHOST "))[10:])
+                   for t in texts]
+        outs = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(2)]
+    check([r["rank"] for r in reports] == [0, 1], f"ranks {reports}")
+    for rep in reports:
+        check(rep["device"] == "cuda:0" and rep["backend"] == "gloo",
+              f"multihost: rank {rep['rank']} on {rep['device']} "
+              f"({rep['backend']})")
+        check(all(rep["collective_checks"].values()),
+              f"multihost: rank {rep['rank']}'s collectives "
+              f"{rep['collective_checks']}")
+    check(torch.equal(outs[0], outs[1]), "multihost: the ranks' outputs "
+          "differ")
+    _check_tp_ranks(reports, sum(MULTIHOST_DEPTH.values()), "multihost")
+    out = {"phase": "multihost", "mesh": "model=2",
+           "layout": "2 launched processes sharing cuda:0 over gloo (the "
+                     "shift staged through host memory); times are not "
+                     "speed readings",
+           "depth": "2 + 1 DiT layers", "heads_per_rank": 15,
+           "drift": _tp_drift(ref, outs[0].cuda(), "multihost"),
+           "ranks_equal": True, "workers_s": workers_s,
+           "ranks": reports, "seconds": time.perf_counter() - t_phase}
+    log(json.dumps(out))
+    return [r["launches"]["flash_fwd_int8"] for r in reports]
+
+
 def bwd_entry(bwd, launches):
     """The flash backward's entry of the kernels line: its numbers at the
     training shape, the TiTok case, and ptxas's report of the main kernel
@@ -4832,11 +5028,14 @@ def main():
     ap.add_argument("--only", choices=("flash_fwd", "flash_bwd", "f32",
                                        "stage1_batch", "long_video", "ckpt",
                                        "train", "tokenizer", "variants",
-                                       "serving", "tp", "sp", "train_mesh"),
+                                       "serving", "tp", "sp", "train_mesh",
+                                       "multihost"),
                     help="build, then only this kernel's cases at the "
                          "main-path shapes, or only the batched decoding "
                          "check at full width (no pipeline, no last "
                          "line)")
+    ap.add_argument("--multihost-worker", metavar="DIR", type=Path,
+                    help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one denoise-step model call, without "
                          "and with the adaLN knob, and 20 decode steps")
@@ -4848,6 +5047,9 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke run "
                          "needs an NVIDIA card")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if args.multihost_worker:
+        multihost_worker(args.multihost_worker)
+        return
     from landiff_tpu_torch.ops import kernels
 
     t_start = time.perf_counter()
@@ -4900,6 +5102,9 @@ def main():
         return
     if args.only == "sp":
         phase_sp(args.steps)
+        return
+    if args.only == "multihost":
+        phase_multihost()
         return
     if args.only == "train_mesh":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -5014,6 +5219,10 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         train_mesh = phase_train_mesh(Path(tmp))
+    # 14. the multi-process launch: two processes, ranks of model=2
+    gc.collect()
+    torch.cuda.empty_cache()
+    multihost_launches = phase_multihost()
 
     # launches of each forward variant on its path: the exact kernel on the
     # int8-off DiT call, the int8 kernel on prompt -> video, int8_pv on the
@@ -5106,6 +5315,8 @@ def main():
         sp_launches["tpsp/bf16"]
     for name, n in sp_launches["ring"].items():
         by_name[name]["launches_sp_ring_per_rank"] = n
+    by_name["flash_fwd_int8"]["launches_multihost_per_rank"] = \
+        multihost_launches
     by_name["flash_fwd_int8"]["launches_rotary3d_call"] = \
         rotary_launches["flash_fwd_int8"]
     by_name["flash_fwd_int8"]["launches_samplers"] = {

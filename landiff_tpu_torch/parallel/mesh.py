@@ -23,13 +23,19 @@ to (i + 1) % n).
 
 The backend follows from the layout alone: NCCL when every rank has a
 CUDA device of its own; gloo when the ranks are on the CPU or share a
-CUDA device (NCCL refuses two ranks on one device). On a shared CUDA
+CUDA device (NCCL refuses two ranks on one device). A device is named by
+where it is as well (`backend_for`'s places: a GPU's UUID, a host name),
+so two hosts each on cuda:0 are two devices. On a shared CUDA
 device the data of a collective stays on the device, in exchange
 buffers every rank maps, ordered by interprocess CUDA events, and gloo
 carries only a barrier on the host (`Group`): that is this layout's
 collective. Its times are those of one
 device time-sliced between processes and of host barriers, not of any
-interconnect.
+interconnect. Ranks launched one per process from outside
+(parallel/multihost.py, `ProcessMesh`) have no spawner to hand them
+those buffers: where they share a device, gloo carries the data too
+(CUDA tensors as they are; a shift's send and receive, which gloo takes
+only from host memory, staged through it).
 
 Training: the differentiable collectives `copy_to` (Megatron's f),
 `reduce_from` (g), `gather_from` and `ring_shift` carry a gradient
@@ -89,9 +95,17 @@ def make_mesh(cfg: MeshConfig | None = None, devices=None,
 
 def as_mesh(mesh, device="cuda") -> "Mesh | None":
     """A Mesh from a Mesh, a MeshConfig or a spec string, its ranks on
-    `device`'s type: one per GPU for cuda, all on the CPU for cpu."""
+    `device`'s type: one per GPU for cuda, all on the CPU for cpu. A
+    ProcessMesh is refused: the pipeline wrappers drive their ranks from
+    one process."""
     if mesh is None or isinstance(mesh, Mesh):
         return mesh
+    if isinstance(mesh, ProcessMesh):
+        raise TypeError(
+            "a ProcessMesh (multihost.global_mesh) runs training "
+            "(train(mesh_spec=), MeshTrainer) and the tp_infer rank "
+            "functions; the pipeline wrappers take a Mesh, a MeshConfig or "
+            "a spec such as 'data=1,model=2'")
     cfg = mesh if isinstance(mesh, MeshConfig) else parse_mesh(mesh)
     if torch.device(device).type == "cpu":
         return make_mesh(cfg, devices=["cpu"] * cfg.num_devices)
@@ -241,10 +255,15 @@ def tree_nbytes(tree) -> int:
     return sum(out)
 
 
-def backend_for(devices) -> str:
-    """nccl iff every rank has a CUDA device of its own, else gloo."""
+def backend_for(devices, places=None) -> str:
+    """nccl iff every rank has a CUDA device of its own, else gloo.
+    places[r]: where rank r's device is (a GPU's UUID, a host name), for
+    ranks of several processes or hosts; by default every device is in
+    this process's host."""
     devs = [torch.device(d) for d in devices]
-    own = len({(d.type, d.index) for d in devs}) == len(devs)
+    places = [None] * len(devs) if places is None else list(places)
+    own = len({(p, d.type, d.index) for p, d in zip(places, devs)}) \
+        == len(devs)
     cuda = all(d.type == "cuda" and d.index is not None for d in devs)
     return "nccl" if own and cuda else "gloo"
 
@@ -283,8 +302,13 @@ class Group:
     for every member's read of it, recorded before the barrier of the part
     between. A tensor longer than SHARED_CAPACITY goes over in parts."""
 
-    def __init__(self, pg, size: int, rank: int):
+    def __init__(self, pg, size: int, rank: int, stage: bool = False):
         self.pg, self.size, self.rank = pg, size, rank
+        # gloo between ranks on one CUDA device without exchange buffers:
+        # gloo's all-reduce and all-gather take CUDA tensors, its send and
+        # receive do not ("Bad address"), so a shift goes through host
+        # memory
+        self.stage = stage
         self.bufs = None
         self._turn = 0
         self._flag = torch.zeros(1)
@@ -398,12 +422,15 @@ class Group:
         src = (self.rank - step) % self.size
         dst = (self.rank + step) % self.size
         if self.bufs is None:
-            send = lambda: self.pg.send([t], dst, 0).wait()
-            recv = lambda: self.pg.recv([out], src, 0).wait()
+            staged = self.stage and t.is_cuda
+            sent, got = (t.cpu(), torch.empty_like(out, device="cpu")) \
+                if staged else (t, out)
+            send = lambda: self.pg.send([sent], dst, 0).wait()
+            recv = lambda: self.pg.recv([got], src, 0).wait()
             for op in ((send, recv) if self.rank % 2 == 0
                        else (recv, send)):
                 op()
-            return out
+            return out.copy_(got) if staged else out
         flat = out.view(-1)
         for i, part in self._parts(t.view(-1)):
             self._exchange(part, lambda parts, i=i: flat[
@@ -522,7 +549,7 @@ def collective_vjp(ctx, inputs, kind: str, axis: str):
           "gather_from": lambda g, t: gather_from(g, t, -1)}[kind]
     y = fn(group, x)
     (g,) = torch.autograd.grad(y, x, to_rank(ctx, cot))
-    return (y.detach().cpu(), g.cpu()) if ctx.rank == 0 else None
+    return (y.detach().cpu(), g.cpu()) if ctx.caller else None
 
 
 def reduce_grads(grads, groups):
@@ -534,8 +561,12 @@ def reduce_grads(grads, groups):
     return grads
 
 
+# where gloo binds when every rank is on this host
+LOCAL_GLOO = {"hostname": "127.0.0.1"}
+
+
 def _process_group(store, prefix: str, rank: int, size: int, backend: str,
-                   timeout_s: float):
+                   timeout_s: float, gloo_device: dict = LOCAL_GLOO):
     timeout = datetime.timedelta(seconds=timeout_s)
     store = dist.PrefixStore(prefix, store)
     if backend == "nccl":
@@ -544,24 +575,33 @@ def _process_group(store, prefix: str, rank: int, size: int, backend: str,
         return dist.ProcessGroupNCCL(store, rank, size, opts)
     opts = dist.ProcessGroupGloo._Options()
     opts._timeout = timeout
-    opts._devices = [dist.ProcessGroupGloo.create_device(
-        hostname="127.0.0.1")]
+    opts._devices = [dist.ProcessGroupGloo.create_device(**gloo_device)]
     return dist.ProcessGroupGloo(store, rank, size, opts)
 
 
 class RankContext:
     """One rank's view of the mesh: its coordinates, device, groups (one
     per axis, `groups[axis]`), and `state`, the trees its commands stored
-    (weights, by key)."""
+    (weights, by key).
+
+    store: the world's store (a spawned worker's, or multihost's
+    rendezvous); devices: every rank's device, as that rank names it;
+    places: where each is (backend_for); gloo_device: create_device's
+    arguments (an address or an interface to bind); caller: whether the
+    commands are called in this rank's process, which then gets their
+    results (rank 0 of a spawned mesh, every rank of a ProcessMesh)."""
 
     def __init__(self, cfg: MeshConfig, devices, rank: int, store,
-                 timeout_s: float):
+                 timeout_s: float, *, places=None,
+                 gloo_device: dict = LOCAL_GLOO, caller: bool = False):
         self.cfg, self.rank = cfg, rank
+        self.caller = caller
         self.coords = rank_coords(cfg, rank)
         self.device = torch.device(devices[rank])
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
-        self.backend = backend_for(devices)
+        self.backend = backend_for(devices, places)
+        stage = self.backend == "gloo" and self.device.type == "cuda"
         # the global ranks of each group, in member order
         self.members = {axis: group_members(cfg, rank, axis)
                         for axis in AXES}
@@ -573,8 +613,9 @@ class RankContext:
                             if a != axis)
             pg = None if len(ranks) == 1 else _process_group(
                 store, f"{axis}/{name}/", ranks.index(rank), len(ranks),
-                self.backend, timeout_s)
-            self.groups[axis] = Group(pg, len(ranks), ranks.index(rank))
+                self.backend, timeout_s, gloo_device)
+            self.groups[axis] = Group(pg, len(ranks), ranks.index(rank),
+                                      stage)
         self.model_group = self.groups["model"]
         self.data_group = self.groups["data"]
         self.time_group = self.groups["time"]
@@ -610,6 +651,9 @@ class Mesh:
         self.cfg = cfg
         self.size = cfg.num_devices
         self.devices = [str(torch.device(d)) for d in devices]
+        # the devices of the ranks whose shards this process builds
+        # (tp_infer's shard lists): every rank's
+        self.shard_devices = self.devices
         self.backend = backend_for(self.devices)
         self.timeout_s = timeout_s
         self._lock = threading.Lock()
@@ -632,7 +676,8 @@ class Mesh:
         atexit.register(self.close)
         self._store = store
         try:
-            self.ctx = RankContext(cfg, self.devices, 0, store, timeout_s)
+            self.ctx = RankContext(cfg, self.devices, 0, store, timeout_s,
+                                   caller=True)
         except BaseException as e:
             _, errs = self._collect(5.0)
             self._stop()
@@ -727,6 +772,50 @@ class Mesh:
         atexit.unregister(self.close)
 
 
+class ProcessMesh:
+    """This process's rank of a mesh whose every rank is a process
+    started from outside (parallel/multihost.global_mesh), with Mesh's
+    contract: `run` executes a command on this rank alone, every process
+    running the same commands in the same order, as JAX runs one SPMD
+    program in every process; its result list is [this rank's result].
+    A command that raises closes the mesh and raises MeshError here; the
+    peers' collectives then fail at the process groups' timeout."""
+
+    def __init__(self, cfg: MeshConfig, devices, rank: int, store,
+                 timeout_s: float = 300.0, *, places=None,
+                 gloo_device: dict = LOCAL_GLOO):
+        self.cfg, self.rank = cfg, rank
+        self.size = cfg.num_devices
+        self.devices = [str(torch.device(d)) for d in devices]
+        # this rank's shard alone is built here (None: another process's)
+        self.shard_devices = [d if r == rank else None
+                              for r, d in enumerate(self.devices)]
+        self.timeout_s = timeout_s
+        self._closed = False
+        self.ctx = RankContext(cfg, self.devices, rank, store, timeout_s,
+                               places=places, gloo_device=gloo_device,
+                               caller=True)
+        self.backend = self.ctx.backend
+
+    def run(self, fn, *args, per_rank=None) -> list:
+        """[fn(ctx, *args)], or [fn(ctx, per_rank[rank], *args)]."""
+        if self._closed:
+            raise MeshError("the mesh is closed")
+        if per_rank is not None:
+            args = (per_rank[self.rank],) + args
+        try:
+            return [fn(self.ctx, *args)]
+        except Exception as e:
+            self._closed = True
+            raise MeshError(f"{getattr(fn, '__name__', fn)} failed on rank "
+                            f"{self.rank}: {type(e).__name__}: {e}") from e
+
+    def close(self):
+        """Drop this rank's stored trees (idempotent)."""
+        self._closed = True
+        self.ctx.state.clear()
+
+
 def _worker_main(rank, cfg, devices, port, timeout_s, cmds, results,
                  parent_pid):
     """A worker rank: join the groups, then run commands until told to
@@ -794,14 +883,19 @@ def _open_events(ctx: RankContext, handles):
 
 
 def _store(ctx: RankContext, tree, key: str, part: str):
-    ctx.state.setdefault(key, {})[part] = tree if ctx.rank == 0 \
-        else to_rank(ctx, tree, copy=True)
+    # the caller's tree as given where it already lies on this rank's
+    # device; a worker's in memory of its own
+    ctx.state.setdefault(key, {})[part] = to_rank(ctx, tree,
+                                                  copy=not ctx.caller)
 
 
-def load(mesh: Mesh, key: str, part: str, shards: list):
+def load(mesh: "Mesh | ProcessMesh", key: str, part: str, shards: list):
     """Store shards[r] (rank r's tree, tensors on any device) as
     ctx.state[key][part] on every rank: each worker copies its own once;
-    rank 0 keeps its tree as given. On CUDA, rank 0 then lets go of the
+    rank 0, and each rank of a ProcessMesh, keeps its tree as given where
+    it lies on the rank's device, else moves it there (a ProcessMesh's
+    shards are built for `mesh.shard_devices`: its own alone, the others
+    None). On CUDA, rank 0 then lets go of the
     other ranks' copies and returns the memory they held to the device,
     where the next part's worker copies need it when the ranks share it;
     a caller loads a model part by part to keep that transient small."""

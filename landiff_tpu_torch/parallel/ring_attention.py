@@ -229,7 +229,7 @@ def ring_attention_local(q, k, v, group, *, scale=None, impl="auto",
 def _ring_rank(ctx, q, k, v, scale, impl, int8_scores, int8_pv):
     """A rank's part of `ring_attention`: its shard of q, k, v by its
     `time` coordinate, the ring over its time group, the shards gathered
-    back in order; rank 0 returns the whole output."""
+    back in order; the caller's rank (ctx.caller) returns the whole output."""
     n, t = ctx.cfg.time, ctx.coords["time"]
     s = q.shape[1] // n
     q, k, v = (x[:, t * s:(t + 1) * s].to(ctx.device, copy=True)
@@ -240,7 +240,7 @@ def _ring_rank(ctx, q, k, v, scale, impl, int8_scores, int8_pv):
                                    int8_pv=int8_pv)
         out = ctx.time_group.all_gather(out, dim=1)
     mesh_lib.release_cache(ctx)
-    return out if ctx.rank == 0 else None
+    return out if ctx.caller else None
 
 
 def ring_attention(q, k, v, mesh, *, scale=None, impl="auto",
@@ -275,7 +275,7 @@ def _ring_vjp_rank(ctx, q, k, v, do, scale, impl):
     grads = torch.autograd.grad(out, (q, k, v), do)
     grads = [ctx.time_group.all_gather(g, dim=1) for g in grads]
     mesh_lib.release_cache(ctx)
-    return tuple(grads) if ctx.rank == 0 else None
+    return tuple(grads) if ctx.caller else None
 
 
 def ring_attention_vjp(q, k, v, do, mesh, *, scale=None, impl="auto"):
@@ -293,7 +293,7 @@ def _ring_bwd_rank(ctx, q, k, v, out, lse, do, scale, impl):
                               scale=scale, impl=impl)
         grads = [ctx.time_group.all_gather(g, dim=1) for g in grads]
     mesh_lib.release_cache(ctx)
-    return tuple(grads) if ctx.rank == 0 else None
+    return tuple(grads) if ctx.caller else None
 
 
 def ring_attention_bwd(q, k, v, out, lse, do, mesh, *, scale=None,

@@ -164,7 +164,9 @@ def dit_shards(params: dict, cfg: DiTConfig, mesh_cfg: MeshConfig,
     and each worker copies it (mesh.load), so rank 0's replica is the
     caller's tree wherever it already has the dtype. Otherwise the
     tp-prepped tree (W8A8 after the prep), rank r's part copied to
-    devices[r]."""
+    devices[r]. A device None (mesh.shard_devices of a ProcessMesh: a
+    rank of another process) gets no tree, None in its place; under "sp"
+    the whole tree then goes to the first device given."""
     if mode(mesh_cfg) == "sp":
         from landiff_tpu_torch.models import dit as dit_lib
 
@@ -173,9 +175,11 @@ def dit_shards(params: dict, cfg: DiTConfig, mesh_cfg: MeshConfig,
         def whole(path, x):
             to = x.dtype if x.dtype == torch.int8 or path[-1] == "s" \
                 or dtype is None else dtype
-            return x.to(devices[0], to)
+            return x.to(home, to)
 
-        return [mesh_lib.map_with_path(whole, tree)] * mesh_cfg.num_devices
+        home = next(d for d in devices if d is not None)
+        one = mesh_lib.map_with_path(whole, tree)
+        return [one if d is not None else None for d in devices]
     prepped = prep_dit_tp(params, cfg, mesh_cfg.model, int8=int8)
     specs = dit_tp_specs(prepped)
 
@@ -188,7 +192,7 @@ def dit_shards(params: dict, cfg: DiTConfig, mesh_cfg: MeshConfig,
             return x.to(device, to, copy=True).contiguous()
         return leaf
 
-    return [mesh_lib.map_with_path(
+    return [None if devices[r] is None else mesh_lib.map_with_path(
         place(devices[r]), mesh_lib.shard_for_rank(prepped, specs,
                                                    mesh_cfg, r))
         for r in range(mesh_cfg.num_devices)]
@@ -251,8 +255,8 @@ def model_call(ctx: mesh_lib.RankContext, key: str, x2, ts, ctx2, sem2,
                dit_cfg: DiTConfig, compute_dtype=torch.bfloat16,
                attn_impl="auto"):
     """One CFG-batch network call on every rank from the DiT trees stored
-    under `key` (dif_infer's stage-2 trees); rank 0 returns the output,
-    the workers None."""
+    under `key` (dif_infer's stage-2 trees); the caller's rank
+    (ctx.caller) returns the output, the others None."""
     st = ctx.state[key]
     x2, ts, ctx2, sem2 = mesh_lib.to_rank(ctx, [x2, ts, ctx2, sem2])
     net = _tp_net(ctx, st["main"], st["control"], dit_cfg, compute_dtype,
@@ -260,7 +264,7 @@ def model_call(ctx: mesh_lib.RankContext, key: str, x2, ts, ctx2, sem2,
     with torch.inference_mode():
         out = net(x2.to(compute_dtype), ts, ctx2, sem2)
     mesh_lib.release_cache(ctx)
-    return out if ctx.rank == 0 else None
+    return out if ctx.caller else None
 
 
 def denoise_call(ctx: mesh_lib.RankContext, key: str, cfg, context,
@@ -268,8 +272,9 @@ def denoise_call(ctx: mesh_lib.RankContext, key: str, cfg, context,
                  compute_dtype=torch.bfloat16, attn_impl="auto"):
     """One call of the denoise closure (make_tp_denoise_fn from the
     stage-2 trees under `key`, dif_infer's) on every rank: denoise_fn(x,
-    step), step the sampler's {"alpha", "timestep", "cfg_scale"}; rank 0
-    returns the f32 prediction, the workers None."""
+    step), step the sampler's {"alpha", "timestep", "cfg_scale"}; the
+    caller's rank (ctx.caller) returns the f32 prediction, the others
+    None."""
     st = ctx.state[key]
     context, uc_context, tokens, x = mesh_lib.to_rank(
         ctx, [context, uc_context, tokens, x])
@@ -281,7 +286,7 @@ def denoise_call(ctx: mesh_lib.RankContext, key: str, cfg, context,
             attn_impl=attn_impl)
         out = fn(x, step)
     mesh_lib.release_cache(ctx)
-    return out if ctx.rank == 0 else None
+    return out if ctx.caller else None
 
 
 def rank_report(ctx: mesh_lib.RankContext, reset: bool = False) -> dict:
@@ -322,19 +327,22 @@ def _place(local, device):
 
 
 def replicated(tree, devices) -> list:
-    """A whole copy of `tree` for every rank, on its device."""
-    return [_place(tree, d) for d in devices]
+    """A whole copy of `tree` for every rank, on its device (None for a
+    device None, as dit_shards)."""
+    return [None if d is None else _place(tree, d) for d in devices]
 
 
 def t5_shards(params, cfg, mesh_cfg: MeshConfig, devices) -> list:
     """Every rank's part of a T5 encoder by mesh.T5_RULES; whole copies
     where the heads or the feed-forward width do not divide `model` (a
-    block of leaves that do not all divide runs replicated)."""
+    block of leaves that do not all divide runs replicated); None for a
+    device None, as dit_shards."""
     tp = mesh_cfg.model
     if tp == 1 or cfg.num_heads % tp or cfg.d_ff % tp:
         return replicated(params, devices)
     specs = mesh_lib.param_specs(params, mesh_lib.T5_RULES, mesh_cfg)
-    return [_place(mesh_lib.shard_for_rank(params, specs, mesh_cfg, r),
+    return [None if devices[r] is None else
+            _place(mesh_lib.shard_for_rank(params, specs, mesh_cfg, r),
                    devices[r]) for r in range(mesh_cfg.num_devices)]
 
 
@@ -343,7 +351,7 @@ def lm_shards(params, cfg, mesh_cfg: MeshConfig, devices) -> list:
     fitted rule: whole where the vocab does not divide), wqkv and its
     int8 {q, s} split per head inside each of q, k and v; everything
     else whole. Whole copies where the heads or the MLP width do not
-    divide `model`."""
+    divide `model`. None for a device None, as dit_shards."""
     tp = mesh_cfg.model
     if tp == 1 or cfg.num_heads % tp or cfg.mlp_hidden % tp:
         return replicated(params, devices)
@@ -363,6 +371,9 @@ def lm_shards(params, cfg, mesh_cfg: MeshConfig, devices) -> list:
 
     out = []
     for r in range(mesh_cfg.num_devices):
+        if devices[r] is None:
+            out.append(None)
+            continue
         local = mesh_lib.shard_for_rank(headed, headed_specs, mesh_cfg, r)
         local = mesh_lib.map_with_path(merge, local, headed_specs)
         out.append(_place(local, devices[r]))
@@ -387,4 +398,4 @@ def t5_encode(ctx: mesh_lib.RankContext, key: str, ids, mask, cfg,
     with torch.inference_mode():
         out = t5_lib.encode(p, ids, mask, cfg, compute_dtype=compute_dtype,
                             tp=tp)
-    return out if ctx.rank == 0 else None
+    return out if ctx.caller else None

@@ -337,14 +337,14 @@ def decode_cp(params, z, cfg: VAEConfig, group, *,
 
 def _rank_cp(ctx, fn, params, x, cfg, compute_dtype):
     """A rank's part of decode_temporal_cp / encode_temporal_cp: fn over
-    its time group; rank 0 returns the result."""
+    its time group; the caller's rank (ctx.caller) returns the result."""
     from landiff_tpu_torch.parallel import mesh as mesh_lib
 
     params, x = mesh_lib.to_rank(ctx, [params, x])
     with torch.inference_mode():
         out = fn(params, x, cfg, ctx.time_group, compute_dtype=compute_dtype)
     mesh_lib.release_cache(ctx)
-    return out if ctx.rank == 0 else None
+    return out if ctx.caller else None
 
 
 def decode_temporal_cp(params, z, cfg: VAEConfig, mesh, *,

@@ -306,7 +306,7 @@ def _decodes(coords) -> bool:
 def _decode_cp_rank(ctx, key, latents, vae_cfg, compute_dtype):
     """A rank's part of a context-parallel decode: the decoding ranks'
     share of the frames (engine.decode_first_stage_cp over the time
-    group); rank 0 returns the video."""
+    group); the caller's rank (ctx.caller) returns the video."""
     video = None
     if _decodes(ctx.coords):
         latents = mesh_lib.to_rank(ctx, latents)
@@ -315,7 +315,7 @@ def _decode_cp_rank(ctx, key, latents, vae_cfg, compute_dtype):
                 ctx.state[key]["vae"], latents, vae_cfg, ctx.time_group,
                 compute_dtype=compute_dtype)
     mesh_lib.release_cache(ctx)
-    return video if ctx.rank == 0 else None
+    return video if ctx.caller else None
 
 
 def _denoise_rank(ctx, key, cfg: LanDiffConfig, compute_dtype, context,
@@ -323,7 +323,7 @@ def _denoise_rank(ctx, key, cfg: LanDiffConfig, compute_dtype, context,
                   prefix):
     """A rank's part of a denoise command: the sampler's whole loop on its
     shards, from the same initial noise and generator state as every
-    other rank; rank 0 returns the latents."""
+    other rank; the caller's rank (ctx.caller) returns the latents."""
     st = ctx.state[key]
     context, uc_context, tokens, init_noise, step_noise, prefix = \
         mesh_lib.to_rank(ctx, [context, uc_context, tokens, init_noise,
@@ -340,7 +340,7 @@ def _denoise_rank(ctx, key, cfg: LanDiffConfig, compute_dtype, context,
             init_noise=init_noise, step_noise=step_noise, prefix=prefix)
     del denoise_fn
     mesh_lib.release_cache(ctx)
-    return latents if ctx.rank == 0 else None
+    return latents if ctx.caller else None
 
 
 def _move_rank(ctx, key, to_host: bool):

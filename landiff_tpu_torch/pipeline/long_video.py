@@ -120,7 +120,8 @@ def generate_long_video_latents(params, cfg: LanDiffConfig, context,
 
 def _long_video_rank(ctx, key, cfg, context, uc_context, codes, gen_state,
                      prefix_latents, sdedit, compute_dtype, noises):
-    """A rank's part of a long-video command; rank 0 returns the latents."""
+    """A rank's part of a long-video command; the caller's rank
+    (ctx.caller) returns the latents."""
     context, uc_context, noises = mesh_lib.to_rank(
         ctx, [context, uc_context, noises])
     gen = torch.Generator(device=ctx.device)
@@ -131,7 +132,7 @@ def _long_video_rank(ctx, key, cfg, context, uc_context, codes, gen_state,
             prefix_latents=prefix_latents, sdedit=sdedit,
             compute_dtype=compute_dtype, noises=noises, rank=ctx)
     mesh_lib.release_cache(ctx)
-    return latents if ctx.rank == 0 else None
+    return latents if ctx.caller else None
 
 
 def generate_long_video(params, cfg: LanDiffConfig, context, uc_context,

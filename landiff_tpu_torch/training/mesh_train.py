@@ -15,7 +15,8 @@ rank of a `parallel.mesh.Mesh` is a process holding its own parts:
   - the optimizer state of each rank's parts is cut again along `data`
     (ZeRO, zero.zero_dims) for dit and lm; vq's stays replicated, as
     JAX's (train.py:223);
-  - `MeshTrainer` (rank 0's handle) stores each rank's state once
+  - `MeshTrainer` (the caller's handle: rank 0 of a spawned mesh,
+    every process of a multihost ProcessMesh) stores each rank's state once
     (`_setup`), runs one command per step (`_step`: every rank gets the
     whole batch and the step's seed, draws the whole batch's random
     inputs as one device would and takes its rows), and gathers the state
@@ -281,14 +282,14 @@ def _step(ctx, key, batch, rng):
             first=first)
         st["extra"] = [cb_state, False]
     mesh_lib.release_cache(ctx)
-    if ctx.rank:
+    if not ctx.caller:
         return None
     return {k: v.detach().float().cpu() for k, v in metrics.items()}
 
 
 def _gather(ctx, key):
     """The trainer's state in one device's layout: (params, opt_state,
-    *extras) on rank 0 (CPU tensors), None on the others."""
+    *extras) on the caller's rank (CPU tensors), None on the others."""
     st = ctx.state[key]
     layout, specs, dims = st["layout"], st["specs"], st["dims"]
     params = layout.gather(st["params"], specs, ctx)
@@ -296,7 +297,7 @@ def _gather(ctx, key):
         lambda t: layout.gather(_zero_gather(t, dims, ctx), specs, ctx),
         st["opt"])
     out = None
-    if ctx.rank == 0:
+    if ctx.caller:
         cpu = lambda tree: tree_map(
             lambda x: x.detach().cpu() if isinstance(x, torch.Tensor) else x,
             tree)
@@ -307,11 +308,11 @@ def _gather(ctx, key):
 
 def _grads(ctx, key):
     """The control gradients of the last dit step (summed over the ranks
-    that split the batch or the tokens), in one device's layout, on rank
-    0."""
+    that split the batch or the tokens), in one device's layout, on the
+    caller's rank."""
     st = ctx.state[key]
     grads = st["layout"].gather(st["keep"]["grads"], st["specs"], ctx)
-    return tree_map(lambda g: g.detach().cpu(), grads) if ctx.rank == 0 \
+    return tree_map(lambda g: g.detach().cpu(), grads) if ctx.caller \
         else None
 
 
@@ -335,7 +336,7 @@ def _report(ctx, key):
 
 
 class MeshTrainer:
-    """Rank 0's handle on a trainer stored on every rank of `mesh`:
+    """The caller's handle on a trainer stored on every rank of `mesh`:
     model "dit" | "lm" | "vq"; opt_kw: train.make_optimizer's arguments
     (each rank builds its own optimizer); state: the one-device state
     tuple train.SETUPS made (params, opt_state, extras); frozen:
@@ -357,7 +358,7 @@ class MeshTrainer:
 
     def step(self, batch, rng) -> dict:
         """One step on the whole batch; rng the step's seed (int) or the
-        whole batch's draws. Returns rank 0's metrics."""
+        whole batch's draws. Returns the caller's rank's metrics."""
         return self.mesh.run(_step, self.key, batch, rng)[0]
 
     def state(self) -> tuple:

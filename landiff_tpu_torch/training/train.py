@@ -241,12 +241,13 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def _train_mesh(mesh_spec, device):
-    """(the mesh, whether train made it) for `mesh_spec`: a Mesh as
-    given; a spec of more than one device made on `device`'s type; None
-    for no spec or a mesh of one device (the one-device run)."""
+    """(the mesh, whether train made it) for `mesh_spec`: a Mesh or a
+    ProcessMesh as given; a spec of more than one device made on
+    `device`'s type; None for no spec or a mesh of one device (the
+    one-device run)."""
     from landiff_tpu_torch.parallel import mesh as mesh_lib
 
-    if isinstance(mesh_spec, mesh_lib.Mesh):
+    if isinstance(mesh_spec, (mesh_lib.Mesh, mesh_lib.ProcessMesh)):
         return mesh_spec, False
     if not mesh_spec or all(n == 1 for n in parse_mesh(mesh_spec).values()):
         return None, False
@@ -260,10 +261,12 @@ def train(model: str, data_dir: str, *, steps: int = 100,
           resume: bool = False, tiny: bool = False, seed: int = 0,
           dtype=torch.float32, grad_accum: int = 1, device="cuda"):
     """Train `model` for `steps` steps on the data in data_dir. mesh_spec:
-    None (one device), a spec string ("data=2,model=2") or a
-    parallel.mesh.Mesh, which the caller keeps (a mesh made from a spec
-    is closed at the end). Returns (state, last metrics): the state in
-    one device's layout."""
+    None (one device), a spec string ("data=2,model=2"), a
+    parallel.mesh.Mesh or a ProcessMesh (multihost.global_mesh: every
+    launched process calls train alike, and rank 0's alone writes the
+    checkpoints and the metrics file); the caller keeps a mesh it gave
+    (a mesh made from a spec is closed at the end). Returns (state, last
+    metrics): the state in one device's layout."""
     cfg = tiny_test_config() if tiny else LanDiffConfig()
     device = torch.device(device)
     mesh, own_mesh = _train_mesh(mesh_spec, device)
@@ -301,7 +304,8 @@ def train(model: str, data_dir: str, *, steps: int = 100,
             return None, trainer.step(batch, gen)
 
     ds = data_lib.ShardedNpzDataset(data_dir, batch_size, seed=seed)
-    metrics = MetricsLogger(metrics_path)
+    writes = mesh is None or mesh.ctx.rank == 0
+    metrics = MetricsLogger(metrics_path if writes else None)
 
     def host_batches():
         epoch = 0
@@ -328,8 +332,10 @@ def train(model: str, data_dir: str, *, steps: int = 100,
             metrics.log(i + 1, sec_per_step=dt, **row)
             logger.info("step %d %s (%.3f s/step)", i + 1, row, dt)
         if ckpt_dir and ((i + 1) % save_every == 0 or i + 1 == steps):
-            ckpt_lib.save_checkpoint(ckpt_dir, i + 1, *_split(
-                trainer.state() if trainer else state))
+            # every rank takes part in gathering the state
+            full = trainer.state() if trainer else state
+            if writes:
+                ckpt_lib.save_checkpoint(ckpt_dir, i + 1, *_split(full))
     if trainer is not None:
         state = trainer.state()
         trainer.close()
