@@ -3816,11 +3816,14 @@ def phase_fast(cfg, llm, dif):
 
 def profiled(fn, what):
     """Run fn() once under torch.profiler (after the caller warmed it):
-    device time by kernel class (kernel_kind), the device's busy share of
-    the wall time, and the twelve largest kernels."""
+    device time by the benchmark's kernel classes
+    (portbench/kernel_classes/), the device's busy share of the wall
+    time, and the twelve largest kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from portbench.core.trace import classify, load_classes
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3836,9 +3839,9 @@ def profiled(fn, what):
         log(json.dumps({"phase": "profile", "what": what, "wall_ms": wall_ms,
                         "device_ms": "not measured"}))
         return
-    by_kind = {}
+    classes, by_kind = load_classes(), {}
     for e in kernels:
-        k = kernel_kind(e.key)
+        k = classify(e.key, classes) or "unclassified"
         by_kind[k] = by_kind.get(k, 0.0) + e.self_device_time_total / 1e3
     device_ms = sum(by_kind.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
@@ -3868,20 +3871,6 @@ def device_kernels(fn):
              if e.device_type == DeviceType.CUDA
              and e.self_device_time_total > 0]
     return found or "not measured"
-
-
-def kernel_kind(name):
-    low = name.lower()
-    if "flash_fwd_kernel" in low:
-        return "flash_attention"
-    if "adaln_kernel" in low:
-        return "adaln"
-    if any(t in low for t in ("gemm", "gemv", "xmma", "cutlass", "sm90_",
-                              "nvjet")):
-        return "gemm"
-    if "conv" in low:
-        return "conv"
-    return "elementwise_norm_other"
 
 
 def phase_profile_decode(cfg, llm, n_steps=20):

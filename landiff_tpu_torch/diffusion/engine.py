@@ -24,6 +24,7 @@ from landiff_tpu_torch.diffusion import samplers, schedule
 from landiff_tpu_torch.models import dit as dit_lib
 from landiff_tpu_torch.models import semantic_cond as sc_lib
 from landiff_tpu_torch.models import vae as vae_lib
+from landiff_tpu_torch.observability import named_scope
 from landiff_tpu_torch.utils import env_value, logger
 
 
@@ -98,23 +99,26 @@ def _denoise_closure(main_params, control_params, dit_cfg: DiTConfig,
             compute_dtype=compute_dtype)
 
     def denoise_fn(x, step):
-        B = x.shape[0]
-        c_skip, c_out = scalings(step)
-        x2 = torch.cat([x, x], dim=0)
-        ts = torch.full((2 * B,), float(step["timestep"]),
-                        dtype=torch.float32, device=x.device)
-        net_out = (net or whole_net)(x2.to(compute_dtype), ts, ctx2, sem2)
-        denoised = net_out.float() * c_out + x2.float() * c_skip
-        x_u, x_c = denoised[:B], denoised[B:]
-        return x_u + step["cfg_scale"] * (x_c - x_u)
+        with named_scope("landiff.denoise.call"):
+            B = x.shape[0]
+            c_skip, c_out = scalings(step)
+            x2 = torch.cat([x, x], dim=0)
+            ts = torch.full((2 * B,), float(step["timestep"]),
+                            dtype=torch.float32, device=x.device)
+            net_out = (net or whole_net)(x2.to(compute_dtype), ts, ctx2,
+                                         sem2)
+            denoised = net_out.float() * c_out + x2.float() * c_skip
+            x_u, x_c = denoised[:B], denoised[B:]
+            return x_u + step["cfg_scale"] * (x_c - x_u)
 
     def cond_only(x, step):
-        B = x.shape[0]
-        c_skip, c_out = scalings(step)
-        ts = torch.full((B,), float(step["timestep"]), dtype=torch.float32,
-                        device=x.device)
-        net_out = whole_net(x.to(compute_dtype), ts, ctx2[B:], sem)
-        return net_out.float() * c_out + x.float() * c_skip
+        with named_scope("landiff.denoise.call"):
+            B = x.shape[0]
+            c_skip, c_out = scalings(step)
+            ts = torch.full((B,), float(step["timestep"]),
+                            dtype=torch.float32, device=x.device)
+            net_out = whole_net(x.to(compute_dtype), ts, ctx2[B:], sem)
+            return net_out.float() * c_out + x.float() * c_skip
 
     if net is None:
         denoise_fn.cond_only = cond_only
@@ -234,9 +238,12 @@ def pre_process_video(video: torch.Tensor) -> torch.Tensor:
 
 def post_process_video(video: torch.Tensor) -> torch.Tensor:
     """[-1, 1] -> [0, 1] (dif_infer.py:37-49)."""
-    return torch.clamp((video + 1.0) / 2.0, 0.0, 1.0)
+    with named_scope("landiff.vae.post"):
+        return torch.clamp((video + 1.0) / 2.0, 0.0, 1.0)
 
 
 def video_to_uint8(video: torch.Tensor) -> torch.Tensor:
     """[0, 1] float video -> uint8 on the device (utils.py:328-332)."""
-    return torch.clamp(torch.round(video * 255.0), 0, 255).to(torch.uint8)
+    with named_scope("landiff.vae.post"):
+        return torch.clamp(torch.round(video * 255.0), 0,
+                           255).to(torch.uint8)

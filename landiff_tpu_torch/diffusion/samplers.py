@@ -29,6 +29,7 @@ import torch
 
 from landiff_tpu_torch.config import SamplerConfig
 from landiff_tpu_torch.diffusion import schedule as sched
+from landiff_tpu_torch.observability import named_scope
 
 # always-compute windows of cross-step model-output reuse
 # (LANDIFF_STEP_REUSE, samplers.py:33-34)
@@ -156,47 +157,51 @@ def vpsde_dpmpp2m_sample(denoise_fn: Callable, x: torch.Tensor,
     old_d = torch.zeros_like(x)
     resid = None
     for i, step in enumerate(step_dicts(cfg)):
-        if prefix is not None and sdedit:
-            if prefix_noises is not None:
-                rd = prefix_noises[i].to(x.device, torch.float32)
+        with named_scope("landiff.sampler.step"):
+            if prefix is not None and sdedit:
+                with named_scope("landiff.sampler.update"):
+                    if prefix_noises is not None:
+                        rd = prefix_noises[i].to(x.device, torch.float32)
+                    else:
+                        rd = torch.randn(prefix.shape, generator=generator,
+                                         device=x.device,
+                                         dtype=torch.float32)
+                    a = torch.tensor(step["alpha"], dtype=torch.float32,
+                                     device=x.device)
+                    noised = a * prefix + rd * torch.sqrt(1.0 - a * a)
+                    x = torch.cat([noised, x[:, fixed_frames:]], dim=1)
             else:
-                rd = torch.randn(prefix.shape, generator=generator,
-                                 device=x.device, dtype=torch.float32)
-            a = torch.tensor(step["alpha"], dtype=torch.float32,
-                             device=x.device)
-            noised = a * prefix + rd * torch.sqrt(1.0 - a * a)
-            x = torch.cat([noised, x[:, fixed_frames:]], dim=1)
-        elif prefix is not None:
-            x = torch.cat([prefix, x[:, fixed_frames:]], dim=1)
-        if compute[i]:
-            fn = denoise_fn if full[i] else denoise_fn.cond_only
-            denoised = fn(x, step).float()
-            resid = denoised - x
-        else:
-            denoised = x + resid
-        if noises is not None:
-            noise = noises[i].to(x.device, torch.float32)
-        else:
-            noise = torch.randn(x.shape, generator=generator,
-                                device=x.device, dtype=torch.float32)
-        if step["is_last"]:
-            x_new = denoised
-        elif step["first_order"]:
-            x_new = (step["m1"] * x - step["m2"] * denoised
-                     + step["mn"] * noise)
-        else:
-            denoised_d = step["m3"] * denoised - step["m4"] * old_d
-            x_new = (step["m1"] * x - step["m2"] * denoised_d
-                     + step["mn"] * noise)
-        x, old_d = x_new, denoised
-    if prefix is not None:
-        x = torch.cat([prefix, x[:, fixed_frames:]], dim=1)
-    return x
+                x = _splice(prefix, x, fixed_frames)
+            if compute[i]:
+                fn = denoise_fn if full[i] else denoise_fn.cond_only
+                denoised = fn(x, step).float()
+                resid = denoised - x
+            else:
+                denoised = x + resid
+            with named_scope("landiff.sampler.update"):
+                if noises is not None:
+                    noise = noises[i].to(x.device, torch.float32)
+                else:
+                    noise = torch.randn(x.shape, generator=generator,
+                                        device=x.device, dtype=torch.float32)
+                if step["is_last"]:
+                    x_new = denoised
+                elif step["first_order"]:
+                    x_new = (step["m1"] * x - step["m2"] * denoised
+                             + step["mn"] * noise)
+                else:
+                    denoised_d = step["m3"] * denoised - step["m4"] * old_d
+                    x_new = (step["m1"] * x - step["m2"] * denoised_d
+                             + step["mn"] * noise)
+            x, old_d = x_new, denoised
+    return _splice(prefix, x, fixed_frames)
 
 
 def _splice(prefix, x, fixed_frames: int):
-    return x if prefix is None else torch.cat([prefix, x[:, fixed_frames:]],
-                                              dim=1)
+    if prefix is None:
+        return x
+    with named_scope("landiff.sampler.update"):
+        return torch.cat([prefix, x[:, fixed_frames:]], dim=1)
 
 
 def vpode_dpmpp2m_sample(denoise_fn: Callable, x: torch.Tensor,
@@ -225,16 +230,18 @@ def vpode_dpmpp2m_sample(denoise_fn: Callable, x: torch.Tensor,
     x = x.float()
     old_d = torch.zeros_like(x)
     for step in _as_steps(c, n):
-        x = _splice(prefix, x, fixed_frames)
-        denoised = denoise_fn(x, step).float()
-        if step["is_last"]:
-            x_new = denoised
-        elif step["first_order"]:
-            x_new = step["m1"] * x - step["m2"] * denoised
-        else:
-            denoised_d = step["m3"] * denoised - step["m4"] * old_d
-            x_new = step["m1"] * x - step["m2"] * denoised_d
-        x, old_d = x_new, denoised
+        with named_scope("landiff.sampler.step"):
+            x = _splice(prefix, x, fixed_frames)
+            denoised = denoise_fn(x, step).float()
+            with named_scope("landiff.sampler.update"):
+                if step["is_last"]:
+                    x_new = denoised
+                elif step["first_order"]:
+                    x_new = step["m1"] * x - step["m2"] * denoised
+                else:
+                    denoised_d = step["m3"] * denoised - step["m4"] * old_d
+                    x_new = step["m1"] * x - step["m2"] * denoised_d
+            x, old_d = x_new, denoised
     return _splice(prefix, x, fixed_frames)
 
 
@@ -254,7 +261,9 @@ def video_ddim_sample(denoise_fn: Callable, x: torch.Tensor,
     prefix = x[:, :fixed_frames].float() if fixed_frames > 0 else None
     x = x.float()
     for step in _as_steps(c, n):
-        x = _splice(prefix, x, fixed_frames)
-        denoised = denoise_fn(x, step).float()
-        x = step["a_t"] * x + step["b_t"] * denoised
+        with named_scope("landiff.sampler.step"):
+            x = _splice(prefix, x, fixed_frames)
+            denoised = denoise_fn(x, step).float()
+            with named_scope("landiff.sampler.update"):
+                x = step["a_t"] * x + step["b_t"] * denoised
     return _splice(prefix, x, fixed_frames)

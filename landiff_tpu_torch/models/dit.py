@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from landiff_tpu_torch.config import DiTConfig
+from landiff_tpu_torch.observability import named_scope
 from landiff_tpu_torch.ops.adaln import adaln_modulate
 from landiff_tpu_torch.ops.attention import attention, \
     save_flash_residuals_context
@@ -264,44 +265,50 @@ def _layer(p, x, emb, cfg: DiTConfig, attn_impl="auto"):
     """One AdaLN DiT layer over the concatenated [text|video] sequence.
     attn_impl: a route of `attention`, or a callable (q, k, v) -> out in
     its place."""
-    B, S, D = x.shape
-    tl = cfg.text_length
-    H, Dk = cfg.num_heads, cfg.head_dim
-    dt = x.dtype
-    mods, sel = _adaln_sel(p, emb, x, tl)
+    with named_scope("landiff.dit.layer"):
+        B, S, D = x.shape
+        tl = cfg.text_length
+        H, Dk = cfg.num_heads, cfg.head_dim
+        dt = x.dtype
+        with named_scope("landiff.dit.modulate"):
+            mods, sel = _adaln_sel(p, emb, x, tl)
+            gate_msa, gate_mlp = sel(2), sel(5)
 
-    # LANDIFF_FUSED_ADALN=1: LayerNorm + modulate in one pass through the
-    # fused adaLN kernel (ops/adaln.py) where its shape rule holds; off by
-    # default, as in the JAX package (dit.py:261-277)
-    fused = env_flag("LANDIFF_FUSED_ADALN")
+        # LANDIFF_FUSED_ADALN=1: LayerNorm + modulate in one pass through
+        # the fused adaLN kernel (ops/adaln.py) where its shape rule holds;
+        # off by default, as in the JAX package (dit.py:261-277)
+        fused = env_flag("LANDIFF_FUSED_ADALN")
 
-    def modulate(y, ln, i_shift, i_scale):
-        if fused:
-            return adaln_modulate(
-                y, p[f"{ln}_w"].to(dt), p[f"{ln}_b"].to(dt),
-                mods[6 + i_shift], mods[6 + i_scale], mods[i_shift],
-                mods[i_scale], text_len=tl, impl="auto")
-        h = layer_norm(y, p[f"{ln}_w"], p[f"{ln}_b"], 1e-6)
-        return h * (1.0 + sel(i_scale)) + sel(i_shift)
+        def modulate(y, ln, i_shift, i_scale):
+            with named_scope("landiff.dit.modulate"):
+                if fused:
+                    return adaln_modulate(
+                        y, p[f"{ln}_w"].to(dt), p[f"{ln}_b"].to(dt),
+                        mods[6 + i_shift], mods[6 + i_scale], mods[i_shift],
+                        mods[i_scale], text_len=tl, impl="auto")
+                h = layer_norm(y, p[f"{ln}_w"], p[f"{ln}_b"], 1e-6)
+                return h * (1.0 + sel(i_scale)) + sel(i_shift)
 
-    gate_msa, gate_mlp = sel(2), sel(5)
+        h = modulate(x, "ln1", 0, 1)
+        with named_scope("landiff.dit.attn"):
+            q, k, v = _linear(p, "qkv", h).chunk(3, dim=-1)
+            q = q.reshape(B, S, H, Dk)
+            k = k.reshape(B, S, H, Dk)
+            v = v.reshape(B, S, H, Dk).contiguous()
+            if cfg.qk_ln:
+                q = layer_norm(q, p["q_ln_w"], p["q_ln_b"], 1e-6)
+                k = layer_norm(k, p["k_ln_w"], p["k_ln_b"], 1e-6)
+            q, k, v = _maybe_rotary(q, k, v, cfg)
+            with named_scope("landiff.dit.flash"):
+                attn = (attn_impl(q, k, v) if callable(attn_impl)
+                        else attention(q, k, v, impl=attn_impl)
+                        ).reshape(B, S, D)
+            x = x + gate_msa * _linear(p, "attn_out", attn)
 
-    h = modulate(x, "ln1", 0, 1)
-    q, k, v = _linear(p, "qkv", h).chunk(3, dim=-1)
-    q = q.reshape(B, S, H, Dk)
-    k = k.reshape(B, S, H, Dk)
-    v = v.reshape(B, S, H, Dk).contiguous()
-    if cfg.qk_ln:
-        q = layer_norm(q, p["q_ln_w"], p["q_ln_b"], 1e-6)
-        k = layer_norm(k, p["k_ln_w"], p["k_ln_b"], 1e-6)
-    q, k, v = _maybe_rotary(q, k, v, cfg)
-    attn = (attn_impl(q, k, v) if callable(attn_impl)
-            else attention(q, k, v, impl=attn_impl)).reshape(B, S, D)
-    x = x + gate_msa * _linear(p, "attn_out", attn)
-
-    h = modulate(x, "ln2", 3, 4)
-    h = F.gelu(_linear(p, "mlp0", h), approximate="tanh")
-    return x + gate_mlp * _linear(p, "mlp1", h)
+        h = modulate(x, "ln2", 3, 4)
+        with named_scope("landiff.dit.mlp"):
+            h = F.gelu(_linear(p, "mlp0", h), approximate="tanh")
+            return x + gate_mlp * _linear(p, "mlp1", h)
 
 
 def _patchify(params, x, context, cfg: DiTConfig, dt):
@@ -323,14 +330,15 @@ def _embed_inputs(params, x, timesteps, context, cfg: DiTConfig,
     rotary3d no table is added, and the learnable `pos_embedding` leaf is
     never read (dit.py:454-461; the reference's position_embedding_forward
     returns None)."""
-    dt = compute_dtype
-    h = _patchify(params, x, context, cfg, dt)
-    if cfg.pos_embed != "rotary3d":
-        h = h + _pos_embed_on(cfg, str(h.device), dt)[None, :h.shape[1]]
-    t_emb = timestep_embedding(timesteps, cfg.hidden_size, dtype=dt)
-    e = _linear(params["time_mlp"], "fc0", t_emb)
-    e = _linear(params["time_mlp"], "fc1", F.silu(e))
-    return h, e
+    with named_scope("landiff.dit.embed"):
+        dt = compute_dtype
+        h = _patchify(params, x, context, cfg, dt)
+        if cfg.pos_embed != "rotary3d":
+            h = h + _pos_embed_on(cfg, str(h.device), dt)[None, :h.shape[1]]
+        t_emb = timestep_embedding(timesteps, cfg.hidden_size, dtype=dt)
+        e = _linear(params["time_mlp"], "fc0", t_emb)
+        e = _linear(params["time_mlp"], "fc1", F.silu(e))
+        return h, e
 
 
 def _remat_policy():
@@ -373,27 +381,30 @@ def forward(params, x, timesteps, context, cfg: DiTConfig, *,
     for i, p in enumerate(params["layers"]):
         h = layer_fn(p, h, emb, cfg, attn_impl)
         if control_outputs is not None and i < len(control_outputs):
-            h = h + control_outputs[i].to(h.dtype)
+            with named_scope("landiff.dit.control"):
+                h = h + control_outputs[i].to(h.dtype)
     return _final_head(params, h, emb, cfg)
 
 
 def _final_head(params, h, emb, cfg: DiTConfig):
     """final_layernorm + FinalLayerMixin modulate / linear / unpatchify
     (dit_video_concat.py:392-460)."""
-    h = layer_norm(h, params["final_ln_w"], params["final_ln_b"], 1e-6)
-    hv = h[:, cfg.text_length:]
-    f = params["final"]
-    hv = layer_norm(hv, f["norm_w"], f["norm_b"], 1e-6)
-    shift, scale = _linear(f, "adaln", F.silu(emb)).chunk(2, dim=-1)
-    hv = hv * (1.0 + scale[:, None]) + shift[:, None]
-    hv = _linear(f, "linear", hv)
-    B = hv.shape[0]
-    P = cfg.patch_size
-    hh = cfg.latent_height // P
-    ww = cfg.latent_width // P
-    out = hv.reshape(B, cfg.latent_frames, hh, ww, cfg.out_channels, P, P)
-    return out.permute(0, 1, 4, 2, 5, 3, 6).reshape(
-        B, cfg.latent_frames, cfg.out_channels, hh * P, ww * P)
+    with named_scope("landiff.dit.head"):
+        h = layer_norm(h, params["final_ln_w"], params["final_ln_b"], 1e-6)
+        hv = h[:, cfg.text_length:]
+        f = params["final"]
+        hv = layer_norm(hv, f["norm_w"], f["norm_b"], 1e-6)
+        shift, scale = _linear(f, "adaln", F.silu(emb)).chunk(2, dim=-1)
+        hv = hv * (1.0 + scale[:, None]) + shift[:, None]
+        hv = _linear(f, "linear", hv)
+        B = hv.shape[0]
+        P = cfg.patch_size
+        hh = cfg.latent_height // P
+        ww = cfg.latent_width // P
+        out = hv.reshape(B, cfg.latent_frames, hh, ww, cfg.out_channels, P,
+                         P)
+        return out.permute(0, 1, 4, 2, 5, 3, 6).reshape(
+            B, cfg.latent_frames, cfg.out_channels, hh * P, ww * P)
 
 
 def control_forward(params, x, timesteps, context, cfg: DiTConfig,
@@ -408,7 +419,8 @@ def control_forward(params, x, timesteps, context, cfg: DiTConfig,
     outs = []
     for p in params["layers"]:
         h = layer_fn(p, h, emb, cfg, attn_impl)
-        h = h @ p["zero_linear_w"].to(h.dtype)   # bias-free (1210-1218)
+        with named_scope("landiff.dit.control"):
+            h = h @ p["zero_linear_w"].to(h.dtype)   # bias-free (1210-1218)
         outs.append(h)
     return outs
 

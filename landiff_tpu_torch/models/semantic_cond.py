@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from landiff_tpu_torch.config import SemanticCondConfig, TokenizerConfig
 from landiff_tpu_torch.models import vq as vq_lib
+from landiff_tpu_torch.observability import named_scope
 from landiff_tpu_torch.ops.norms import group_norm
 
 
@@ -66,14 +67,16 @@ def semantic_feature_from_tokens(params, indices, tok_cfg: TokenizerConfig,
                                  compute_dtype=torch.bfloat16):
     """SemanticCond.forward(indexs=...): indices (B, L) ->
     (B, T, out_channels, 2*gh, 2*gw), e.g. (B, 13, 16, 60, 90)."""
-    feats = vq_lib.index_to_feature(params["vq"], indices, tok_cfg,
-                                    forward_t=forward_t,
-                                    compute_dtype=compute_dtype)
-    B, T, gh, gw, C = feats.shape
-    x = feats.to(compute_dtype).reshape(B * T, gh, gw, C).permute(0, 3, 1, 2)
-    x = upsampler_forward(params["upsampler"], x, cfg)
-    x = _conv(params, "conv_out", x)            # zero-init 64 -> 16
-    return x.reshape(B, T, *x.shape[1:])
+    with named_scope("landiff.semantic.feature"):
+        feats = vq_lib.index_to_feature(params["vq"], indices, tok_cfg,
+                                        forward_t=forward_t,
+                                        compute_dtype=compute_dtype)
+        B, T, gh, gw, C = feats.shape
+        x = feats.to(compute_dtype).reshape(B * T, gh, gw, C).permute(
+            0, 3, 1, 2)
+        x = upsampler_forward(params["upsampler"], x, cfg)
+        x = _conv(params, "conv_out", x)            # zero-init 64 -> 16
+        return x.reshape(B, T, *x.shape[1:])
 
 
 def pad_to_square(x, pad_value):

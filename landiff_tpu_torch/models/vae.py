@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from landiff_tpu_torch.config import VAEConfig
+from landiff_tpu_torch.observability import named_scope
 from landiff_tpu_torch.ops.norms import group_norm
 
 
@@ -48,31 +49,32 @@ def causal_conv3d(p, x, cache, path, updates, stream: bool):
     Temporal front padding of kt-1 frames: the repeated first frame, or
     cache[path], the last kt-1 frames of the previous chunk's padded input.
     With stream=True, `updates[path]` receives this chunk's tail."""
-    w = p["w"]
-    kt, kh, kw = w.shape[2:]
-    if kt > 1:
-        if cache is not None and path in cache:
-            front = cache[path].to(x.dtype)
+    with named_scope("landiff.vae.conv"):
+        w = p["w"]
+        kt, kh, kw = w.shape[2:]
+        if kt > 1:
+            if cache is not None and path in cache:
+                front = cache[path].to(x.dtype)
+            else:
+                front = x[:, :, :1].expand(-1, -1, kt - 1, -1, -1)
+            xp = torch.cat([front, x], dim=2)
         else:
-            front = x[:, :, :1].expand(-1, -1, kt - 1, -1, -1)
-        xp = torch.cat([front, x], dim=2)
-    else:
-        xp = x
-    if stream and kt > 1:
-        updates[path] = xp[:, :, -(kt - 1):].clone()
-    w = w.to(x.dtype)
-    pad = (0, kh // 2, kw // 2)
-    T = xp.shape[2] - kt + 1
-    per_frame = max(xp[:, :, :1].numel(), x.shape[0] * w.shape[0]
-                    * x.shape[3] * x.shape[4])
-    n = max(1, _INT32_ELEMS // per_frame - kt + 1)
-    if n >= T:
-        out = F.conv3d(xp, w, padding=pad)
-    else:
-        out = torch.cat([F.conv3d(xp[:, :, t:min(t + n, T) + kt - 1], w,
-                                  padding=pad) for t in range(0, T, n)],
-                        dim=2)
-    return out + _bias(p["b"], out)
+            xp = x
+        if stream and kt > 1:
+            updates[path] = xp[:, :, -(kt - 1):].clone()
+        w = w.to(x.dtype)
+        pad = (0, kh // 2, kw // 2)
+        T = xp.shape[2] - kt + 1
+        per_frame = max(xp[:, :, :1].numel(), x.shape[0] * w.shape[0]
+                        * x.shape[3] * x.shape[4])
+        n = max(1, _INT32_ELEMS // per_frame - kt + 1)
+        if n >= T:
+            out = F.conv3d(xp, w, padding=pad)
+        else:
+            out = torch.cat([F.conv3d(xp[:, :, t:min(t + n, T) + kt - 1], w,
+                                      padding=pad) for t in range(0, T, n)],
+                            dim=2)
+        return out + _bias(p["b"], out)
 
 
 def _nearest_resize_3d(x, t, h, w):
@@ -99,27 +101,33 @@ def spatial_norm3d(p, f, zq, cache, path, updates, stream):
     """SpatialNorm3D: GroupNorm(f) * conv_y(zq~) + conv_b(zq~); the 1x1x1
     convs run at latent resolution before the nearest resize (they
     commute exactly)."""
-    Tf, Hf, Wf = f.shape[2:]
-    y_s = causal_conv3d(p["conv_y"], zq, cache, path + ".y", updates, stream)
-    b_s = causal_conv3d(p["conv_b"], zq, cache, path + ".b", updates, stream)
-    return (_gn(p, "norm", f) * _resize_like(y_s, Tf, Hf, Wf)
-            + _resize_like(b_s, Tf, Hf, Wf))
+    with named_scope("landiff.vae.norm"):
+        Tf, Hf, Wf = f.shape[2:]
+        y_s = causal_conv3d(p["conv_y"], zq, cache, path + ".y", updates,
+                            stream)
+        b_s = causal_conv3d(p["conv_b"], zq, cache, path + ".b", updates,
+                            stream)
+        return (_gn(p, "norm", f) * _resize_like(y_s, Tf, Hf, Wf)
+                + _resize_like(b_s, Tf, Hf, Wf))
 
 
 def upsample3d(p, x, compress_time: bool):
-    T, H, W = x.shape[2:]
-    if compress_time and T > 1:
-        if T % 2 == 1:
-            first = _nearest_resize_3d(x[:, :, :1], 1, H * 2, W * 2)
-            rest = _nearest_resize_3d(x[:, :, 1:], (T - 1) * 2, H * 2, W * 2)
-            x = torch.cat([first, rest], dim=2)
+    with named_scope("landiff.vae.resample"):
+        T, H, W = x.shape[2:]
+        if compress_time and T > 1:
+            if T % 2 == 1:
+                first = _nearest_resize_3d(x[:, :, :1], 1, H * 2, W * 2)
+                rest = _nearest_resize_3d(x[:, :, 1:], (T - 1) * 2, H * 2,
+                                          W * 2)
+                x = torch.cat([first, rest], dim=2)
+            else:
+                x = _nearest_resize_3d(x, T * 2, H * 2, W * 2)
         else:
-            x = _nearest_resize_3d(x, T * 2, H * 2, W * 2)
-    else:
-        x = _nearest_resize_3d(x, T, H * 2, W * 2)
-    # the 2-D conv applied per frame
-    out = F.conv3d(x, p["conv_w"].to(x.dtype)[:, :, None], padding=(0, 1, 1))
-    return out + _bias(p["conv_b"], out)
+            x = _nearest_resize_3d(x, T, H * 2, W * 2)
+        # the 2-D conv applied per frame
+        out = F.conv3d(x, p["conv_w"].to(x.dtype)[:, :, None],
+                       padding=(0, 1, 1))
+        return out + _bias(p["conv_b"], out)
 
 
 def downsample3d(p, x, compress_time: bool):
@@ -148,17 +156,18 @@ def _norm(p, f, zq, cache, path, updates, stream):
 
 
 def resblock3d(p, x, zq, cache, path, updates, stream):
-    h = _norm(p["norm1"], x, zq, cache, path + ".n1", updates, stream)
-    h = causal_conv3d(p["conv1"], _swish(h), cache, path + ".c1", updates,
-                      stream)
-    h = _norm(p["norm2"], h, zq, cache, path + ".n2", updates, stream)
-    h = causal_conv3d(p["conv2"], _swish(h), cache, path + ".c2", updates,
-                      stream)
-    if "nin_w" in p:
-        w = p["nin_w"].to(x.dtype).t()[:, :, None, None, None]
-        x = F.conv3d(x, w)
-        x = x + _bias(p["nin_b"], x)
-    return x + h
+    with named_scope("landiff.vae.block"):
+        h = _norm(p["norm1"], x, zq, cache, path + ".n1", updates, stream)
+        h = causal_conv3d(p["conv1"], _swish(h), cache, path + ".c1",
+                          updates, stream)
+        h = _norm(p["norm2"], h, zq, cache, path + ".n2", updates, stream)
+        h = causal_conv3d(p["conv2"], _swish(h), cache, path + ".c2",
+                          updates, stream)
+        if "nin_w" in p:
+            w = p["nin_w"].to(x.dtype).t()[:, :, None, None, None]
+            x = F.conv3d(x, w)
+            x = x + _bias(p["nin_b"], x)
+        return x + h
 
 
 def encode(params, x, cfg: VAEConfig, compute_dtype=torch.bfloat16, *,
@@ -289,9 +298,10 @@ def decode_streaming(params, z, cfg: VAEConfig,
     cache = None
     for ci, (a, b) in enumerate(chunks):
         last = ci == len(chunks) - 1
-        out, cache = decode(params, z[:, :, a:b], cfg, cache=cache,
-                            stream=not last, compute_dtype=compute_dtype)
-        outs.append(out.float())
+        with named_scope("landiff.vae.chunk"):
+            out, cache = decode(params, z[:, :, a:b], cfg, cache=cache,
+                                stream=not last, compute_dtype=compute_dtype)
+            outs.append(out.float())
     return torch.cat(outs, dim=2)
 
 

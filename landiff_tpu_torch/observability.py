@@ -1,6 +1,5 @@
 """Observability (counterpart of landiff_tpu/observability.py): profiler
-traces and named scopes, step timers, a JSONL metrics logger, device
-memory and determinism.
+traces and the program's spans, a JSONL metrics logger and determinism.
 """
 
 from __future__ import annotations
@@ -43,31 +42,21 @@ def trace(trace_dir: str | None = None, device="cuda"):
         logger.info("profiler trace written to %s", path)
 
 
+# what `named_scope` returns while no profiler records: one shared object,
+# so that a span costs one flag check when nothing traces
+_NO_SPAN = contextlib.nullcontext()
+
+
 def named_scope(name: str):
-    """Annotate a region for the profiler (the reference's
-    @torch.profiler.record_function, blocks.py:143)."""
-    return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    """Wall-clock step timer with EMA; `stop(sync_on=...)` waits for the
-    device that holds `sync_on` (a tensor) before reading the clock."""
-
-    def __init__(self, ema: float = 0.9):
-        self.ema = ema
-        self.avg_s: float | None = None
-        self._t0: float | None = None
-
-    def start(self):
-        self._t0 = time.time()
-
-    def stop(self, sync_on=None) -> float:
-        if isinstance(sync_on, torch.Tensor) and sync_on.is_cuda:
-            torch.cuda.synchronize(sync_on.device)
-        dt = time.time() - self._t0
-        self.avg_s = dt if self.avg_s is None else (
-            self.ema * self.avg_s + (1 - self.ema) * dt)
-        return dt
+    """A span of the profiler's trace (the reference's
+    @torch.profiler.record_function, blocks.py:143): a
+    `torch.profiler.record_function` range while a profiler records, which
+    the trace puts on the clock of the device's kernels, else a shared
+    no-op context that calls nothing. The program's own spans are named
+    `landiff.<layer>.<part>`."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class MetricsLogger:
@@ -89,17 +78,6 @@ class MetricsLogger:
 
     def last(self) -> dict:
         return self.history[-1] if self.history else {}
-
-
-def device_memory_stats(device=None) -> dict:
-    """Device memory snapshot: bytes_in_use, peak_bytes_in_use and
-    bytes_limit of a CUDA device; empty where there is none."""
-    if not torch.cuda.is_available():
-        return {}
-    _, total = torch.cuda.mem_get_info(device)
-    return {"bytes_in_use": torch.cuda.memory_allocated(device),
-            "peak_bytes_in_use": torch.cuda.max_memory_allocated(device),
-            "bytes_limit": total}
 
 
 def set_deterministic(seed: int, device="cpu") -> torch.Generator:
