@@ -22,6 +22,8 @@
     python3 chip_smoke.py --only sp          # 8j (builds what it needs)
     python3 chip_smoke.py --only train_mesh  # 13 (builds what it needs)
     python3 chip_smoke.py --only multihost   # 14 (builds what it needs)
+    python3 chip_smoke.py --only qkv_prep    # build, then the DiT's qkv
+                                             # preparation kernel alone
 
 Phases, in order; any failure exits nonzero before the last line:
   1. device:  the card's name and power limit; TF32 off for matmuls and
@@ -50,7 +52,11 @@ Phases, in order; any failure exits nonzero before the last line:
               adaLN
               kernel against its plain version at the DiT shape
               (2, 17,776, 1,920) bf16 with text_len 226, at a ragged shape
-              and with f32 I/O, with its time beside the unfused chain's.
+              and with f32 I/O, with its time beside the unfused chain's;
+              the DiT's qkv preparation kernel against its plain version
+              at the 2b (sincos3d) and 5b (rotary3d) DiT shapes in bf16,
+              and at 5b in f32, timed beside its byte bound, the plain
+              version and the chain it replaces.
   3b. drift:  the compound-drift gates of the quantized DiT paths
               (diffusion/drift.py: three chained steps of the JAX gates'
               mid configuration, S = 776) in bf16 through the kernels: int8
@@ -87,7 +93,8 @@ Phases, in order; any failure exits nonzero before the last line:
   5. video:   the prompt -> codes -> video path (infer_video.generate)
               with LANDIFF_FUSED_ADALN=1 for two prompts: 1,218 valid
               codes, the video's shape and range, 90 * steps adaLN
-              launches and 12 + 45 * steps int8 launches per request;
+              launches, 45 * steps qkv preparation launches and 12 + 45
+              * steps int8 launches per request;
               then stage 1 alone (one semantic frame, the first GPT_CUT
               GPT blocks): a repeated (prompt, seed) gives the
               same codes, another seed others; one infer_batch of both
@@ -328,6 +335,11 @@ BWD_TOL_RMS = 2e-3
 ADALN_TOL_STEPS = 1.0
 ADALN_TOL_RMS_BF16 = 3e-5
 ADALN_TOL_F32 = 1e-6
+# the qkv preparation kernel vs plain: the same design (a head's 64 values
+# in f32, one rounding): one bf16 step at the element's own size; in f32,
+# max |err| / (1 + |plain|) within 1e-5 (rsqrtf's 2 ulps, the sums' order)
+QKV_TOL_STEPS = 1.0
+QKV_TOL_F32 = 1e-5
 
 # the forward kernel's variants: (int8 scores, int8_pv, exp_bf16)
 FWD_VARIANTS = ((False, False, False), (True, False, False),
@@ -1498,6 +1510,121 @@ def phase_adaln():
     return main
 
 
+def qkv_prep_case(name, B, S, H, dtype_name, rotary, seed, timed):
+    """The DiT's qkv preparation kernel at (B, S, 3 H 64), qk-LN on, the
+    rotary3d tables of the DiT at H heads or none, against its plain
+    version; timed (CUDA events) beside its byte bound, the plain version
+    and the chain of PyTorch operations it replaces (models/dit.py
+    `_qkv_chain`)."""
+    import torch
+
+    from landiff_tpu_torch.config import DiTConfig
+    from landiff_tpu_torch.models import dit
+    from landiff_tpu_torch.ops import attention as A
+    from landiff_tpu_torch.ops import qkv_prep as QP
+
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype_name]
+    cfg = DiTConfig(hidden_size=H * 64, num_heads=H,
+                    pos_embed="rotary3d" if rotary else "sincos3d")
+    check(cfg.text_length + cfg.video_tokens == S, f"S {S}")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda")
+    D3 = 3 * H * 64
+    y = (r(B, S, D3) + 0.2).to(dtype)
+    p = {"qkv_b": 0.1 * r(D3), "q_ln_w": 1.5 + 0.2 * r(64),
+         "q_ln_b": 0.1 * r(64), "k_ln_w": 1.5 + 0.2 * r(64),
+         "k_ln_b": 0.1 * r(64)}
+    p = {k: t.to(dtype) for k, t in p.items()}
+    tables = (dit._rotary3d_on(cfg, "cuda", dtype) if rotary
+              else (None, None))
+    args = (y, p["qkv_b"], p["q_ln_w"], p["q_ln_b"], p["k_ln_w"],
+            p["k_ln_b"], *tables)
+    fused = lambda: QP.qkv_prep(*args, heads=H)
+    plain = lambda: QP.qkv_prep_plain(*args, heads=H)
+    chain = lambda: dit._qkv_chain(y, p, cfg)
+
+    with torch.inference_mode():
+        out = fused()
+        torch.cuda.synchronize()
+        ref = plain()
+        res = {"case": name, "shape": [B, S, D3], "dtype": dtype_name,
+               "rotary": rotary, "errors": {}}
+        faults = []
+        for part, a, b in zip("qkv", out, ref):
+            diff = (a.float() - b.float()).abs()
+            mag = b.float().abs().clamp_min(2.0 ** -7)
+            steps = (diff / torch.exp2(torch.frexp(mag)[1] - 8.0)).max().item()
+            rel_max = (diff / (b.float().abs() + 1.0)).max().item()
+            res["errors"][part] = {
+                "max_abs_err": diff.max().item(), "max_bf16_steps": steps,
+                "rel_rms_err": (diff.norm() / b.float().norm()).item(),
+                "max_err_over_1_plus_abs": rel_max}
+            ok = (steps <= QKV_TOL_STEPS if dtype_name == "bf16"
+                  else rel_max <= QKV_TOL_F32)
+            if not ok or not bool(torch.isfinite(a.float()).all()):
+                faults.append(f"qkv_prep {name} {part}: {res['errors'][part]}")
+            del diff, mag
+        # the chain rounds about six times where the kernel rounds once
+        res["chain_vs_plain"] = [A.kernel_error(a, b)
+                                 for a, b in zip(chain(), ref)]
+        del out, ref
+        if timed:
+            # y read and q, k, v written once; the bias, the affine and the
+            # tables read once
+            small = sum(t.numel() * t.element_size()
+                        for t in args[1:] if t is not None)
+            nbytes = 2 * y.numel() * y.element_size() + small
+            res.update({
+                "ms": cuda_ms(fused, 20), "plain_ms": cuda_ms(plain, 3),
+                "chain_ms": cuda_ms(chain, 5),
+                "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+                "bytes": nbytes, "library_ms": None})
+            res["share_of_bound"] = res["bound_ms"] / res["ms"]
+            res["gb_per_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
+    log(json.dumps({"kernel": "qkv_prep", **res}))
+    res["faults"] = faults
+    del y, args, p
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_qkv_prep():
+    """The qkv preparation kernel at the 2b DiT shape (sincos3d, bf16) and
+    the 5b one (rotary3d, bf16 timed, and f32), with ptxas's report."""
+    from landiff_tpu_torch.ops import kernels
+
+    main = qkv_prep_case("2b", 2, 17776, 30, "bf16", False, seed=6,
+                         timed=True)
+    wide = qkv_prep_case("5b", 2, 17776, 48, "bf16", True, seed=7,
+                         timed=True)
+    f32 = qkv_prep_case("5b_f32", 2, 17776, 48, "f32", True, seed=8,
+                        timed=False)
+    faults = main["faults"] + wide["faults"] + f32["faults"]
+    check(not faults, "kernel vs plain: " + "; ".join(faults))
+    main["5b"], main["f32"] = wide, f32
+    main["ptxas"] = kernels.ptxas_report("qkv_prep",
+                                         "qkv_layer_norm_rotary_kernel")
+    return main
+
+
+def qkv_prep_entry(qkv, launches):
+    """The kernels line's row of the qkv preparation kernel."""
+    return {
+        "name": "qkv_prep", "route": "cuda",
+        "source": "landiff_tpu_torch/ops/csrc/qkv_prep.cu",
+        "replaces": "none: the DiT layer's chain from the qkv product to "
+                    "the attention inputs (XLA's fusion in the JAX package)",
+        "launches": launches,
+        **{k: qkv[k] for k in ("errors", "ms", "plain_ms", "chain_ms",
+                               "bound_ms", "bound_by", "share_of_bound",
+                               "library_ms", "shape", "ptxas",
+                               "chain_vs_plain")},
+        "5b": {k: qkv["5b"][k] for k in ("errors", "ms", "plain_ms",
+                                         "chain_ms", "bound_ms",
+                                         "share_of_bound", "shape")},
+        "f32": qkv["f32"]["errors"]}
+
+
 # ---------------------------------------------------------------------------
 # phases 4-8: full width
 
@@ -1505,9 +1632,11 @@ def phase_adaln():
 def reset_counts():
     from landiff_tpu_torch.ops import adaln as N
     from landiff_tpu_torch.ops import attention as A
+    from landiff_tpu_torch.ops import qkv_prep as QP
 
     A.reset_launch_counts()
     N.adaln_fused.launches = 0
+    QP.qkv_prep.launches = 0
 
 
 def read_counts():
@@ -1617,6 +1746,7 @@ def phase_video(cfg, llm, dif, steps):
     import torch
 
     from landiff_tpu_torch.models import lm
+    from landiff_tpu_torch.ops import qkv_prep as QP
     from landiff_tpu_torch.pipeline import infer_video, llm_infer
 
     requests = [("a corgi running along a beach at sunset", 1),
@@ -1651,11 +1781,14 @@ def phase_video(cfg, llm, dif, steps):
                 "video_std": float(res["video"].std()),
                 "codes_head": res["codes"][:8].tolist()}))
         launches = read_counts()
+        launches["qkv_prep"] = QP.qkv_prep.launches
     finally:
         os.environ.pop("LANDIFF_FUSED_ADALN")
     n = len(requests)
     check(launches["adaln"] == n * 90 * steps,
           f"adaLN launches {launches['adaln']}, want {n * 90 * steps}")
+    check(launches["qkv_prep"] == n * 45 * steps,
+          f"qkv launches {launches['qkv_prep']}, want {n * 45 * steps}")
     check(launches["flash_fwd_int8"] == n * (12 + 45 * steps),
           f"int8 launches {launches['flash_fwd_int8']}, want "
           f"{n * (12 + 45 * steps)}")
@@ -5018,7 +5151,7 @@ def main():
                                        "stage1_batch", "long_video", "ckpt",
                                        "train", "tokenizer", "variants",
                                        "serving", "tp", "sp", "train_mesh",
-                                       "multihost"),
+                                       "multihost", "qkv_prep"),
                     help="build, then only this kernel's cases at the "
                          "main-path shapes, or only the batched decoding "
                          "check at full width (no pipeline, no last "
@@ -5133,12 +5266,17 @@ def main():
         bwd = phase_bwd_kernel(titok_decoder_mask(), exp2_rates()[False])
         log(json.dumps({"flash_bwd": bwd_entry(bwd, None)}))
         return
+    if args.only == "qkv_prep":
+        log(json.dumps({"qkv_prep": qkv_prep_entry(phase_qkv_prep(),
+                                                   None)}))
+        return
     # 3. kernels
     fwd_reports = check_fwd_ptxas()
     measured = phase_kernels()
     dec_mask = measured.pop("dec_mask")
     direct_launches = phase_direct(dec_mask)
     adaln = phase_adaln()
+    qkv = phase_qkv_prep()
     # 3b. the drift gates; 3c. the f32 kernels
     drift = phase_drift()
     rates = measured.pop("rates")
@@ -5258,6 +5396,7 @@ def main():
         "unfused_ms": adaln["unfused_ms"], "shape": adaln["shape"],
         "max_bf16_steps": adaln["max_bf16_steps"],
         "ragged": adaln["ragged"], "f32": adaln["f32"]})
+    rows.append(qkv_prep_entry(qkv, video_launches["qkv_prep"]))
     check(train_launches["flash_bwd"] > 0,
           "flash_bwd never launched on the training path")
     rows.append(bwd_entry(measured["flash_bwd"], train_launches["flash_bwd"]))

@@ -17,11 +17,13 @@ softmax accumulate in f32. `remat=True` recomputes each layer in the
 backward (torch.utils.checkpoint, non-reentrant, so that the first
 forward and the recompute see the same grad mode and take the same
 attention route). `quantize_int8` turns the four per-layer matrices into
-W8A8 leaves ({"q": int8 (in, out), "s": f32 (out,)}), which `_linear`
+W8A8 leaves ({"q": int8 (in, out), "s": f32 (out,)}), which `_product`
 multiplies in int8 (LANDIFF_DIT_INT8, pipeline/dif_infer.py). With
 LANDIFF_REMAT_SAVE_ATTN=1 the layer checkpoint keeps the flash out / lse
 (`_remat_policy`). `pos_embed="rotary3d"` rotates q / k (and v with
-`rot_v`) after qk-LN and adds no sincos table. `control_mlp_adapter_
+`rot_v`) after qk-LN and adds no sincos table. Without a gradient on
+the card, the qkv product's bias, qk-LN and rotation run as one kernel
+(`_qkv`, ops/qkv_prep.py). `control_mlp_adapter_
 forward` is the lighter control alternative. `forward_tp` /
 `control_warp_forward_tp` run the Megatron tensor-parallel layers on one
 rank's heads (parallel/tp_infer.py), with `sp_group` also on one rank's
@@ -47,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from landiff_tpu_torch.config import DiTConfig
 from landiff_tpu_torch.observability import named_scope
+from landiff_tpu_torch.ops import qkv_prep
 from landiff_tpu_torch.ops.adaln import adaln_modulate
 from landiff_tpu_torch.ops.attention import attention, \
     save_flash_residuals_context
@@ -210,14 +213,17 @@ def _w8a8_matmul(x, q, s):
     return (y.float() * sa * s).to(x.dtype)
 
 
-def _linear(p, name, x):
-    """x @ W + b; a W8A8 leaf {"q", "s"} runs `_w8a8_matmul` (dit.py:189)."""
+def _product(p, name, x):
+    """x @ W; a W8A8 leaf {"q", "s"} runs `_w8a8_matmul` (dit.py:189)."""
     w = p[f"{name}_w"]
     if isinstance(w, dict):
-        y = _w8a8_matmul(x, w["q"], w["s"])
-    else:
-        y = x @ w.to(x.dtype)
-    return y + p[f"{name}_b"].to(x.dtype)
+        return _w8a8_matmul(x, w["q"], w["s"])
+    return x @ w.to(x.dtype)
+
+
+def _linear(p, name, x):
+    """x @ W + b (`_product`, then the bias)."""
+    return _product(p, name, x) + p[f"{name}_b"].to(x.dtype)
 
 
 _INT8_LAYER_LEAVES = ("qkv_w", "attn_out_w", "mlp0_w", "mlp1_w")
@@ -261,6 +267,42 @@ def _adaln_sel(p, emb, x, tl: int, offset: int = 0):
     return mods, sel
 
 
+def _qkv_chain(y, p, cfg: DiTConfig, offset: int = 0):
+    """q, k, v (B, S, H, Dk) from the bias-free qkv product y by PyTorch
+    operations: the bias, qk-LN (eps 1e-6) on the strided q / k views,
+    the rotary positions (y holding positions [offset, offset + S)), v
+    copied contiguous."""
+    B, S, _ = y.shape
+    H, Dk = cfg.num_heads, cfg.head_dim
+    q, k, v = (y + p["qkv_b"].to(y.dtype)).chunk(3, dim=-1)
+    q = q.reshape(B, S, H, Dk)
+    k = k.reshape(B, S, H, Dk)
+    v = v.reshape(B, S, H, Dk).contiguous()
+    if cfg.qk_ln:
+        q = layer_norm(q, p["q_ln_w"], p["q_ln_b"], 1e-6)
+        k = layer_norm(k, p["k_ln_w"], p["k_ln_b"], 1e-6)
+    return _maybe_rotary(q, k, v, cfg, offset)
+
+
+def _qkv(p, h, cfg: DiTConfig):
+    """The attention inputs q, k, v of a layer from its modulated stream
+    h: the qkv product, then one pass of the qkv kernel (ops/qkv_prep.py)
+    where `qkv_prep.kernel_takes` holds (CUDA, bf16 or f32, heads of 64,
+    no gradient), else `_qkv_chain`."""
+    dt = h.dtype
+    y = _product(p, "qkv", h)
+    ln = ((p["q_ln_w"], p["q_ln_b"], p["k_ln_w"], p["k_ln_b"])
+          if cfg.qk_ln else ())
+    if not qkv_prep.kernel_takes(y, cfg.head_dim, p["qkv_b"], *ln):
+        return _qkv_chain(y, p, cfg)
+    ln = [t.to(dt) for t in ln] or [None] * 4
+    tables = (_rotary3d_on(cfg, str(y.device), dt)
+              if cfg.pos_embed == "rotary3d" else (None, None))
+    return qkv_prep.qkv_prep(y, p["qkv_b"].to(dt), *ln, *tables,
+                             heads=cfg.num_heads, qk_ln=cfg.qk_ln,
+                             rot_v=cfg.rot_v, eps=1e-6)
+
+
 def _layer(p, x, emb, cfg: DiTConfig, attn_impl="auto"):
     """One AdaLN DiT layer over the concatenated [text|video] sequence.
     attn_impl: a route of `attention`, or a callable (q, k, v) -> out in
@@ -268,7 +310,6 @@ def _layer(p, x, emb, cfg: DiTConfig, attn_impl="auto"):
     with named_scope("landiff.dit.layer"):
         B, S, D = x.shape
         tl = cfg.text_length
-        H, Dk = cfg.num_heads, cfg.head_dim
         dt = x.dtype
         with named_scope("landiff.dit.modulate"):
             mods, sel = _adaln_sel(p, emb, x, tl)
@@ -291,14 +332,7 @@ def _layer(p, x, emb, cfg: DiTConfig, attn_impl="auto"):
 
         h = modulate(x, "ln1", 0, 1)
         with named_scope("landiff.dit.attn"):
-            q, k, v = _linear(p, "qkv", h).chunk(3, dim=-1)
-            q = q.reshape(B, S, H, Dk)
-            k = k.reshape(B, S, H, Dk)
-            v = v.reshape(B, S, H, Dk).contiguous()
-            if cfg.qk_ln:
-                q = layer_norm(q, p["q_ln_w"], p["q_ln_b"], 1e-6)
-                k = layer_norm(k, p["k_ln_w"], p["k_ln_b"], 1e-6)
-            q, k, v = _maybe_rotary(q, k, v, cfg)
+            q, k, v = _qkv(p, h, cfg)
             with named_scope("landiff.dit.flash"):
                 attn = (attn_impl(q, k, v) if callable(attn_impl)
                         else attention(q, k, v, impl=attn_impl)
@@ -551,19 +585,11 @@ def _layer_sp(p, x, emb, cfg: DiTConfig, attn_impl, sp_group, offset):
     attention, a ring over sp_group; no all-reduce. LayerNorm and modulate
     stay unfused, as JAX's."""
     B, S, D = x.shape
-    H, Dk = cfg.num_heads, cfg.head_dim
     _, sel = _adaln_sel(p, emb, x, cfg.text_length, offset)
 
     h = layer_norm(x, p["ln1_w"], p["ln1_b"], 1e-6)
     h = h * (1.0 + sel(1)) + sel(0)
-    q, k, v = _linear(p, "qkv", h).chunk(3, dim=-1)
-    q = q.reshape(B, S, H, Dk)
-    k = k.reshape(B, S, H, Dk)
-    v = v.reshape(B, S, H, Dk).contiguous()
-    if cfg.qk_ln:
-        q = layer_norm(q, p["q_ln_w"], p["q_ln_b"], 1e-6)
-        k = layer_norm(k, p["k_ln_w"], p["k_ln_b"], 1e-6)
-    q, k, v = _maybe_rotary(q, k, v, cfg, offset)
+    q, k, v = _qkv_chain(_product(p, "qkv", h), p, cfg, offset)
     attn = _attend(q, k, v, attn_impl, sp_group).reshape(B, S, D)
     x = x + sel(2) * _linear(p, "attn_out", attn)
 

@@ -1,7 +1,7 @@
 """Build and bind the port's CUDA kernels.
 
 Each source under csrc/ (flash_fwd.cu, flash_bwd.cu, flash_f32.cu,
-adaln.cu) is compiled
+adaln.cu, qkv_prep.cu) is compiled
 by nvcc for sm_90a into its own shared library with a plain C interface
 and loaded with ctypes. The build runs at first use, into a directory git
 ignores (ops/_build/), keyed by a hash of the source, the shared headers
@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu",
            "flash_bwd": CSRC / "flash_bwd.cu",
-           "flash_f32": CSRC / "flash_f32.cu", "adaln": CSRC / "adaln.cu"}
+           "flash_f32": CSRC / "flash_f32.cu", "adaln": CSRC / "adaln.cu",
+           "qkv_prep": CSRC / "qkv_prep.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -206,4 +207,14 @@ def adaln_library() -> ctypes.CDLL:
     lib.landiff_adaln_modulate.argtypes = (
         [ptr] * 8 + [i32] * 8 + [f32, i32, ptr])
     lib.landiff_adaln_modulate.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def qkv_prep_library() -> ctypes.CDLL:
+    """The DiT's qkv preparation library with its C signature declared."""
+    lib = ctypes.CDLL(str(build(["qkv_prep"])["qkv_prep"]))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.landiff_qkv_prep.argtypes = [ptr] * 11 + [i32] * 6 + [f32, i32, ptr]
+    lib.landiff_qkv_prep.restype = i32
     return lib

@@ -1,6 +1,6 @@
 """PyTorch port: the CUDA kernels (flash forwards, flash backward, fused
-adaLN) against their plain versions, on the card only (skipped elsewhere; run them where
-the card is, with
+adaLN, the DiT's qkv preparation) against their plain versions, on the
+card only (skipped elsewhere; run them where the card is, with
 `python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py`).
 
 Tolerance (attention.kernel_error): max |kernel - plain| within one bf16
@@ -31,10 +31,10 @@ attention.int8_f64_reference (codes, scales and scores in f32, as the
 kernel makes them, the rest in float64), whose scores the kernel's equal
 bit for bit; their variants within attention.f32_variant_limits.
 
-The adaLN kernel and its plain version both compute in f32 and round
-once: within one bf16 step per element in bf16 (steps taken at the
-element's own size, not below that at 2^-7) and 1e-5 relative + 1e-5
-absolute in f32.
+The adaLN kernel and the qkv preparation kernel, and their plain
+versions, all compute in f32 and round once: within one bf16 step per
+element in bf16 (steps taken at the element's own size, not below that
+at 2^-7) and 1e-5 relative + 1e-5 absolute in f32.
 
 The tiny serving engine and LANDIFF_OFFLOAD run on the card too: the
 served videos equal infer_video.generate's to the bit, and the offload
@@ -498,6 +498,180 @@ def test_adaln_kernel_backward_is_the_reference(dev):
     TN.adaln_reference(*ref, text_len=11).square().sum().backward()
     for a, r in zip(args, ref):
         torch.testing.assert_close(a.grad, r.grad, atol=2e-4, rtol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the DiT's qkv preparation (csrc/qkv_prep.cu), held to qkv_prep_plain as
+# the adaLN kernel is to its plain version: both compute in f32 and round
+# once
+
+
+# (B, S, heads, rotary config): the 2b and 5b DiT shapes (226 text + 17,550
+# video positions), and a ragged one whose 37 positions (13 text) fill no
+# warp's chunks evenly
+_QKV_SHAPES = {"2b": (2, 17776, 30), "5b": (2, 17776, 48), "ragged": (1, 37, 3)}
+
+
+def _qkv_prep_args(dev, shape, dtype, rotary, rot_v=False, seed=0):
+    import dataclasses
+
+    from landiff_tpu_torch.config import DiTConfig
+    from landiff_tpu_torch.models import dit as tdit
+
+    B, S, H = _QKV_SHAPES[shape]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    y = (r(B, S, 3 * H * 64) + 0.2).to(dtype)
+    bias = (0.1 * r(3 * H * 64)).to(dtype)
+    ln = [(1.5 + 0.2 * r(64)).to(dtype), (0.1 * r(64)).to(dtype),
+          (1.5 + 0.2 * r(64)).to(dtype), (0.1 * r(64)).to(dtype)]
+    tables = [None, None]
+    if rotary:
+        cfg = (DiTConfig(num_layers=1, hidden_size=H * 64, num_heads=H,
+                         latent_frames=2, latent_height=6, latent_width=8,
+                         text_length=13) if shape == "ragged"
+               else DiTConfig(hidden_size=H * 64, num_heads=H))
+        cfg = dataclasses.replace(cfg, pos_embed="rotary3d", rot_v=rot_v)
+        assert cfg.text_length + cfg.video_tokens == S
+        tables = list(tdit._rotary3d_on(cfg, str(dev), dtype))
+    return (y, bias, *ln, *tables), {"heads": H, "rot_v": rot_v}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,rotary,rot_v", [
+    ("2b", False, False), ("2b", True, False), ("5b", False, False),
+    ("5b", True, False), ("ragged", True, True), ("ragged", False, False)])
+def test_qkv_prep_kernel_matches_plain(dev, dtype, shape, rotary, rot_v):
+    from landiff_tpu_torch.ops import qkv_prep as QP
+
+    args, kw = _qkv_prep_args(dev, shape, dtype, rotary, rot_v)
+    before = QP.qkv_prep.launches
+    got = QP.qkv_prep(*args, **kw)
+    torch.cuda.synchronize()
+    assert QP.qkv_prep.launches == before + 1
+    want = QP.qkv_prep_plain(*args, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape and a.is_contiguous()
+        if dtype == torch.bfloat16:
+            assert adaln_steps(a, b) <= 1.0
+        else:
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    if not rot_v:
+        # v is the product plus its bias, rounded once either way
+        assert torch.equal(got[2], want[2])
+
+
+def test_qkv_prep_without_qk_ln_on_the_card(dev):
+    from landiff_tpu_torch.ops import qkv_prep as QP
+
+    args, kw = _qkv_prep_args(dev, "ragged", torch.bfloat16, True)
+    y, bias, *_, cos, sin = args
+    got = QP.qkv_prep(y, bias, cos=cos, sin=sin, qk_ln=False, **kw)
+    want = QP.qkv_prep_plain(y, bias, cos=cos, sin=sin, qk_ln=False, **kw)
+    for a, b in zip(got, want):
+        assert adaln_steps(a, b) <= 1.0
+
+
+def test_qkv_prep_refuses_what_it_does_not_take(dev):
+    from landiff_tpu_torch.ops import qkv_prep as QP
+
+    args, kw = _qkv_prep_args(dev, "ragged", torch.bfloat16, True)
+    y, bias, *rest = args
+    with pytest.raises(ValueError):                      # not contiguous
+        QP.qkv_prep(y.expand(2, -1, -1), bias, *rest, **kw)
+    flat = torch.empty(y.numel() + 1, dtype=y.dtype, device=dev)
+    odd = flat[1:].view(y.shape)                         # 2 bytes off
+    odd.copy_(y)
+    with pytest.raises(ValueError):
+        QP.qkv_prep(odd, bias, *rest, **kw)
+    with pytest.raises(TypeError):                       # float16
+        QP.qkv_prep(y.half(), bias.half(), *(t.half() for t in rest), **kw)
+    with pytest.raises(TypeError):                       # bias in f32
+        QP.qkv_prep(y, bias.float(), *rest, **kw)
+    with pytest.raises(ValueError):                      # heads of 32
+        QP.qkv_prep(y, bias, *rest, heads=6)
+    with pytest.raises(RuntimeError):                    # under a gradient
+        QP.qkv_prep(y.float().requires_grad_(True), bias.float(),
+                    *(t.float() for t in rest), **kw)
+
+
+@pytest.mark.parametrize("layers,control,pos", [(30, 15, "sincos3d"),
+                                                (42, 21, "rotary3d")])
+def test_qkv_prep_launches_per_model_call(dev, layers, control, pos):
+    """One launch a layer of a control_warp_forward: 45 at the 2b depth, 63
+    at the 5b depth (tiny widths, one head of 64)."""
+    import dataclasses
+
+    from landiff_tpu_torch import config as tcfg
+    from landiff_tpu_torch.models import dit as tdit
+    from landiff_tpu_torch.ops import qkv_prep as QP
+    from landiff_tpu_torch.pipeline import dif_infer as tdi
+    from landiff_tpu_torch.utils import fill_zero_leaves, tree_map
+
+    full = tcfg.tiny_test_config()
+    full = dataclasses.replace(full, dit=dataclasses.replace(
+        full.dit, num_heads=1, num_layers=layers, control_layers=control,
+        pos_embed=pos))
+    cfg = full.dit
+    gen = torch.Generator().manual_seed(0)
+    params = tree_map(lambda t: t.to(dev),
+                      fill_zero_leaves(tdi.init_params(gen, full), gen))
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((2, cfg.latent_frames, cfg.in_channels,
+                     cfg.latent_height, cfg.latent_width), generator=g,
+                    device=dev)
+    ctx = torch.randn((2, cfg.text_length, cfg.text_dim), generator=g,
+                      device=dev)
+    before = QP.qkv_prep.launches
+    with torch.inference_mode():
+        out = tdit.control_warp_forward(
+            params["main"], params["control"], x,
+            torch.tensor([500.0, 500.0], device=dev), ctx, cfg,
+            torch.randn(x.shape, generator=g, device=dev))
+    torch.cuda.synchronize()
+    assert QP.qkv_prep.launches - before == layers + control
+    assert bool(torch.isfinite(out.float()).all())
+
+
+@pytest.mark.parametrize("mode", ["grad_params", "grad_input", "inference"])
+def test_layer_dispatch_on_the_card(dev, monkeypatch, mode):
+    """Under a gradient `_layer` on the card runs the chain: output and
+    gradients equal, bit for bit, the layer's with the chain it had before
+    the kernel, and the kernel does not launch. Without one the kernel
+    launches once, and the layer's output is within the bf16 roundings the
+    chain adds (1e-2 relative RMS) of the chain's."""
+    from test_torch_port_qkv_prep import (_layer_inputs, _parent_qkv,
+                                          _run_layer)
+
+    from landiff_tpu_torch.models import dit as tdit
+    from landiff_tpu_torch.ops import qkv_prep as QP
+    from landiff_tpu_torch.utils import tree_map
+
+    cfg, p, x, emb = _layer_inputs("rotary3d", "inference", False)
+    p = tree_map(lambda t: t.to(dev), p)
+    x, emb = x.to(dev), emb.to(dev)
+    if mode == "grad_params":
+        for t in p.values():
+            t.requires_grad_(True)
+    if mode == "grad_input":
+        x.requires_grad_(True)
+    before = QP.qkv_prep.launches
+    out, grads = _run_layer(cfg, p, x, emb, mode)
+    torch.cuda.synchronize()
+    launched = QP.qkv_prep.launches - before
+    monkeypatch.setattr(tdit, "_qkv", _parent_qkv)
+    want, want_grads = _run_layer(cfg, p, x, emb, mode)
+    if mode == "inference":
+        assert launched == 1
+        rel = ((out.float() - want.float()).norm()
+               / want.float().norm()).item()
+        assert rel <= 1e-2, rel
+        return
+    assert launched == 0
+    assert torch.equal(out, want)
+    assert grads and len(grads) == len(want_grads)
+    for a, b in zip(grads, want_grads):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
